@@ -1,0 +1,89 @@
+"""Masked voxel-grid downsampling and stable compaction with static shapes.
+
+Counterpart of the JAX package's ``ops/voxel.py``: the same segment-mean
+semantics (one averaged point per occupied voxel, grid anchored at the
+origin), written with stable ``torch.sort``, gathers and one ``cumsum`` —
+no ``unique``, ``nonzero``, boolean-mask indexing or ``.item()``, each of
+which would synchronise with the host and make shapes data dependent.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_OFF = 4096          # voxel-index offset: coordinates in [-OFF, OFF) voxels
+_STRIDE = 2 * _OFF   # row stride of the flattened voxel key
+# invalid-point key: sorts after every real key (real keys < _STRIDE^2 = 2^26)
+# and leaves bit 27 free for the segment-end flag of the second sort
+_SENTINEL = 2**26
+
+
+def voxel_keys(xy: torch.Tensor, valid: torch.Tensor, voxel_size: float) -> torch.Tensor:
+    """Flattened int32 voxel key per point; invalid points get the sentinel."""
+    ij = torch.floor(xy / voxel_size).to(torch.int32)
+    ij = torch.clamp(ij + _OFF, 0, _STRIDE - 1)
+    key = ij[:, 0] * _STRIDE + ij[:, 1]
+    return torch.where(valid, key, torch.full_like(key, _SENTINEL))
+
+
+def _seg(c: torch.Tensor) -> torch.Tensor:
+    """Differences of consecutive inclusive prefix sums along the last dim."""
+    return c - torch.cat([torch.zeros_like(c[:, :1]), c[:, :-1]], dim=1)
+
+
+def voxel_downsample(xy: torch.Tensor, valid: torch.Tensor, voxel_size: float):
+    """Segment-mean voxel downsample: ``(N, 2), (N,) -> (N, 2), (N,)``.
+
+    One representative per occupied voxel, packed at the front in key order;
+    invalid slots are zeroed.  After a stable sort by key, each segment's sum
+    is the difference of inclusive prefix sums at consecutive segment ends,
+    and a second stable sort on the packed (not-an-end flag, key) brings the
+    ends to the front.  Coordinates accumulate split: ``hi`` is the nearest
+    multiple of 32 mm (exact in f32), ``lo`` the residual in [-16, 16), which
+    carries all the rounding error.  ``cumsum`` adds in another order on the
+    card than on the CPU, so results agree to rounding (~1e-4 mm), not bits.
+    """
+    key = voxel_keys(xy, valid, voxel_size)
+    w = valid.to(torch.float32)
+    k, perm = torch.sort(key, stable=True)
+    xs = (xy[:, 0] * w)[perm]
+    ys = (xy[:, 1] * w)[perm]
+    ws = (k != _SENTINEL).to(torch.float32)
+
+    def split(v):
+        hi = torch.round(v * (1.0 / 32.0)) * 32.0
+        return hi, v - hi
+
+    xh, xl = split(xs)
+    yh, yl = split(ys)
+    # the five prefix sums run as one scan along the contiguous dim: a scan
+    # down dim 0 of an (N, 5) tensor takes CUDA's slow outer-dim kernel
+    c = torch.cumsum(torch.stack([xh, xl, yh, yl, ws]), dim=1)
+    last = torch.cat([k[:-1] != k[1:], torch.ones(1, dtype=torch.bool, device=k.device)])
+    pkey = torch.where(last, torch.zeros_like(k), torch.full_like(k, _SENTINEL * 2)) + k
+    pk, perm2 = torch.sort(pkey, stable=True)
+    s = _seg(c[:, perm2])
+    sx = s[0] + s[1]
+    sy = s[2] + s[3]
+    sw = s[4]
+    out_valid = (pk < _SENTINEL) & (sw > 0)
+    out_xy = torch.stack([sx, sy], dim=1) / torch.clamp(sw, min=1.0)[:, None]
+    out_xy = torch.where(out_valid[:, None], out_xy, torch.zeros_like(out_xy))
+    return out_xy, out_valid
+
+
+def compact(xy: torch.Tensor, valid: torch.Tensor, capacity: int):
+    """Stable-pack valid points to the front and truncate/pad to ``capacity``
+    (insertion order is kept; points beyond ``capacity`` drop newest-last)."""
+    key = (~valid).to(torch.int32)
+    ks, perm = torch.sort(key, stable=True)
+    xy_sorted = xy[perm]
+    valid_sorted = ks == 0
+    n = xy.shape[0]
+    if capacity <= n:
+        return xy_sorted[:capacity], valid_sorted[:capacity]
+    pad = capacity - n
+    return (
+        torch.cat([xy_sorted, xy.new_zeros((pad, 2))]),
+        torch.cat([valid_sorted, valid.new_zeros(pad)]),
+    )
