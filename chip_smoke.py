@@ -14,6 +14,7 @@ non-zero):
   4. the main path: ``Slam(cfg).run(scans)`` at the full-width offline
      configuration (without the GICP rescue) over a seeded synthetic
      warehouse, with launch counters reset just before and read just after;
+     five steps under PyTorch's sync debug mode (no host synchronisation);
      then the first scans again on ``device="cpu"`` (plain versions) and a
      comparison of poses and accept flags;
   5. one JSON line listing the kernels, then the card line, then the result
@@ -176,11 +177,10 @@ def _kernel_events(torch, prof) -> list:
     return [e for e in prof.key_averages() if e.device_type == cuda and e.self_device_time_total > 0]
 
 
-def _device_ms(torch, fn, reps: int) -> float:
-    """Device time per call: the sum of the kernels' own times that
-    ``torch.profiler`` records over ``reps`` calls.  Where the profiler
-    records no device time, the CUDA-event time per call stands in (it
-    includes the host's launch gaps) and a note says so."""
+def _device_profile(torch, fn, reps: int) -> dict:
+    """Device time per call by event name (ms): the kernels' own times that
+    ``torch.profiler`` records over ``reps`` calls.  Raises if it records
+    none, so a time always means device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -189,11 +189,15 @@ def _device_ms(torch, fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in _kernel_events(torch, prof))
-    if us > 0:
-        return us / reps / 1e3
-    print("    (profiler recorded no device time: CUDA-event time instead)", flush=True)
-    return _cuda_ms(torch, fn, reps)
+    times = {e.key: e.self_device_time_total / reps / 1e3 for e in _kernel_events(torch, prof)}
+    if not times:
+        raise RuntimeError("the profiler recorded no device time")
+    return times
+
+
+def _device_ms(torch, fn, reps: int) -> float:
+    """Device time per call (ms), summed over the call's device events."""
+    return sum(_device_profile(torch, fn, reps).values())
 
 
 def _require(cond: bool, what: str) -> None:
@@ -322,26 +326,37 @@ def check_kernels(cfg) -> dict:
     kw2 = dict(side_y=side_y, side_x=side_x, k=cfg.occupancy.max_ray_px,
                p_occ_inc=cfg.occupancy.p_occ_inc, p_free_decay=cfg.occupancy.p_free_decay,
                block_threshold=cfg.occupancy.block_threshold)
-    g_k = raster_update(*args2, **kw2)
-    g_p = raster_update_plain(*args2, **kw2)
+    accept = torch.tensor(True, device=dev)
+    g_k = raster_update(*args2, accept, **kw2)
+    g_p = raster_update_plain(*args2, accept, **kw2)
     torch.cuda.synchronize()
     err2 = float((g_k - g_p).abs().max())
     _require(err2 <= 1e-6, f"K2: grid error {err2}")
     changed = int(((g_p - occ).abs() > 0).sum())
     _require(changed > 0 and float(g_k[h // 2, w // 2 + 50]) == 0.5,
              "K2: the wall did not shadow the cells behind it")
-    ms2 = _device_ms(torch, lambda: raster_update(*args2, **kw2), 200)
-    plain2 = _device_ms(torch, lambda: raster_update_plain(*args2, **kw2), 20)
+    prof2 = _device_profile(torch, lambda: raster_update(*args2, accept, **kw2), 200)
+    ms2 = sum(prof2.values())
+    plain2 = _device_ms(torch, lambda: raster_update_plain(*args2, accept, **kw2), 20)
+    # what the step paid before K2 took the accept flag: a clone of the grid
+    # for the kernel's output and a select over the grid on accept
+    other = occ + 0.0
+    clone_ms = _device_ms(torch, lambda: occ.clone(), 200)
+    select_ms = _device_ms(torch, lambda: torch.where(accept, occ, other), 200)
     n_rays = int((live & inwin).sum())
     visits = n_rays * (win + 1)
-    # the function returns a new grid: the whole input read once, the output written once
-    b2 = _bound(12.0 * visits + 20.0 * side_y * side_x, 2 * 4 * h * w + n * 9 + 16)
+    # the work the function needs: the window read and written once, the rays
+    # and the flag; the full-grid copy is the wrapper's own overhead
+    b2 = _bound(12.0 * visits + 20.0 * side_y * side_x, 2 * 4 * side_y * side_x + n * 9 + 16 + 1)
     kernels["raster_update"] = dict(
         name="raster_update", route="cuda", source="icp_slam_yolo_tpu_torch/csrc/raster.cu",
         replaces="icp_slam_yolo_tpu/ops/pallas/raster_fused.py:352", max_abs_err=err2,
         ms=ms2, plain_ms=plain2, bound_ms=b2[0], bound_by=b2[1], library_ms=None)
+    parts = ", ".join(f"{k[:40]} {v * 1e3:.2f}" for k, v in sorted(prof2.items(), key=lambda kv: -kv[1]))
     print(f"[3] K2 raster_update {n_rays} rays, window {side_y}x{side_x} of {h}x{w}: max err "
-          f"{err2:.2g} (tol 1e-6); device {ms2 * 1e3:.2f} us, plain {plain2 * 1e3:.1f} us", flush=True)
+          f"{err2:.2g} (tol 1e-6); device {ms2 * 1e3:.2f} us ({parts}), plain {plain2 * 1e3:.1f} us, "
+          f"bound {b2[0] * 1e3:.3f} us; a full-grid clone {clone_ms * 1e3:.2f} us and select "
+          f"{select_ms * 1e3:.2f} us (what the step no longer runs)", flush=True)
 
     return kernels
 
@@ -350,7 +365,8 @@ def check_edge_cases(cfg) -> int:
     """Phase 3, continued: each kernel against its plain version at the edges
     the main path can reach but the shapes above do not: ragged source and
     target counts, no valid target, no live source row, Anderson(1), a
-    single ray, no ray and a window clamped at the grid's corner.  Returns
+    single ray, no ray, a window clamped at the grid's corner, and a
+    rejected scan (accept false) that must leave the grid as it was.  Returns
     the number of cases."""
     import torch
 
@@ -413,10 +429,14 @@ def check_edge_cases(cfg) -> int:
         ey = torch.tensor(rng.integers(max(ry - win, 0), min(ry + win, h), n) - y0, dtype=torch.int32, device=dev)
         ex = torch.tensor(rng.integers(max(rx - win, 0), min(rx + win, w), n) - x0, dtype=torch.int32, device=dev)
         live = mask(rng.random(n) < 0.9)
-        err = float((raster_update(occ, meta, ey, ex, live, **kw2)
-                     - raster_update_plain(occ, meta, ey, ex, live, **kw2)).abs().max())
-        _require(err <= 1e-6, f"K2 edge case {n} rays, robot cell ({ry}, {rx}): grid error {err}")
-        n_cases += 1
+        for acc in (None, mask(True), mask(False)):
+            g_k = raster_update(occ, meta, ey, ex, live, acc, **kw2)
+            err = float((g_k - raster_update_plain(occ, meta, ey, ex, live, acc, **kw2)).abs().max())
+            _require(err <= 1e-6, f"K2 edge case {n} rays, robot cell ({ry}, {rx}), accept {acc}: "
+                                  f"grid error {err}")
+            _require(acc is None or bool(acc) or torch.equal(g_k, occ),
+                     "K2: a rejected scan changed the grid")
+            n_cases += 1
     torch.cuda.synchronize()
     print(f"[3] edge cases: {n_cases} cases, every kernel equal to its plain version within the "
           f"tolerances above", flush=True)
@@ -472,6 +492,23 @@ def replay(cfg, n_scans: int = 300, n_cpu: int = 12) -> tuple[dict, float]:
     occ_np = state.occ.cpu().numpy()
     _require(occ_np.min() >= 0.0 and occ_np.max() <= 1.0 and (occ_np != 0.5).sum() > 1000,
              "occupancy grid not painted or out of [0, 1]")
+
+    # the step enqueues its work without waiting for the card: PyTorch's sync
+    # debug mode raises on each synchronising call it detects
+    from icp_slam_yolo_tpu_torch.slam import pipeline
+
+    scans_dev = torch.from_numpy(padded[:6]).to("cuda")
+    step = pipeline.make_step(cfg)
+    st = pipeline.init_state(scans_dev[0], cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(1, 6):
+            st, _ = step(st, scans_dev[t])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("[4] 5 steps under torch.cuda.set_sync_debug_mode('error'): no host synchronisation", flush=True)
 
     # where the device time of a step goes, over a short window under the profiler
     from torch.profiler import ProfilerActivity, profile

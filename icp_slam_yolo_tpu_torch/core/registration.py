@@ -3,8 +3,7 @@
 Counterpart of the JAX package's ``core/registration.py`` for the
 ``point_to_point`` estimator.  ``backend="auto"`` or ``"fused"`` runs K1
 (`ops/pallas/icp_fused`): the CUDA kernel for CUDA tensors, its plain version
-for CPU tensors.  ``backend="xla"`` runs the plain per-iteration loop (K3
-correspondences + `best_fit_se2`), the JAX package's non-fused formulation.
+for CPU tensors.  The port has one ICP, so ``backend="xla"`` raises.
 
 ``inlier_rmse`` follows Open3D: RMS distance over correspondences within the
 threshold at the final pose; no inliers, or fewer than ``min_points`` valid
@@ -21,8 +20,6 @@ import torch
 from icp_slam_yolo_tpu_torch.config import IcpConfig
 from icp_slam_yolo_tpu_torch.device import resolve_device
 from icp_slam_yolo_tpu_torch.ops import geometry as geo
-from icp_slam_yolo_tpu_torch.ops.kabsch import best_fit_se2
-from icp_slam_yolo_tpu_torch.ops.nn import nearest_neighbor
 from icp_slam_yolo_tpu_torch.ops.pallas.icp_fused import icp_fused
 
 
@@ -46,37 +43,12 @@ def check_supported(cfg: IcpConfig) -> None:
             "huber_delta_mm > 0 waits for ROADMAP.md 'Open items' 1, item 2 "
             "(GICP rescue and realtime preset)"
         )
-    if cfg.backend not in ("auto", "fused", "xla"):
+    if cfg.backend == "xla":
+        raise NotImplementedError(
+            "IcpConfig.backend='xla': the port has one ICP, K1 (backend 'auto' or 'fused')"
+        )
+    if cfg.backend not in ("auto", "fused"):
         raise ValueError(f"unknown IcpConfig.backend {cfg.backend!r}")
-
-
-def _icp_loop(src_xy, src_valid, tgt_xy, tgt_valid, init_pose, cfg: IcpConfig):
-    """The non-fused loop: ``max_iterations`` steps with a convergence freeze."""
-    f32 = dict(dtype=torch.float32, device=src_xy.device)
-    pose = init_pose
-    prev_err = torch.tensor(1e30, **f32)
-    done = torch.tensor(False, device=src_xy.device)
-    iters = torch.tensor(0, dtype=torch.int32, device=src_xy.device)
-    for _ in range(cfg.max_iterations):
-        moved = geo.se2_apply(pose, src_xy)
-        dist, idx = nearest_neighbor(moved, tgt_xy, tgt_valid, src_valid)
-        matched = tgt_xy[idx.long()]
-        w = src_valid & (dist < cfg.threshold_mm)
-        dtheta, dt = best_fit_se2(moved, matched, w)
-        new_pose = geo.se2_compose(torch.stack([dt[0], dt[1], dtheta]), pose)
-        err = torch.where(w, dist, torch.zeros_like(dist)).sum() / torch.clamp(w.sum(), min=1)
-        done_next = done | (torch.abs(prev_err - err) < cfg.tolerance)
-        pose = torch.where(done, pose, new_pose)
-        iters = iters + (~done).to(torch.int32)
-        prev_err, done = err, done_next
-    moved = geo.se2_apply(pose, src_xy)
-    dist, _ = nearest_neighbor(moved, tgt_xy, tgt_valid, src_valid)
-    inlier = src_valid & (dist < cfg.threshold_mm)
-    n_in = inlier.sum().to(torch.int32)
-    rmse = torch.sqrt(
-        torch.where(inlier, dist * dist, torch.zeros_like(dist)).sum() / torch.clamp(n_in, min=1)
-    )
-    return pose, rmse, n_in, iters
 
 
 def icp_masked(src_xy, src_valid, tgt_xy, tgt_valid, init_pose,
@@ -88,14 +60,11 @@ def icp_masked(src_xy, src_valid, tgt_xy, tgt_valid, init_pose,
     init_pose = init_pose.to(torch.float32)
     n_src = src_valid.sum()
     n_tgt = tgt_valid.sum()
-    if cfg.backend == "xla":
-        pose, rmse, n_in, n_iters = _icp_loop(src_xy, src_valid, tgt_xy, tgt_valid, init_pose, cfg)
-    else:
-        pose, rmse, n_in, n_iters = icp_fused(
-            src_xy, src_valid, tgt_xy, tgt_valid, init_pose,
-            iters=cfg.max_iterations, threshold_mm=cfg.threshold_mm,
-            tolerance=cfg.tolerance, anderson=cfg.anderson,
-        )
+    pose, rmse, n_in, n_iters = icp_fused(
+        src_xy, src_valid, tgt_xy, tgt_valid, init_pose,
+        iters=cfg.max_iterations, threshold_mm=cfg.threshold_mm,
+        tolerance=cfg.tolerance, anderson=cfg.anderson,
+    )
     degenerate = (n_src < cfg.min_points) | (n_tgt < cfg.min_points) | (n_in == 0)
     rmse = torch.where(degenerate, torch.full_like(rmse, float("inf")), rmse)
     pose = torch.where(degenerate, init_pose, pose)

@@ -10,19 +10,26 @@
 // p = min(1, p + inc * n_end).  A cell outside the window counts nothing and
 // never blocks.
 //
-// Bound on this card: bytes.  The function returns a new grid, so the least
-// work is the grid read once and written once (833 x 1000 f32 at the slice's
-// shapes, 6.7 MB, ~2 us at 3.35 TB/s); the rays add ~512 x 145 cell visits.
-// The wrapper's copy of the grid is that write; the kernels then touch only
-// the (side_y x side_x) window (384 x 384).  Design: pass 1 runs one warp per
-// ray (a thread per ray would chain ~145 dependent grid loads), reads the
-// frozen blocked grid straight from the unmodified input and atomicAdds
-// int32 free/endpoint counts into a zeroed window scratch; integer
-// counts are exact and commute, so the result does not depend on atomic
-// order.  Pass 2 is one thread per window cell.  Both read the full grid at
-// a device-side origin, so no window is sliced out or written back, and the
-// host never reads the origin.  The TPU kernel's one-hot MXU gathers and
-// scatters, wedge boxes and roll placement are not carried over.
+// Bound on this card: bytes, for the work the function needs: the window
+// (side_y x side_x f32, 384 x 384 at the slice's shapes, 1.18 MB) read and
+// written once, plus the rays; ~0.35 us at 3.35 TB/s.  The rays add
+// ~512 x 145 cell visits, far below the FP32 roof.
+//
+// Design: pass 1 runs one warp per ray (a thread per ray would chain ~145
+// dependent grid loads), reads the frozen blocked grid straight from the
+// unmodified input and atomicAdds int32 free/endpoint counts into a zeroed
+// window scratch; integer counts are exact and commute, so the result does
+// not depend on atomic order.  Pass 2 writes the whole output grid in one
+// pass, one thread per cell: a cell inside the window gets the update, every
+// other cell is copied.  The function returns a new grid (the SLAM state
+// stays functional), so that copy is the wrapper's own overhead beyond the
+// bound (the full 833 x 1000 grid, 6.7 MB read and written); fusing it here
+// spares a separate clone, and the accept flag (read on the device) lets the
+// step drop its full-grid select: on a rejected scan pass 1 returns at once
+// and pass 2 copies the grid unchanged.  Both passes read the full grid at a
+// device-side origin, so the host never reads the origin or the flag.  The
+// TPU kernel's one-hot MXU gathers and scatters, wedge boxes and roll
+// placement are not carried over.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,11 +46,12 @@ constexpr int kCellThreads = 256;
 __global__ void raster_count_kernel(
     const float* __restrict__ occ, int W, const int* __restrict__ meta,
     const int* __restrict__ ey, const int* __restrict__ ex,
-    const uint8_t* __restrict__ live, int N, int side_y, int side_x, int K,
-    float block_threshold, int* __restrict__ free_n, int* __restrict__ end_n) {
+    const uint8_t* __restrict__ live, const uint8_t* __restrict__ accept, int N,
+    int side_y, int side_x, int K, float block_threshold,
+    int* __restrict__ free_n, int* __restrict__ end_n) {
   const int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;  // uniform per warp
   const int lane = threadIdx.x & 31;
-  if (r >= N || !live[r]) return;
+  if (r >= N || !live[r] || (accept != nullptr && !*accept)) return;
   const int y0 = meta[0], x0 = meta[1], rly = meta[2], rlx = meta[3];
   const int eyv = ey[r], exv = ex[r];
   const int dy = abs(eyv - rly), dx = abs(exv - rlx);
@@ -73,43 +81,55 @@ __global__ void raster_count_kernel(
   }
 }
 
+// One thread per grid cell: the window's cells take the update (where the
+// scan was accepted), every other cell is copied.
 __global__ void raster_apply_kernel(
-    const float* __restrict__ occ, float* __restrict__ out, int W,
+    const float* __restrict__ occ, float* __restrict__ out, int H, int W,
     const int* __restrict__ meta, int side_y, int side_x,
     const int* __restrict__ free_n, const int* __restrict__ end_n,
-    float decay, float inc) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= side_y * side_x) return;
-  const int y = c / side_x, x = c - (c / side_x) * side_x;
-  const size_t g = static_cast<size_t>(meta[0] + y) * W + (meta[1] + x);
-  float p = occ[g] * powf(decay, static_cast<float>(free_n[c]));
-  out[g] = fminf(1.0f, p + inc * static_cast<float>(end_n[c]));
+    const uint8_t* __restrict__ accept, float decay, float inc) {
+  const size_t g = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (g >= static_cast<size_t>(H) * W) return;
+  float p = occ[g];
+  const int y = static_cast<int>(g / W) - meta[0];
+  const int x = static_cast<int>(g % W) - meta[1];
+  if ((accept == nullptr || *accept) && y >= 0 && y < side_y && x >= 0 && x < side_x) {
+    const int c = y * side_x + x;
+    p = p * powf(decay, static_cast<float>(free_n[c]));
+    p = fminf(1.0f, p + inc * static_cast<float>(end_n[c]));
+  }
+  out[g] = p;
 }
 
 }  // namespace
 
-extern "C" int slam_raster_update(const void* occ, void* out, int W,
+// accept: a device bool, or null for "always"; the window is updated only
+// where it is set.
+extern "C" int slam_raster_update(const void* occ, void* out, int H, int W,
                                   const void* meta, const void* ey,
-                                  const void* ex, const void* live, int N,
+                                  const void* ex, const void* live,
+                                  const void* accept, int N,
                                   int side_y, int side_x, int K,
                                   float block_threshold, float decay, float inc,
                                   void* counts, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* free_n = static_cast<int*>(counts);
   int* end_n = free_n + side_y * side_x;
+  const uint8_t* acc = static_cast<const uint8_t*>(accept);
   if (N > 0) {
     const int rays_per_block = kRayThreads / 32;
     raster_count_kernel<<<(N + rays_per_block - 1) / rays_per_block, kRayThreads, 0, s>>>(
         static_cast<const float*>(occ), W, static_cast<const int*>(meta),
         static_cast<const int*>(ey), static_cast<const int*>(ex),
-        static_cast<const uint8_t*>(live), N, side_y, side_x, K,
+        static_cast<const uint8_t*>(live), acc, N, side_y, side_x, K,
         block_threshold, free_n, end_n);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int cells = side_y * side_x;
-  raster_apply_kernel<<<(cells + kCellThreads - 1) / kCellThreads, kCellThreads, 0, s>>>(
-      static_cast<const float*>(occ), static_cast<float*>(out), W,
-      static_cast<const int*>(meta), side_y, side_x, free_n, end_n, decay, inc);
+  const long long cells = static_cast<long long>(H) * W;
+  raster_apply_kernel<<<static_cast<unsigned>((cells + kCellThreads - 1) / kCellThreads),
+                        kCellThreads, 0, s>>>(
+      static_cast<const float*>(occ), static_cast<float*>(out), H, W,
+      static_cast<const int*>(meta), side_y, side_x, free_n, end_n, acc, decay, inc);
   return static_cast<int>(cudaGetLastError());
 }

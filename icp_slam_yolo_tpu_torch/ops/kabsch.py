@@ -1,7 +1,7 @@
 """Weighted 2-D rigid-transform solve (closed-form Kabsch).
 
-Counterpart of ``best_fit_se2`` in the JAX package's ``ops/kabsch.py``; the
-plain ICP loop (`core/registration`, ``backend="xla"``) uses it.
+Counterpart of ``best_fit_se2`` in the JAX package's ``ops/kabsch.py``: the
+per-iteration solve of a non-fused ICP, kept as a leaf op for the GICP slice.
 """
 
 from __future__ import annotations

@@ -33,7 +33,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "slam_nn_argmin": [_P, _P, _P, _I, _I, _P, _P, _P],
-    "slam_raster_update": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P, _P],
+    "slam_raster_update": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P, _P],
     "slam_icp_fused": [_P, _P, _I, _P, _P, _I, _P, _I, _F, _F, _I, _P, _P, _P, _I, _P, _P],
 }
 

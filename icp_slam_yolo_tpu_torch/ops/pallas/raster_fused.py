@@ -6,9 +6,10 @@ grid takes).  The CUDA kernel is ``csrc/raster.cu``; its source says what
 bounds it and how it is laid out.
 
 Both versions take the FULL grid plus ``meta = [y0, x0, rly, rlx]`` (window
-origin in the grid, robot cell in the window) as a device tensor, so the
-caller never reads the origin on the host, and return a new grid whose cells
-outside the ``(side_y, side_x)`` window are copies of the input's.
+origin in the grid, robot cell in the window) and an optional ``accept``
+flag as device tensors, so the caller never reads them on the host, and
+return a new grid whose cells outside the ``(side_y, side_x)`` window, and
+all cells where ``accept`` is false, are copies of the input's.
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ def bresenham_cells(x0, y0, x1: torch.Tensor, y1: torch.Tensor, ray_valid: torch
     return RayCells(px=px, py=py, body=in_ray & (i < ell), endpoint=in_ray & (i == ell))
 
 
-def raster_update_plain(occ, meta, ey, ex, live, *, side_y: int, side_x: int, k: int,
+def raster_update_plain(occ, meta, ey, ex, live, accept=None, *, side_y: int, side_x: int, k: int,
                         p_occ_inc: float, p_free_decay: float, block_threshold: float):
     """Plain version of the kernel (same arguments, same result)."""
     w = occ.shape[1]
@@ -86,10 +87,12 @@ def raster_update_plain(occ, meta, ey, ex, live, *, side_y: int, side_x: int, k:
     widx = ((y0 + wy) * w + (x0 + wx)).reshape(-1)
     p = flat[widx] * torch.pow(torch.tensor(p_free_decay, dtype=torch.float32, device=occ.device), n_free)
     p = torch.clamp(p + p_occ_inc * n_end, max=1.0)
+    if accept is not None:
+        p = torch.where(accept, p, flat[widx])
     return flat.scatter(0, widx, p).reshape(occ.shape)
 
 
-def raster_update(occ, meta, ey, ex, live, *, side_y: int, side_x: int, k: int,
+def raster_update(occ, meta, ey, ex, live, accept=None, *, side_y: int, side_x: int, k: int,
                   p_occ_inc: float, p_free_decay: float, block_threshold: float):
     """One scan's occupancy update.
 
@@ -98,6 +101,9 @@ def raster_update(occ, meta, ey, ex, live, *, side_y: int, side_x: int, k: int,
       meta: ``(4,)`` int32 ``[y0, x0, rly, rlx]``; the window
         ``[y0, y0 + side_y) x [x0, x0 + side_x)`` must lie inside the grid.
       ey/ex: ``(N,)`` int32 window-local endpoint cells; live: ``(N,)`` bool.
+      accept: ``()`` bool, or ``None`` for always: the window is updated
+        only where it is true (the SLAM step's accept flag, kept on the
+        device so the step needs no select over the grid).
       k: samples per ray (``> window_px``).
 
     Returns the updated ``(H, W)`` grid.  Launches the CUDA kernel for CUDA
@@ -111,19 +117,22 @@ def raster_update(occ, meta, ey, ex, live, *, side_y: int, side_x: int, k: int,
     pallas.check_tensor(ey, "ey", torch.int32, (n,), dev)
     pallas.check_tensor(ex, "ex", torch.int32, (n,), dev)
     pallas.check_tensor(live, "live", torch.bool, (n,), dev)
+    if accept is not None:
+        pallas.check_tensor(accept, "accept", torch.bool, (), dev)
     if not (0 < side_y <= h and 0 < side_x <= w):
         raise ValueError(f"window {side_y}x{side_x} does not fit the grid {h}x{w}")
     kw = dict(side_y=side_y, side_x=side_x, k=k, p_occ_inc=p_occ_inc,
               p_free_decay=p_free_decay, block_threshold=block_threshold)
     if dev.type == "cpu":
-        return raster_update_plain(occ, meta, ey, ex, live, **kw)
+        return raster_update_plain(occ, meta, ey, ex, live, accept, **kw)
     if dev.type != "cuda":
         raise ValueError(f"raster_update: unsupported device {dev}")
-    out = occ.clone()
+    out = torch.empty_like(occ)  # the kernel writes every cell
     counts = torch.zeros(2 * side_y * side_x, dtype=torch.int32, device=dev)
     err = _lib.lib().slam_raster_update(
-        occ.data_ptr(), out.data_ptr(), w, meta.data_ptr(), ey.data_ptr(), ex.data_ptr(),
-        live.data_ptr(), n, side_y, side_x, int(k), float(block_threshold),
+        occ.data_ptr(), out.data_ptr(), h, w, meta.data_ptr(), ey.data_ptr(), ex.data_ptr(),
+        live.data_ptr(), None if accept is None else accept.data_ptr(), n, side_y, side_x,
+        int(k), float(block_threshold),
         float(p_free_decay), float(p_occ_inc), counts.data_ptr(), _lib.stream_ptr(dev),
     )
     _lib.check(err, "raster_update")

@@ -41,8 +41,9 @@ def window_dims(h: int, w: int, occ_cfg: OccupancyConfig) -> tuple[int, int]:
 
 def update_occupancy(occ: torch.Tensor, points_xy: torch.Tensor, valid: torch.Tensor,
                      robot_xy: torch.Tensor, map_cfg: MapConfig,
-                     occ_cfg: OccupancyConfig) -> torch.Tensor:
-    """One scan's occupancy update; returns a new ``(H, W)`` grid.
+                     occ_cfg: OccupancyConfig, accept: torch.Tensor | None = None) -> torch.Tensor:
+    """One scan's occupancy update; returns a new ``(H, W)`` grid, equal to
+    ``occ`` where the 0-d bool ``accept`` (``None``: always) is false.
 
     A ray is dropped when its endpoint cell lies outside
     ``[max(0, r - win), min(dim, r + win))`` on either axis; the window
@@ -66,7 +67,7 @@ def update_occupancy(occ: torch.Tensor, points_xy: torch.Tensor, valid: torch.Te
     x0 = torch.clamp(rx - win, 0, w - side_x)
     meta = torch.stack([y0, x0, ry - y0, rx - x0]).to(torch.int32)
     return raster_update(
-        occ, meta, (ey - y0).contiguous(), (ex - x0).contiguous(), (valid & in_window).contiguous(),
+        occ, meta, (ey - y0).contiguous(), (ex - x0).contiguous(), (valid & in_window).contiguous(), accept,
         side_y=side_y, side_x=side_x, k=occ_cfg.max_ray_px, p_occ_inc=occ_cfg.p_occ_inc,
         p_free_decay=occ_cfg.p_free_decay, block_threshold=occ_cfg.block_threshold,
     )

@@ -10,7 +10,9 @@ but ``step`` and ``prev_pose``.
 
 Where JAX branches with ``lax.cond``, the step computes the update and keeps
 it with ``torch.where`` over the state fields, so a replay enqueues every
-scan without one host synchronisation.
+scan without one host synchronisation.  The occupancy grid is the exception:
+K2 reads the accept flag on the device and commits its window only on
+accept, so the grid needs no select.
 
 Not ported yet (they raise, naming the ROADMAP.md item): the GICP rescue
 (``icp.rescue_estimator``), realtime semantics, the statistical outlier
@@ -98,16 +100,19 @@ def init_state(first_scan: torch.Tensor, cfg: SlamConfig = SlamConfig()) -> Slam
 
 
 def select_state(pred: torch.Tensor, a: SlamState, b: SlamState) -> SlamState:
-    """Field-wise ``torch.where(pred, a, b)`` (the port's ``lax.cond``)."""
-    return SlamState(*(torch.where(pred, x, y) for x, y in zip(a, b)))
+    """Field-wise ``torch.where(pred, a, b)`` (the port's ``lax.cond``),
+    except the grid, taken from ``a``: ``a.occ`` was updated under ``pred``."""
+    return SlamState(*(x if f == "occ" else torch.where(pred, x, y)
+                       for f, x, y in zip(SlamState._fields, a, b)))
 
 
 def make_step(cfg: SlamConfig = SlamConfig()):
     """Build ``step(state, scan_raw (n_max, 3)) -> (state, StepOutput)``."""
     check_supported_config(cfg)
 
-    def insert(state: SlamState, pose: torch.Tensor, xy, valid) -> SlamState:
-        """The accepted-scan update of the map and the occupancy grid."""
+    def insert(state: SlamState, pose: torch.Tensor, xy, valid, accepted) -> SlamState:
+        """The accepted-scan update of the map and the occupancy grid (the
+        grid's window is committed only where ``accepted``)."""
         cur_xy = geo.se2_apply(pose, xy)
         if cfg.use_duplicate_filter:
             cur_dd, valid_dd = voxel_downsample(cur_xy, valid, cfg.duplicate_voxel_mm)
@@ -123,7 +128,7 @@ def make_step(cfg: SlamConfig = SlamConfig()):
         over = big_valid.sum() > cfg.map_downsample_trigger
         big_xy = torch.where(over, ds_xy, big_xy)
         big_valid = torch.where(over, ds_valid, big_valid)
-        occ = update_occupancy(state.occ, cur_xy, valid, pose[:2], cfg.map, cfg.occupancy)
+        occ = update_occupancy(state.occ, cur_xy, valid, pose[:2], cfg.map, cfg.occupancy, accepted)
         big_valid = prune_keep_mask(big_xy, big_valid, occ, pose[:2], cfg.map, cfg.occupancy)
         map_xy, map_valid = compact(big_xy, big_valid, cfg.map_capacity)
         return SlamState(
@@ -139,7 +144,7 @@ def make_step(cfg: SlamConfig = SlamConfig()):
 
         # local-map mask: radius crop, full map when too few points survive
         d2 = ((state.map_xy - state.pose[:2]) ** 2).sum(-1)
-        r2 = torch.tensor(cfg.local_map_radius_mm, dtype=torch.float32, device=d2.device) ** 2
+        r2 = float(np.float32(cfg.local_map_radius_mm) ** 2)  # f32 square; a host scalar, no copy
         local = state.map_valid & (d2 < r2)
         use_local = local.sum() >= cfg.min_local_map_points
         tgt_valid = torch.where(use_local, local, state.map_valid)
@@ -164,7 +169,7 @@ def make_step(cfg: SlamConfig = SlamConfig()):
             )
         else:
             kept = state._replace(step=state.step + 1, prev_pose=state.pose)
-            new_state = select_state(accepted, insert(state, res.pose, xy, valid), kept)
+            new_state = select_state(accepted, insert(state, res.pose, xy, valid, accepted), kept)
 
         out = StepOutput(pose=new_state.pose, rmse=res.rmse, accepted=accepted,
                          n_points=n_points, n_iters=res.n_iters)

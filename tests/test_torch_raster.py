@@ -73,6 +73,19 @@ def test_wall_blocks_rays_and_sequence_agrees(rng):
     assert (t.numpy()[200:210, 205:240] < 0.5).any(), "free space in front of the wall must decay"
 
 
+def test_accept_flag_commits_the_window_only_on_accept(rng):
+    """The step's accept flag, read on the device: true gives the update,
+    false the input grid unchanged."""
+    robot = np.asarray([150.0, -90.0], np.float32)
+    occ = _grid_with_wall(rng)
+    pts, valid = _rays(rng, 300, robot)
+    args = (_t(occ), _t(pts), _t(valid), _t(robot), TMAP, TOCC)
+    always = traster.update_occupancy(*args)
+    assert torch.equal(traster.update_occupancy(*args, torch.tensor(True)), always)
+    assert not torch.equal(always, _t(occ))
+    assert torch.equal(traster.update_occupancy(*args, torch.tensor(False)), _t(occ))
+
+
 def test_world_to_px_truncates_toward_zero():
     xy = np.array([[-15014.9, 12510.0], [-29.9, 29.9], [0.0, -0.1], [15000.0, -12500.0]], np.float32)
     map_cfg = JMap()
@@ -129,6 +142,8 @@ def test_wrapper_checks_and_cpu_path():
         raster_update(occ, meta, ey, ex, live, **dict(kw, side_y=512))
     with pytest.raises(TypeError):
         raster_update(occ, meta.long(), ey, ex, live, **kw)
+    with pytest.raises(TypeError):
+        raster_update(occ, meta, ey, ex, live, torch.tensor(1), **kw)
     with pytest.raises(NotImplementedError):
         traster.update_occupancy(occ, torch.zeros((2, 2)), live, torch.zeros(2), TMAP,
                                  dataclasses.replace(TOCC, backend="xla"))
