@@ -6,18 +6,27 @@ Phases (each prints a line; any failed check raises, so the script exits
 non-zero):
   1. require a CUDA device; print the card's name and power limit;
   2. build the CUDA kernels (``nvcc``, first use) and print the build time;
-  3. hold each kernel (K1 ICP, K2 raster, K3 nearest neighbour) against its
-     plain PyTorch version on the card, at the slice's shapes, and time both
-     (CUDA events) and, for K3, the library call ``torch.cdist(...).min(1)``;
-     then again at small edge cases (ragged sizes, nothing valid, a window
-     clamped at the grid's corner);
-  4. the main path: ``Slam(cfg).run(scans)`` at the full-width offline
-     configuration (without the GICP rescue) over a seeded synthetic
+  3. hold each kernel (K1 ICP, K2 raster, K3 nearest neighbour, K4 fleet
+     raster) against its plain PyTorch version on the card, at the shapes the
+     paths below give it, one robot and batched (B = 8, B = 64), and time
+     both (device time from the profiler) and, for K3, the library call
+     ``torch.cdist(...).min``; then again at small edge cases (ragged sizes,
+     nothing valid, a window clamped at the grid's corner);
+  4. the ``slice`` path: ``Slam(cfg).run(scans)`` at the full-width offline
+     configuration without the GICP rescue over a seeded synthetic
      warehouse, with launch counters reset just before and read just after;
      five steps under PyTorch's sync debug mode (no host synchronisation);
      then the first scans again on ``device="cpu"`` (plain versions) and a
      comparison of poses and accept flags;
-  5. one JSON line listing the kernels, then the card line, then the result
+  5. the fleet path: ``fleet_run_sequence`` on the unchanged ``fleet`` preset,
+     8 distinct streams x 100 scans and 64 streams x 30 scans, with launch
+     counters (one launch per kernel per fleet step), quality checks per
+     robot, five fleet steps under the sync debug mode, a profiler window,
+     robot 0 against the single-robot ``Slam``, and a CPU fleet replay;
+  6. the presets: ``Slam(OFFLINE_CONFIG)`` and ``Slam(REALTIME_CONFIG)``
+     unchanged on sequences with garbage scans, which force the GICP rescue
+     and, under ``realtime``, the reseed; ``gicp()`` on the card against the CPU;
+  7. one JSON line listing the kernels, then the card line, then the result
      line ``{"ok": true, "device": {...}}`` last.
 
 The synthetic scan generator (`synthetic_sequence`) lives here so the CPU
@@ -174,25 +183,48 @@ def _kernel_events(torch, prof) -> list:
     """The profiler's per-name averages of device-side events (kernels,
     memcpys, memsets); host operators are left out so nothing counts twice."""
     cuda = torch.autograd.DeviceType.CUDA
-    return [e for e in prof.key_averages() if e.device_type == cuda and e.self_device_time_total > 0]
+    return [e for e in prof.key_averages()
+            if e.device_type == cuda and e.self_device_time_total > 0 and "spin_kernel" not in e.key]
+
+
+def _traced(torch, fn):
+    """Run ``fn`` under ``torch.profiler`` and return the profile.  The
+    tracer may miss device work of the first milliseconds after it is
+    switched on and of the last before it is switched off, so ``fn`` runs
+    between two idle spins of the card (`_kernel_events` leaves them out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def spin():
+        torch.cuda._sleep(20_000_000)  # ~10 ms of a kernel that does nothing
+        torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        spin()
+        fn()
+        torch.cuda.synchronize()
+        spin()
+    return prof
 
 
 def _device_profile(torch, fn, reps: int) -> dict:
     """Device time per call by event name (ms): the kernels' own times that
     ``torch.profiler`` records over ``reps`` calls.  Raises if it records
-    none, so a time always means device time."""
-    from torch.profiler import ProfilerActivity, profile
+    none, so a time always means device time.  Each name's time is its mean
+    over the records the tracer kept, times its launches per call, so a
+    lost record (reported on a line of its own) does not lower the time."""
+    def calls():
+        for _ in range(reps):
+            fn()
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = {e.key: e.self_device_time_total / reps / 1e3 for e in _kernel_events(torch, prof)}
-    if not times:
+    events = _kernel_events(torch, _traced(torch, calls))
+    if not events:
         raise RuntimeError("the profiler recorded no device time")
-    return times
+    lost = {e.key[:40]: e.count for e in events if e.count % reps}
+    if lost:
+        print(f"    (profiler: records lost, counts over {reps} calls: {lost})", flush=True)
+    return {e.key: e.self_device_time_total / e.count * -(-e.count // reps) / 1e3 for e in events}
 
 
 def _device_ms(torch, fn, reps: int) -> float:
@@ -205,6 +237,78 @@ def _require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def padded_sequence(n_scans: int, seed: int, n_max: int, **kw):
+    """`synthetic_sequence` padded to ``n_max`` rows: ``(scans (n, n_max, 3),
+    ground truth (n, 3))``."""
+    scans, gt = synthetic_sequence(n_scans, seed=seed, **kw)
+    padded = np.zeros((n_scans, n_max, 3), np.float32)
+    padded[:, : scans.shape[1]] = scans
+    return padded, gt
+
+
+def garbage_like(scans: np.ndarray, seed: int) -> np.ndarray:
+    """The same beams with ranges drawn at random: scans no pose explains."""
+    rng = np.random.default_rng(seed)
+    out = scans.copy()
+    out[..., 2] = np.where(out[..., 2] > 0, rng.uniform(1200.0, 8000.0, out[..., 2].shape), 0.0)
+    return out.astype(np.float32)
+
+
+def trajectory_errors(poses: np.ndarray, gt: np.ndarray):
+    """Position (mm) and heading (rad) error of ``poses (T-1, 3)`` against
+    ground truth ``gt (T, 3)`` taken in the first scan's frame, and the
+    distance travelled up to each scan."""
+    rel = relative_poses(gt)[1:]
+    pos_err = np.hypot(poses[:, 0] - rel[:, 0], poses[:, 1] - rel[:, 1])
+    ang_err = np.abs(np.arctan2(np.sin(poses[:, 2] - rel[:, 2]), np.cos(poses[:, 2] - rel[:, 2])))
+    travelled = np.concatenate([[0.0], np.cumsum(np.hypot(*np.diff(gt[:, :2], axis=0).T))])[1:]
+    return pos_err, ang_err, travelled
+
+
+def check_quality(what: str, cfg, acc, rmse, poses, gt, state, forced_rejects=None):
+    """The quality checks of a replay: finite poses; acceptance (outside
+    ``forced_rejects``, a mask of scans built to be rejected); median inlier
+    RMSE under the gate; position error below 2 % of the distance travelled
+    + 150 mm at every scan (scan-to-map odometry drifts with distance) and
+    heading error < 0.05 rad; a map count in range and a painted grid within
+    [0, 1] (``state`` of one robot)."""
+    free = np.ones_like(acc) if forced_rejects is None else ~forced_rejects
+    pos_err, ang_err, travelled = trajectory_errors(poses, gt)
+    _require(np.isfinite(poses).all(), f"{what}: non-finite poses")
+    _require(acc[free].mean() >= 0.95, f"{what}: acceptance {acc[free].mean()}")
+    _require(np.median(rmse[acc]) < cfg.icp.max_rmse, f"{what}: median rmse above the gate")
+    _require(bool((pos_err < 0.02 * travelled + 150.0).all()) and ang_err.max() < 0.05,
+             f"{what}: trajectory drifted from ground truth (max {pos_err.max():.1f} mm, {ang_err.max():.4f} rad)")
+    n_map_pts = int(state.map_valid.sum())
+    _require(0 < n_map_pts <= cfg.map_capacity, f"{what}: map count out of range")
+    occ_np = state.occ.cpu().numpy()
+    _require(occ_np.min() >= 0.0 and occ_np.max() <= 1.0 and (occ_np != 0.5).sum() > 1000,
+             f"{what}: occupancy grid not painted or out of [0, 1]")
+    return pos_err, ang_err
+
+
+def profile_window(torch, fn, n_steps: int) -> str:
+    """Run ``fn`` (``n_steps`` steps ending in a synchronise) under the
+    profiler and describe where the device time went."""
+    wall = []
+
+    def timed():
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+
+    prof = _traced(torch, timed)
+    wall = wall[0]
+    avgs = sorted(_kernel_events(torch, prof), key=lambda e: -e.self_device_time_total)
+    dev_us = sum(e.self_device_time_total for e in avgs)
+    top = "; ".join(f"{e.key[:48]} {e.self_device_time_total / n_steps:.1f}" for e in avgs[:6])
+    n_launch = sum(e.count for e in avgs)
+    return (f"device busy {dev_us / 1e6 / wall:.3f} of wall (profiler on), wall {wall / n_steps * 1e3:.2f} ms/step, "
+            f"device {dev_us / n_steps:.1f} us/step, {n_launch / n_steps:.0f} device launches/step; "
+            f"top kernels us/step: {top}")
+
+
 def slice_config():
     """The slice's configuration: the CLI's default ``offline`` preset at full
     width, without the GICP second chance (a later slice)."""
@@ -215,11 +319,12 @@ def slice_config():
 
 def check_kernels(cfg) -> dict:
     """Phase 3: each kernel against its plain version on the card, at the
-    slice's shapes, with times.  Returns the kernels' rows (no launches)."""
+    slice's shapes (one robot: a leading axis of 1), with times.  Returns the
+    kernels' rows (no launches)."""
     import torch
 
     from icp_slam_yolo_tpu_torch.ops import geometry as geo
-    from icp_slam_yolo_tpu_torch.ops.pallas.icp_fused import _prepare, icp_fused, icp_fused_plain
+    from icp_slam_yolo_tpu_torch.ops.pallas.icp_fused import _finish, _prepare, icp_fused, icp_fused_plain
     from icp_slam_yolo_tpu_torch.ops.pallas.nn_kernel import nn_argmin, nn_argmin_plain
     from icp_slam_yolo_tpu_torch.ops.pallas.raster_fused import raster_update, raster_update_plain
     from icp_slam_yolo_tpu_torch.ops.raster import window_dims, world_to_px
@@ -232,9 +337,9 @@ def check_kernels(cfg) -> dict:
 
     # K3: nearest neighbour, duplicated targets for ties
     base = rng.uniform(-5000, 5000, (n // 2, 2))
-    tgt = torch.tensor(np.concatenate([base, base]), dtype=torch.float32, device=dev)  # duplicates: ties
-    tv = torch.tensor(rng.random(n) < 0.9, device=dev)
-    src = torch.tensor(rng.uniform(-5000, 5000, (n, 2)), dtype=torch.float32, device=dev)
+    tgt = torch.tensor(np.concatenate([base, base])[None], dtype=torch.float32, device=dev)  # duplicates: ties
+    tv = torch.tensor(rng.random((1, n)) < 0.9, device=dev)
+    src = torch.tensor(rng.uniform(-5000, 5000, (1, n, 2)), dtype=torch.float32, device=dev)
     d_k, i_k = nn_argmin(src, tgt, tv)
     d_p, i_p = nn_argmin_plain(src, tgt, tv)
     torch.cuda.synchronize()
@@ -243,7 +348,7 @@ def check_kernels(cfg) -> dict:
     _require(err3 <= 1e-6 * float(d_p.abs().max()), f"K3: d2 error {err3}")
     ms3 = _device_ms(torch, lambda: nn_argmin(src, tgt, tv), 200)
     plain3 = _device_ms(torch, lambda: nn_argmin_plain(src, tgt, tv), 50)
-    lib3 = _device_ms(torch, lambda: torch.cdist(src, tgt).min(1), 200)
+    lib3 = _device_ms(torch, lambda: torch.cdist(src, tgt).min(2), 200)
     wall3 = _cuda_ms(torch, lambda: nn_argmin(src, tgt, tv), 200)
     nv = int(tv.sum())
     b3 = _bound(6.0 * n * nv, n * 8 + n * 9 + n * 8)
@@ -272,28 +377,27 @@ def check_kernels(cfg) -> dict:
     truth = torch.tensor(gt1[0], dtype=torch.float32, device=dev)
     init = truth + torch.tensor([100.0, -80.0, 0.03], device=dev)
     kw = dict(iters=cfg.icp.max_iterations, threshold_mm=cfg.icp.threshold_mm, tolerance=cfg.icp.tolerance)
-    pose_k, rmse_k, nin_k, it_k = icp_fused(ds_xy, ds_valid, map_xy, map_valid, init, **kw)
-    params, tgt_c, c = _prepare(map_xy, map_valid, init)
-    out_p = icp_fused_plain(ds_xy, ds_valid, tgt_c, map_valid, params, iters=kw["iters"],
-                            thr2=kw["threshold_mm"] ** 2, tolerance=kw["tolerance"], anderson=False)
+    one = tuple(x[None].contiguous() for x in (ds_xy, ds_valid, map_xy, map_valid, init))  # B = 1
+    pose_k, rmse_k, nin_k, it_k = icp_fused(*one, **kw)
+    params, tgt_c, c = _prepare(*one[2:])
+    plain_fn = lambda: icp_fused_plain(one[0], one[1], tgt_c, one[3], params, iters=kw["iters"],  # noqa: E731
+                                       thr2=kw["threshold_mm"] ** 2, tolerance=kw["tolerance"], anderson=False)
+    pose_p, rmse_p, _, it_p = _finish(plain_fn(), c)
     torch.cuda.synchronize()
-    pose_p = torch.stack([out_p[0] + c[0], out_p[1] + c[1], torch.atan2(out_p[3], out_p[2])])
-    dpos = float((pose_k[:2] - pose_p[:2]).abs().max())
-    dang = float((pose_k[2] - pose_p[2]).abs())
-    drm = abs(float(rmse_k) - float(out_p[4]))
+    dpos = float((pose_k[:, :2] - pose_p[:, :2]).abs().max())
+    dang = float((pose_k[:, 2] - pose_p[:, 2]).abs().max())
+    drm = float((rmse_k - rmse_p).abs().max())
     n_it = int(it_k)
     _require(dpos <= 1.0 and dang <= 2e-3 and drm <= 1.0,
              f"K1: kernel vs plain pose {dpos} mm / {dang} rad, rmse {drm} mm")
-    _require(abs(n_it - int(out_p[6])) <= 5, f"K1: iterations {n_it} vs {int(out_p[6])}")
-    _require(float((pose_k[:2] - truth[:2]).norm()) < 30.0, "K1: did not recover the true pose")
-    ms1 = _device_ms(torch, lambda: icp_fused(ds_xy, ds_valid, map_xy, map_valid, init, **kw), 20)
-    plain1 = _device_ms(torch, lambda: icp_fused_plain(
-        ds_xy, ds_valid, tgt_c, map_valid, params, iters=kw["iters"], thr2=kw["threshold_mm"] ** 2,
-        tolerance=kw["tolerance"], anderson=False), 3)
+    _require(abs(n_it - int(it_p)) <= 5, f"K1: iterations {n_it} vs {int(it_p)}")
+    _require(float((pose_k[0, :2] - truth[:2]).norm()) < 30.0, "K1: did not recover the true pose")
+    ms1 = _device_ms(torch, lambda: icp_fused(*one, **kw), 20)
+    plain1 = _device_ms(torch, plain_fn, 3)
     # the same registration against 256 targets: what a sweep costs besides the pairs
-    small = (map_xy[:256].contiguous(), map_valid[:256].contiguous())
-    it_small = int(icp_fused(ds_xy, ds_valid, *small, init, **kw)[3])
-    sweep_small = _device_ms(torch, lambda: icp_fused(ds_xy, ds_valid, *small, init, **kw), 20) / (it_small + 1)
+    small = (*one[:2], one[2][:, :256].contiguous(), one[3][:, :256].contiguous(), one[4])
+    it_small = int(icp_fused(*small, **kw)[3])
+    sweep_small = _device_ms(torch, lambda: icp_fused(*small, **kw), 20) / (it_small + 1)
     n_src = int(ds_valid.sum())
     b1 = _bound(7.0 * n_src * n_map * (n_it + 1), n * 9 + cap * 9 + 16 + 32)
     kernels["icp_fused"] = dict(
@@ -302,14 +406,14 @@ def check_kernels(cfg) -> dict:
         ms=ms1, plain_ms=plain1, bound_ms=b1[0], bound_by=b1[1], library_ms=None)
     print(f"[3] K1 icp_fused {n_src} live src x {n_map} live of {cap} tgt: pose err {dpos:.2g} mm / "
           f"{dang:.2g} rad, rmse err {drm:.2g} mm (tol 1 mm / 2e-3 rad / 1 mm), iters {n_it} vs "
-          f"{int(out_p[6])}; device {ms1 * 1e3:.1f} us = {ms1 * 1e3 / (n_it + 1):.2f} us per sweep "
+          f"{int(it_p)}; device {ms1 * 1e3:.1f} us = {ms1 * 1e3 / (n_it + 1):.2f} us per sweep "
           f"({n_it} iterations + the final sweep), plain {plain1:.2f} ms; against 256 targets "
           f"{sweep_small * 1e3:.2f} us per sweep", flush=True)
 
     # K2: the raster, 512 rays, some blocked by an occupied wall
     h, w = cfg.map.height_px, cfg.map.width_px
-    occ = torch.full((h, w), 0.5, dtype=torch.float32, device=dev)
-    occ[h // 2 - 60: h // 2 + 60, w // 2 + 40: w // 2 + 43] = 0.9  # occupied wall in front
+    occ = torch.full((1, h, w), 0.5, dtype=torch.float32, device=dev)
+    occ[0, h // 2 - 60: h // 2 + 60, w // 2 + 40: w // 2 + 43] = 0.9  # occupied wall in front
     robot = torch.tensor([150.0, -90.0], device=dev)
     pts = torch.tensor(rng.uniform(-5000, 5000, (n, 2)), dtype=torch.float32, device=dev)
     live = torch.tensor(rng.random(n) < 0.95, device=dev)
@@ -322,18 +426,19 @@ def check_kernels(cfg) -> dict:
     y0 = torch.clamp(ry - win, 0, h - side_y)
     x0 = torch.clamp(rx - win, 0, w - side_x)
     meta = torch.stack([y0, x0, ry - y0, rx - x0]).to(torch.int32)
-    args2 = (occ, meta, (ey - y0).contiguous(), (ex - x0).contiguous(), (live & inwin).contiguous())
+    args2 = (occ, meta[None], (ey - y0)[None].contiguous(), (ex - x0)[None].contiguous(),
+             (live & inwin)[None].contiguous())
     kw2 = dict(side_y=side_y, side_x=side_x, k=cfg.occupancy.max_ray_px,
                p_occ_inc=cfg.occupancy.p_occ_inc, p_free_decay=cfg.occupancy.p_free_decay,
                block_threshold=cfg.occupancy.block_threshold)
-    accept = torch.tensor(True, device=dev)
+    accept = torch.ones(1, dtype=torch.bool, device=dev)
     g_k = raster_update(*args2, accept, **kw2)
     g_p = raster_update_plain(*args2, accept, **kw2)
     torch.cuda.synchronize()
     err2 = float((g_k - g_p).abs().max())
     _require(err2 <= 1e-6, f"K2: grid error {err2}")
     changed = int(((g_p - occ).abs() > 0).sum())
-    _require(changed > 0 and float(g_k[h // 2, w // 2 + 50]) == 0.5,
+    _require(changed > 0 and float(g_k[0, h // 2, w // 2 + 50]) == 0.5,
              "K2: the wall did not shadow the cells behind it")
     prof2 = _device_profile(torch, lambda: raster_update(*args2, accept, **kw2), 200)
     ms2 = sum(prof2.values())
@@ -366,13 +471,18 @@ def check_edge_cases(cfg) -> int:
     the main path can reach but the shapes above do not: ragged source and
     target counts, no valid target, no live source row, Anderson(1), a
     single ray, no ray, a window clamped at the grid's corner, and a
-    rejected scan (accept false) that must leave the grid as it was.  Returns
-    the number of cases."""
+    rejected scan (accept false) that must leave the grid as it was; K4 on
+    the same grid (833 x 1000, not tile-shaped) must give K2's values.
+    Returns the number of cases."""
     import torch
 
-    from icp_slam_yolo_tpu_torch.ops.pallas.icp_fused import _prepare, icp_fused, icp_fused_plain
+    from icp_slam_yolo_tpu_torch.ops.pallas.icp_fused import _finish, _prepare, icp_fused, icp_fused_plain
     from icp_slam_yolo_tpu_torch.ops.pallas.nn_kernel import nn_argmin, nn_argmin_plain
-    from icp_slam_yolo_tpu_torch.ops.pallas.raster_fused import raster_update, raster_update_plain
+    from icp_slam_yolo_tpu_torch.ops.pallas.raster_fused import (
+        raster_update,
+        raster_update_grid,
+        raster_update_plain,
+    )
     from icp_slam_yolo_tpu_torch.ops.raster import window_dims
 
     dev = torch.device("cuda")
@@ -386,9 +496,9 @@ def check_edge_cases(cfg) -> int:
         return torch.tensor(np.asarray(a), dtype=torch.bool, device=dev)
 
     for s, t, frac in ((1, 1, 1.0), (37, 1000, 0.5), (300, 1537, 0.9), (64, 300, 0.0)):
-        src = f32(rng.uniform(-3000, 3000, (s, 2)))
-        tgt = f32(np.round(rng.uniform(-3000, 3000, (t, 2)) / 200.0) * 200.0)  # coarse grid: ties
-        tv = mask(rng.random(t) < frac)
+        src = f32(rng.uniform(-3000, 3000, (1, s, 2)))
+        tgt = f32(np.round(rng.uniform(-3000, 3000, (1, t, 2)) / 200.0) * 200.0)  # coarse grid: ties
+        tv = mask(rng.random((1, t)) < frac)
         d_k, i_k = nn_argmin(src, tgt, tv)
         d_p, i_p = nn_argmin_plain(src, tgt, tv)
         _require(bool((i_k == i_p).all()) and bool((d_k == d_p).all()),
@@ -400,18 +510,18 @@ def check_edge_cases(cfg) -> int:
                                                (64, 256, 1.0, 0.0, False), (64, 256, 0.0, 1.0, False)):
         tgt_np = map_points_along(room, t, rng)
         src_np = map_points_along(room, s, rng, noise_mm=5.0) - np.array([60.0, -40.0])
-        sv, tv = mask(rng.random(s) < frac_src), mask(rng.random(t) < frac_tgt)
-        src, tgt, init = f32(src_np), f32(tgt_np), f32([20.0, -10.0, 0.01])
+        sv, tv = mask(rng.random((1, s)) < frac_src), mask(rng.random((1, t)) < frac_tgt)
+        src, tgt, init = f32(src_np[None]), f32(tgt_np[None]), f32([[20.0, -10.0, 0.01]])
         kw = dict(iters=30, threshold_mm=cfg.icp.threshold_mm, tolerance=1e-3, anderson=anderson)
         pose_k, rmse_k, nin_k, it_k = icp_fused(src, sv, tgt, tv, init, **kw)
         params, tgt_c, c = _prepare(tgt, tv, init)
-        out_p = icp_fused_plain(src, sv, tgt_c, tv, params, iters=30, thr2=kw["threshold_mm"] ** 2,
-                                tolerance=1e-3, anderson=anderson)
-        pose_p = torch.stack([out_p[0] + c[0], out_p[1] + c[1], torch.atan2(out_p[3], out_p[2])])
-        rmse_p = float(out_p[4]) if float(out_p[4]) < 1e30 else float("inf")
-        ok = (float((pose_k[:2] - pose_p[:2]).abs().max()) <= 1.0
-              and float((pose_k[2] - pose_p[2]).abs()) <= 2e-3
-              and abs(int(nin_k) - int(out_p[5])) <= 2
+        pose_p, rmse_p, nin_p, _ = _finish(icp_fused_plain(
+            src, sv, tgt_c, tv, params, iters=30, thr2=kw["threshold_mm"] ** 2, tolerance=1e-3,
+            anderson=anderson), c)
+        rmse_p = float(rmse_p)
+        ok = (float((pose_k[:, :2] - pose_p[:, :2]).abs().max()) <= 1.0
+              and float((pose_k[:, 2] - pose_p[:, 2]).abs().max()) <= 2e-3
+              and abs(int(nin_k) - int(nin_p)) <= 2
               and (abs(float(rmse_k) - rmse_p) <= 1.0 if np.isfinite(rmse_p) else not np.isfinite(float(rmse_k))))
         _require(ok, f"K1 edge case S={s} T={t} src {frac_src} tgt {frac_tgt} anderson {anderson}: "
                      f"kernel {pose_k.tolist()} {float(rmse_k)} vs plain {pose_p.tolist()} {rmse_p}")
@@ -419,23 +529,25 @@ def check_edge_cases(cfg) -> int:
 
     h, w = cfg.map.height_px, cfg.map.width_px
     side_y, side_x = window_dims(h, w, cfg.occupancy)
-    occ = f32(rng.uniform(0.0, 1.0, (h, w)))  # many cells above the block threshold
+    occ = f32(rng.uniform(0.0, 1.0, (1, h, w)))  # many cells above the block threshold
     kw2 = dict(side_y=side_y, side_x=side_x, k=cfg.occupancy.max_ray_px, p_occ_inc=cfg.occupancy.p_occ_inc,
                p_free_decay=cfg.occupancy.p_free_decay, block_threshold=cfg.occupancy.block_threshold)
     win = cfg.occupancy.window_px
     for n, (ry, rx) in ((1, (400, 500)), (0, (400, 500)), (333, (3, 5)), (512, (h - 2, w - 1))):
         y0, x0 = min(max(ry - win, 0), h - side_y), min(max(rx - win, 0), w - side_x)
-        meta = torch.tensor([y0, x0, ry - y0, rx - x0], dtype=torch.int32, device=dev)
-        ey = torch.tensor(rng.integers(max(ry - win, 0), min(ry + win, h), n) - y0, dtype=torch.int32, device=dev)
-        ex = torch.tensor(rng.integers(max(rx - win, 0), min(rx + win, w), n) - x0, dtype=torch.int32, device=dev)
-        live = mask(rng.random(n) < 0.9)
-        for acc in (None, mask(True), mask(False)):
+        meta = torch.tensor([[y0, x0, ry - y0, rx - x0]], dtype=torch.int32, device=dev)
+        ey = torch.tensor(rng.integers(max(ry - win, 0), min(ry + win, h), (1, n)) - y0, dtype=torch.int32, device=dev)
+        ex = torch.tensor(rng.integers(max(rx - win, 0), min(rx + win, w), (1, n)) - x0, dtype=torch.int32, device=dev)
+        live = mask(rng.random((1, n)) < 0.9)
+        for acc in (None, mask([True]), mask([False])):
             g_k = raster_update(occ, meta, ey, ex, live, acc, **kw2)
             err = float((g_k - raster_update_plain(occ, meta, ey, ex, live, acc, **kw2)).abs().max())
             _require(err <= 1e-6, f"K2 edge case {n} rays, robot cell ({ry}, {rx}), accept {acc}: "
                                   f"grid error {err}")
             _require(acc is None or bool(acc) or torch.equal(g_k, occ),
                      "K2: a rejected scan changed the grid")
+            _require(torch.equal(raster_update_grid(occ.clone(), meta, ey, ex, live, acc, **kw2), g_k),
+                     f"K4 on the {h}x{w} grid differs from K2 ({n} rays, robot cell ({ry}, {rx}), accept {acc})")
             n_cases += 1
     torch.cuda.synchronize()
     print(f"[3] edge cases: {n_cases} cases, every kernel equal to its plain version within the "
@@ -443,7 +555,7 @@ def check_edge_cases(cfg) -> int:
     return n_cases
 
 
-def replay(cfg, n_scans: int = 300, n_cpu: int = 12) -> tuple[dict, float]:
+def replay(cfg, n_scans: int = 150, n_cpu: int = 8) -> tuple[dict, float]:
     """Phase 4: ``Slam(cfg).run`` on the card over a synthetic warehouse with
     the launch counters reset just before and read just after, checked
     against ground truth; then the first ``n_cpu`` scans on the CPU (plain
@@ -454,9 +566,7 @@ def replay(cfg, n_scans: int = 300, n_cpu: int = 12) -> tuple[dict, float]:
     from icp_slam_yolo_tpu_torch.ops import pallas
 
     cap, h, w = cfg.map_capacity, cfg.map.height_px, cfg.map.width_px
-    scans, gt = synthetic_sequence(n_scans, seed=7)
-    padded = np.zeros((n_scans, cfg.n_max, 3), np.float32)
-    padded[:, : scans.shape[1]] = scans
+    padded, gt = padded_sequence(n_scans, 7, cfg.n_max)
     port.Slam(cfg).run(padded[:4])  # warm-up: CUDA context and caching allocator
     torch.cuda.synchronize()
     pallas.reset_launches()
@@ -469,29 +579,18 @@ def replay(cfg, n_scans: int = 300, n_cpu: int = 12) -> tuple[dict, float]:
     acc = outs.accepted.cpu().numpy()
     rmse = outs.rmse.cpu().numpy()
     poses = outs.pose.cpu().numpy()
-    rel = relative_poses(gt)[1:]
-    pos_err = np.hypot(poses[:, 0] - rel[:, 0], poses[:, 1] - rel[:, 1])
-    ang_err = np.abs(np.arctan2(np.sin(poses[:, 2] - rel[:, 2]), np.cos(poses[:, 2] - rel[:, 2])))
+    pos_err, ang_err, _ = trajectory_errors(poses, gt)
     n_map_pts = int(state.map_valid.sum())
     print(f"[4] replay {n_scans} scans at full width (n_max {cfg.n_max}, map {cap}, grid {h}x{w}): "
           f"{n_scans / secs:.1f} scans/s; accepted {acc.mean():.4f}; median rmse "
           f"{np.median(rmse[acc]):.2f} mm; trajectory error max {pos_err.max():.1f} mm, final "
           f"{pos_err[-1]:.1f} mm over {np.hypot(*np.diff(gt[:, :2], axis=0).T).sum() / 1e3:.1f} m, "
-          f"heading max {ang_err.max():.4f} rad; map points {n_map_pts}; "
+          f"heading max {ang_err.max():.4f} rad; map points {n_map_pts}; mean ICP iterations "
+          f"{outs.n_iters.float().mean():.1f}; mean gated points per scan {outs.n_points.float().mean():.1f}; "
           f"launches {launches}", flush=True)
-    for name, count in launches.items():
-        _require(count > 0, f"main path never launched {name}")
-    _require(np.isfinite(poses).all(), "non-finite poses")
-    _require(acc.mean() >= 0.95, f"acceptance {acc.mean()}")
-    _require(np.median(rmse[acc]) < cfg.icp.max_rmse, "median rmse above the gate")
-    # scan-to-map odometry drifts; allow 2 % of the distance travelled + 0.15 m
-    travelled = np.concatenate([[0.0], np.cumsum(np.hypot(*np.diff(gt[:, :2], axis=0).T))])[1:]
-    _require(bool((pos_err < 0.02 * travelled + 150.0).all()) and ang_err.max() < 0.05,
-             "trajectory drifted from ground truth")
-    _require(0 < n_map_pts <= cap, "map count out of range")
-    occ_np = state.occ.cpu().numpy()
-    _require(occ_np.min() >= 0.0 and occ_np.max() <= 1.0 and (occ_np != 0.5).sum() > 1000,
-             "occupancy grid not painted or out of [0, 1]")
+    for name in ("icp_fused", "raster_update", "nn_argmin"):
+        _require(launches[name] > 0, f"the slice path never launched {name}")
+    check_quality("slice", cfg, acc, rmse, poses, gt, state)
 
     # the step enqueues its work without waiting for the card: PyTorch's sync
     # debug mode raises on each synchronising call it detects
@@ -511,21 +610,9 @@ def replay(cfg, n_scans: int = 300, n_cpu: int = 12) -> tuple[dict, float]:
     print("[4] 5 steps under torch.cuda.set_sync_debug_mode('error'): no host synchronisation", flush=True)
 
     # where the device time of a step goes, over a short window under the profiler
-    from torch.profiler import ProfilerActivity, profile
-
     n_win = 21
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        port.Slam(cfg).run(padded[:n_win])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    avgs = sorted(_kernel_events(torch, prof), key=lambda e: -e.self_device_time_total)
-    dev_us = sum(e.self_device_time_total for e in avgs)
-    top = "; ".join(f"{e.key[:48]} {e.self_device_time_total / (n_win - 1):.1f}" for e in avgs[:6])
-    n_launch = sum(e.count for e in avgs)
-    print(f"[4] profiled {n_win - 1} steps: device busy {dev_us / 1e6 / wall:.3f} of wall "
-          f"(profiler on), device {dev_us / (n_win - 1):.1f} us/step, {n_launch / (n_win - 1):.0f} "
-          f"device launches/step; top kernels us/step: {top}", flush=True)
+    print(f"[4] profiled {n_win - 1} steps: " + profile_window(torch, lambda: port.Slam(cfg).run(padded[:n_win]), n_win - 1),
+          flush=True)
 
     t0 = time.perf_counter()
     _, outs_cpu = port.run_sequence(padded[:n_cpu], cfg, device="cpu")
@@ -539,6 +626,408 @@ def replay(cfg, n_scans: int = 300, n_cpu: int = 12) -> tuple[dict, float]:
     _require(dpose[:, :2].max() <= 2.0 and dpose[:, 2].max() <= 2e-3, "cpu and card poses differ")
 
     return launches, n_scans / secs
+
+
+def check_batched_kernels(cfg) -> tuple[dict, dict]:
+    """Phase 3, continued: the robot axis.  K4 against its plain version at
+    B = 8 on the fleet's 864 x 1024 grids; K1 at B = 8 against its plain
+    version and against 8 single launches, and at B = 64; K3 batched with
+    ties and at the rescue's 512 x 24576.  Returns ``(K4's row, the batched
+    times)``."""
+    import torch
+
+    from icp_slam_yolo_tpu_torch.ops.pallas.icp_fused import _finish, _prepare, icp_fused, icp_fused_plain
+    from icp_slam_yolo_tpu_torch.ops.pallas.nn_kernel import nn_argmin, nn_argmin_plain
+    from icp_slam_yolo_tpu_torch.ops.pallas.raster_fused import raster_update_grid, raster_update_grid_plain
+    from icp_slam_yolo_tpu_torch.ops.raster import window_dims
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    n, cap = cfg.n_max, cfg.map_capacity
+    batched = {}
+
+    def f32(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
+
+    # K4: 8 robots at different window origins, one clamped at a corner, one
+    # with its flag false, one without a live ray
+    b = 8
+    h, w = cfg.map.height_px, cfg.map.width_px
+    win = cfg.occupancy.window_px
+    side_y, side_x = window_dims(h, w, cfg.occupancy)
+    # mostly unknown or free cells with sparse obstacles, so most rays run a long way
+    occ = f32(np.where(rng.random((b, h, w)) < 0.01, 0.9, rng.uniform(0.2, 0.6, (b, h, w))))
+    cells = [(400, 500), (3, 5), (h - 2, w - 1), (100, 900), (700, 80), (432, 512), (10, 1000), (860, 10)]
+    meta, eys, exs = [], [], []
+    for ry, rx in cells:
+        y0, x0 = min(max(ry - win, 0), h - side_y), min(max(rx - win, 0), w - side_x)
+        meta.append([y0, x0, ry - y0, rx - x0])
+        eys.append(rng.integers(max(ry - win, 0), min(ry + win, h), n) - y0)
+        exs.append(rng.integers(max(rx - win, 0), min(rx + win, w), n) - x0)
+    meta = torch.tensor(meta, dtype=torch.int32, device=dev)
+    ey = torch.tensor(np.array(eys), dtype=torch.int32, device=dev)
+    ex = torch.tensor(np.array(exs), dtype=torch.int32, device=dev)
+    live = torch.tensor(rng.random((b, n)) < 0.9, device=dev)
+    live[5] = False
+    accept = torch.ones(b, dtype=torch.bool, device=dev)
+    accept[3] = False
+    kw4 = dict(side_y=side_y, side_x=side_x, k=cfg.occupancy.max_ray_px, p_occ_inc=cfg.occupancy.p_occ_inc,
+               p_free_decay=cfg.occupancy.p_free_decay, block_threshold=cfg.occupancy.block_threshold)
+    g_k = raster_update_grid(occ.clone(), meta, ey, ex, live, accept, **kw4)
+    g_p = raster_update_grid_plain(occ.clone(), meta, ey, ex, live, accept, **kw4)
+    torch.cuda.synchronize()
+    err4 = float((g_k - g_p).abs().max())
+    changed = (g_p != occ).flatten(1).sum(1)
+    _require(err4 == 0.0, f"K4: grid differs from the plain version by {err4}")
+    _require(int(changed[3]) == 0 and int(changed[5]) == 0 and int(changed.sum()) > 10000,
+             f"K4: cells changed per robot {changed.tolist()} (robot 3 has its flag false, robot 5 no live ray)")
+    for acc in (None, torch.zeros(b, dtype=torch.bool, device=dev)):
+        g = raster_update_grid(occ.clone(), meta, ey, ex, live, acc, **kw4)
+        _require(torch.equal(g, raster_update_grid_plain(occ.clone(), meta, ey, ex, live, acc, **kw4)),
+                 "K4: differs from the plain version without flags / with all flags false")
+    work = occ.clone()
+    prof4 = _device_profile(torch, lambda: raster_update_grid(work, meta, ey, ex, live, accept, **kw4), 100)
+    ms4 = sum(prof4.values())
+    work_p = occ.clone()
+    plain4 = _device_ms(torch, lambda: raster_update_grid_plain(work_p, meta, ey, ex, live, accept, **kw4), 10)
+    def k4_bound(live_, accept_):
+        """The work the function needs: the window of each robot that has a
+        ray to draw (flag true, a live ray) read and written once, and every
+        robot's rays, origin and flag."""
+        rays = int((live_ & accept_[:, None]).sum())
+        active = int((accept_ & live_.any(1)).sum())
+        return rays, active, _bound(12.0 * rays * (win + 1) + 20.0 * active * side_y * side_x,
+                                    active * 2 * 4 * side_y * side_x + live_.shape[0] * (n * 9 + 16 + 1))
+
+    n_rays, n_active, b4 = k4_bound(live, accept)
+    parts = ", ".join(f"{k[:40]} {v * 1e3:.2f}" for k, v in sorted(prof4.items(), key=lambda kv: -kv[1]))
+    k4_row = dict(
+        name="raster_update_grid", route="cuda", source="icp_slam_yolo_tpu_torch/csrc/raster.cu",
+        replaces="icp_slam_yolo_tpu/ops/pallas/raster_fused.py:482", max_abs_err=err4,
+        ms=ms4, plain_ms=plain4, bound_ms=b4[0], bound_by=b4[1], library_ms=None)
+    print(f"[3] K4 raster_update_grid B={b}, {n_rays} rays of {n_active} robots with work, windows {side_y}x{side_x} "
+          f"of {h}x{w}: equal to the plain version, cells changed per robot {changed.tolist()}; device {ms4 * 1e3:.2f} us ({parts}), "
+          f"plain {plain4 * 1e3:.1f} us, bound {b4[0] * 1e3:.3f} us ({b4[1]})", flush=True)
+    # the same 8 robots tiled to 64
+    wide = [x.repeat(8, *([1] * (x.dim() - 1))) for x in (occ, meta, ey, ex, live, accept)]
+    _require(torch.equal(raster_update_grid(wide[0].clone(), *wide[1:], **kw4), g_k.repeat(8, 1, 1)),
+             "K4 B=64: lanes fed the same robot differ from the B=8 result")
+    work_w = wide[0].clone()
+    ms4w = _device_ms(torch, lambda: raster_update_grid(work_w, *wide[1:], **kw4), 50)
+    _, n_active_w, b4w = k4_bound(wide[4], wide[5])
+    batched["raster_update_grid_b64"] = dict(ms=ms4w, bound_ms=b4w[0])
+    print(f"[3] K4 raster_update_grid B=64 (the 8 robots tiled, {n_active_w} with work): equal to the B=8 result "
+          f"lane by lane; device {ms4w * 1e3:.2f} us, bound {b4w[0] * 1e3:.2f} us ({b4w[1]})", flush=True)
+
+    # K1 batched: 8 distinct registrations on 24576-slot maps with 20k live
+    # points, and the same 8 tiled to 64
+    segs = warehouse_segments(10000.0, 6000.0)
+    n_map, n_src = 20000, 260
+
+    def problems(count):
+        maps = np.zeros((count, cap, 2), np.float32)
+        srcs = np.zeros((count, n, 2), np.float32)
+        for r in range(count):
+            g = np.random.default_rng(100 + r % 8)
+            maps[r, :n_map] = map_points_along(segs, n_map, g)
+            th = 0.02 * (r % 8 - 3)
+            c, s = np.cos(th), np.sin(th)
+            pts = map_points_along(segs, n_src, g, noise_mm=5.0) - np.array([40.0 * (r % 8) - 100.0, 30.0])
+            srcs[r, :n_src] = pts @ np.array([[c, -s], [s, c]])
+        sv = torch.zeros((count, n), dtype=torch.bool, device=dev)
+        sv[:, :n_src] = True
+        mv = torch.zeros((count, cap), dtype=torch.bool, device=dev)
+        mv[:, :n_map] = True
+        return f32(srcs), sv, f32(maps), mv, torch.zeros((count, 3), dtype=torch.float32, device=dev)
+
+    kw = dict(iters=cfg.icp.max_iterations, threshold_mm=cfg.icp.threshold_mm, tolerance=cfg.icp.tolerance)
+    for count in (1, 8, 64):
+        a = problems(count)
+        pose, rmse, n_in, its = icp_fused(*a, **kw)
+        torch.cuda.synchronize()
+        ms1 = _device_ms(torch, lambda: icp_fused(*a, **kw), 5)
+        kernel_ms = _device_profile(torch, lambda: icp_fused(*a, **kw), 5)
+        k_ms = max(kernel_ms.values())  # the cooperative kernel itself
+        sweeps = its.to(torch.float64) + 1.0
+        bound = _bound(7.0 * n_src * n_map * float(sweeps.sum()), count * (n * 9 + cap * 9 + 16 + 32))
+        batched[f"icp_fused_b{count}"] = dict(ms=ms1, kernel_ms=k_ms, bound_ms=bound[0], iters=its.tolist())
+        line = (f"[3] K1 icp_fused B={count} ({n_src} live src x {n_map} live of {cap} tgt each, tolerance "
+                f"{cfg.icp.tolerance}): device {ms1 * 1e3:.1f} us per launch (kernel {k_ms * 1e3:.1f} us), "
+                f"{ms1 * 1e3 / count:.1f} us per registration, {k_ms * 1e3 / float(sweeps.max()):.2f} us per "
+                f"lockstep sweep, iterations {its.tolist()[:8]}, bound {bound[0] * 1e3:.2f} us ({bound[1]})")
+        if count == 8:
+            params, tgt_c, c = _prepare(a[2], a[3], a[4])
+            plain_fn = lambda: icp_fused_plain(a[0], a[1], tgt_c, a[3], params, iters=kw["iters"],  # noqa: E731
+                                               thr2=kw["threshold_mm"] ** 2, tolerance=kw["tolerance"], anderson=False)
+            pose_p, rmse_p, nin_p, its_p = _finish(plain_fn(), c)
+            dpos = float((pose[:, :2] - pose_p[:, :2]).abs().max())
+            dang = float((pose[:, 2] - pose_p[:, 2]).abs().max())
+            drm = float((rmse - rmse_p).abs().max())
+            _require(dpos <= 1.0 and dang <= 2e-3 and drm <= 1.0,
+                     f"K1 B=8: kernel vs plain pose {dpos} mm / {dang} rad, rmse {drm} mm")
+            _require(int((its - its_p).abs().max()) <= 5, f"K1 B=8: iterations {its.tolist()} vs {its_p.tolist()}")
+            _require(len(set(its.tolist())) > 1, "K1 B=8: the registrations were meant to end at different iterations")
+            singles = [icp_fused(*(x[r: r + 1] for x in a), **kw) for r in range(count)]
+            ds = max(float((singles[r][0][0] - pose[r]).abs().max()) for r in range(count))
+            bits = all(torch.equal(singles[r][0][0], pose[r]) for r in range(count))
+            _require(bits and all(int(singles[r][3]) == int(its[r]) for r in range(count)),
+                     f"K1 B=8 vs 8 single launches: poses not bit equal (max diff {ds})")
+            plain8 = _device_ms(torch, plain_fn, 2)
+            batched["icp_fused_b8"]["plain_ms"] = plain8
+            line += (f"; vs plain: {dpos:.2g} mm / {dang:.2g} rad / rmse {drm:.2g} mm (tol 1 mm / 2e-3 rad / 1 mm), "
+                     f"plain {plain8:.1f} ms; vs 8 single launches: poses bit equal")
+        if count == 64:
+            _require(all(torch.equal(pose[r], pose[r % 8]) for r in range(count)),
+                     "K1 B=64: lanes fed the same problem gave different poses")
+            line += "; the 8 lanes of each problem bit equal"
+        print(line, flush=True)
+
+    # K3 batched with ties (B = 8, and the same tiled to 64), and at the rescue's 512 x 24576
+    base = rng.uniform(-5000, 5000, (8, n // 2, 2))
+    tgt8 = f32(np.concatenate([base, base], axis=1))
+    tv8 = torch.tensor(rng.random((8, n)) < 0.9, device=dev)
+    tv8[6] = False
+    src8 = f32(rng.uniform(-5000, 5000, (8, n, 2)))
+    for count in (8, 64):
+        src, tgt, tv = (x.repeat(count // 8, *([1] * (x.dim() - 1))).contiguous() for x in (src8, tgt8, tv8))
+        d_k, i_k = nn_argmin(src, tgt, tv)
+        d_p, i_p = nn_argmin_plain(src, tgt, tv)
+        _require(torch.equal(i_k, i_p) and torch.equal(d_k, d_p), f"K3 B={count}: kernel differs from the plain version")
+        ms3 = _device_ms(torch, lambda: nn_argmin(src, tgt, tv), 100)
+        plain3 = _device_ms(torch, lambda: nn_argmin_plain(src, tgt, tv), 20)
+        lib3 = _device_ms(torch, lambda: torch.cdist(src, tgt).min(2), 100)
+        b3 = _bound(6.0 * n * int(tv.sum()), count * (n * 8 + n * 9 + n * 8))
+        batched[f"nn_argmin_b{count}"] = dict(ms=ms3, plain_ms=plain3, library_ms=lib3, bound_ms=b3[0])
+        print(f"[3] K3 nn_argmin B={count} {n}x{n} with ties: equal to the plain version; device {ms3 * 1e3:.2f} us, "
+              f"plain {plain3 * 1e3:.1f} us, cdist+min {lib3 * 1e3:.1f} us, bound {b3[0] * 1e3:.4f} us ({b3[1]})",
+              flush=True)
+    a = problems(1)
+    src1, tgt1, tv1 = a[0], a[2], a[3]
+    d_k, i_k = nn_argmin(src1, tgt1, tv1)
+    d_p, i_p = nn_argmin_plain(src1, tgt1, tv1)
+    _require(torch.equal(i_k, i_p) and torch.equal(d_k, d_p), "K3 512x24576: kernel differs from the plain version")
+    ms3r = _device_ms(torch, lambda: nn_argmin(src1, tgt1, tv1), 50)
+    plain3r = _device_ms(torch, lambda: nn_argmin_plain(src1, tgt1, tv1), 10)
+    lib3r = _device_ms(torch, lambda: torch.cdist(src1, tgt1).min(2), 50)
+    b3r = _bound(6.0 * n * n_map, n * 8 + cap * 9 + n * 8)
+    batched["nn_argmin_rescue"] = dict(ms=ms3r, plain_ms=plain3r, library_ms=lib3r, bound_ms=b3r[0])
+    print(f"[3] K3 nn_argmin {n}x{cap} (the rescue's shape): equal to the plain version; device {ms3r * 1e3:.2f} us, "
+          f"plain {plain3r * 1e3:.1f} us, cdist+min {lib3r * 1e3:.1f} us, bound {b3r[0] * 1e3:.3f} us ({b3r[1]})",
+          flush=True)
+    return k4_row, batched
+
+
+def fleet_streams(n_streams: int, n_scans: int, n_max: int):
+    """Distinct seeded warehouse streams (own noise and dropouts, own start
+    along the loop, own step length): ``(scans (B, T, n_max, 3), ground truth
+    (B, T, 3))``."""
+    scans, gts = [], []
+    for r in range(n_streams):
+        full, gt = padded_sequence(n_scans + 12 * r, 20 + r, n_max, step_mm=115.0 + 5.0 * r)
+        scans.append(full[12 * r:])
+        gts.append(gt[12 * r:])
+    return np.stack(scans), np.stack(gts)
+
+
+def fleet(cfg, n_scans: int = 100, n_wide: int = 30, n_cpu: int = 4) -> dict:
+    """Phase 5: the fleet path on ``cfg`` (the ``fleet`` preset).  Returns the
+    launch counts of the B = 8 and B = 64 runs, summed."""
+    import torch
+
+    import icp_slam_yolo_tpu_torch as port
+    from icp_slam_yolo_tpu_torch.ops import pallas
+    from icp_slam_yolo_tpu_torch.parallel import fleet as pfleet
+
+    b = 8
+    names = ("icp_fused", "nn_argmin", "raster_update_grid")
+    stack, gts = fleet_streams(b, n_scans, cfg.n_max)
+    port.fleet_run_sequence(stack[:, :4], cfg)  # warm-up
+    torch.cuda.synchronize()
+    pallas.reset_launches()
+    t0 = time.perf_counter()
+    states, outs = port.fleet_run_sequence(stack, cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(pallas.LAUNCHES)
+    acc, rmse, poses = (x.cpu().numpy() for x in (outs.accepted, outs.rmse, outs.pose))
+    worst_pos, worst_ang = 0.0, 0.0
+    for r in range(b):
+        one = type(states)(*(x[r] for x in states))
+        pos_err, ang_err = check_quality(f"fleet robot {r}", cfg, acc[r], rmse[r], poses[r], gts[r], one)
+        worst_pos, worst_ang = max(worst_pos, pos_err.max()), max(worst_ang, ang_err.max())
+    n_steps = n_scans - 1
+    print(f"[5a] fleet B={b} x {n_scans} scans at full width (preset 'fleet' unchanged): "
+          f"{b * n_scans / secs:.1f} robot-scans/s ({secs / n_steps * 1e3:.2f} ms per fleet step); accepted per robot "
+          f"{[round(float(a.mean()), 3) for a in acc]}; median rmse {np.median(rmse[acc]):.2f} mm; trajectory error "
+          f"max {worst_pos:.1f} mm, heading max {worst_ang:.4f} rad; mean ICP iterations "
+          f"{outs.n_iters.float().mean():.1f}; mean gated points per scan {outs.n_points.float().mean():.1f}; "
+          f"launches {launches}", flush=True)
+    for name in names:
+        # one launch per fleet step (K4 also once in fleet_init), not one per robot
+        _require(launches[name] == n_steps + (name == "raster_update_grid"),
+                 f"fleet: {name} launched {launches[name]} times in {n_steps} fleet steps")
+    _require(launches["raster_update"] == 0, "fleet: the fleet step owns its grids and must take K4, not K2")
+
+    step = pfleet.make_fleet_step(cfg)
+    scans_dev = torch.from_numpy(stack[:, :6]).to("cuda")
+    st = pfleet.fleet_init(scans_dev[:, 0], cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(1, 6):
+            st, _, stats = step(st, scans_dev[:, t], t - 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"[5a] 5 fleet steps under torch.cuda.set_sync_debug_mode('error'): no host synchronisation "
+          f"(fleet accept rate {float(stats['accept_rate']):.2f}, mean rmse {float(stats['mean_rmse']):.1f} mm)",
+          flush=True)
+    n_win = 21
+    print(f"[5a] B={b} profiled {n_win - 1} fleet steps: "
+          + profile_window(torch, lambda: port.fleet_run_sequence(stack[:, :n_win], cfg), n_win - 1), flush=True)
+
+    # (b) 64 streams: the 8 tiled 8 times
+    wide = np.tile(stack[:, :n_wide], (8, 1, 1, 1))
+    port.fleet_run_sequence(wide[:, :3], cfg)
+    torch.cuda.synchronize()
+    pallas.reset_launches()
+    t0 = time.perf_counter()
+    _, outs_w = port.fleet_run_sequence(wide, cfg)
+    torch.cuda.synchronize()
+    secs_w = time.perf_counter() - t0
+    launches_w = dict(pallas.LAUNCHES)
+    _require(all(torch.equal(outs_w.pose[r], outs_w.pose[r % b]) for r in range(64)),
+             "fleet B=64: lanes fed the same stream gave different poses")
+    dw = float((outs_w.pose[:b] - outs.pose[:, : n_wide - 1]).abs().max())
+    _require(bool((outs_w.accepted[:b] == outs.accepted[:, : n_wide - 1]).all()) and dw <= 2.0,
+             f"fleet B=64 vs B=8: flags or poses differ ({dw} mm)")
+    for name in names:
+        _require(launches_w[name] == n_wide - 1 + (name == "raster_update_grid"),
+                 f"fleet B=64: {name} launched {launches_w[name]} times in {n_wide - 1} fleet steps")
+    print(f"[5b] fleet B=64 x {n_wide} scans: {64 * n_wide / secs_w:.1f} robot-scans/s "
+          f"({secs_w / (n_wide - 1) * 1e3:.2f} ms per fleet step); lanes fed the same stream bit equal; against the "
+          f"B=8 run max pose diff {dw:.3g} mm (tol 2 mm); launches {launches_w}", flush=True)
+    print(f"[5b] B=64 profiled {n_wide - 1} fleet steps: "
+          + profile_window(torch, lambda: port.fleet_run_sequence(wide, cfg), n_wide - 1), flush=True)
+
+    # (c) robot 0 alone through the single-robot engine
+    _, outs_1 = port.Slam(cfg).run(stack[0])
+    d1 = (outs_1.pose - outs.pose[0]).abs().cpu().numpy()
+    same = bool((outs_1.accepted == outs.accepted[0]).all())
+    print(f"[5c] robot 0 alone (Slam(cfg).run, per-robot maintenance counter) vs its fleet lane: accept flags equal "
+          f"{same}, max pose diff {d1[:, :2].max():.3g} mm / {d1[:, 2].max():.3g} rad (tol 2 mm / 2e-3 rad)", flush=True)
+    _require(same and d1[:, :2].max() <= 2.0 and d1[:, 2].max() <= 2e-3, "fleet lane 0 and the single robot differ")
+
+    # (d) the same fleet on the CPU (plain versions), two robots, a few scans
+    t0 = time.perf_counter()
+    _, outs_c = port.fleet_run_sequence(stack[:2, :n_cpu], cfg, device="cpu")
+    dc = (outs_c.pose - outs.pose[:2, : n_cpu - 1].cpu()).abs().numpy()
+    same = bool((outs_c.accepted == outs.accepted[:2, : n_cpu - 1].cpu()).all())
+    print(f"[5d] cpu fleet replay B=2 x {n_cpu} scans ({time.perf_counter() - t0:.1f} s): accept flags equal {same}, "
+          f"max pose diff {dc[..., :2].max():.3g} mm / {dc[..., 2].max():.3g} rad (tol 2 mm / 2e-3 rad)", flush=True)
+    _require(same and dc[..., :2].max() <= 2.0 and dc[..., 2].max() <= 2e-3, "cpu and card fleets differ")
+    return {k: launches[k] + launches_w[k] for k in launches}
+
+
+def paused_sequence(n_before: int, n_garbage: int, n_hold: int, n_after: int, seed: int, n_max: int):
+    """A replay in which the robot stops at scan ``n_before - 1``: there it
+    sees ``n_garbage`` garbage scans (a sensor fault), then ``n_hold`` good
+    scans from the same spot, then moves on for ``n_after`` scans.  Returns
+    ``(scans, ground truth, forced)``; ``forced`` marks the garbage scans."""
+    padded, gt = padded_sequence(n_before + n_after, seed, n_max)
+    at = n_before - 1
+    held = np.repeat(padded[at: at + 1], n_garbage + n_hold, axis=0)
+    held[:n_garbage] = garbage_like(held[:n_garbage], seed)
+    scans = np.concatenate([padded[:n_before], held, padded[n_before:]])
+    truth = np.concatenate([gt[:n_before], np.repeat(gt[at: at + 1], n_garbage + n_hold, axis=0), gt[n_before:]])
+    forced = np.zeros(len(scans), bool)
+    forced[n_before: n_before + n_garbage] = True
+    return scans, truth, forced
+
+
+def presets(offline_cfg, realtime_cfg) -> dict:
+    """Phase 6: the ``offline`` and ``realtime`` presets unchanged, on
+    sequences with garbage scans; the rescue runs on every scan its first
+    pass rejects, and under ``realtime`` twelve garbage scans in a row
+    trigger the reseed.  The rescue's runs are counted from K3's launches:
+    each run makes ``max_iterations + 1`` of them.  Then ``gicp()`` on one
+    pair, card against CPU.  Returns the launch counts, summed."""
+    import torch
+
+    import icp_slam_yolo_tpu_torch as port
+    from icp_slam_yolo_tpu_torch.ops import pallas
+
+    total = dict.fromkeys(pallas.LAUNCHES, 0)
+    # offline: two garbage scans; offline semantics skip a rejected scan whole
+    cfg = offline_cfg
+    scans, gt, forced = paused_sequence(20, 2, 1, 20, 31, cfg.n_max)
+    pallas.reset_launches()
+    t0 = time.perf_counter()
+    slam = port.Slam(cfg)
+    state, outs = slam.run(scans)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(pallas.LAUNCHES)
+    acc, rmse, poses = (x.cpu().numpy() for x in (outs.accepted, outs.rmse, outs.pose))
+    n_steps = len(scans) - 1
+    rescues, rem = divmod(launches["nn_argmin"] - n_steps, cfg.icp.max_iterations + 1)
+    _require(rem == 0 and rescues >= 1, f"offline: the rescue did not run (K3 launches {launches['nn_argmin']})")
+    _require(not acc[forced[1:]].any(), "offline: a garbage scan was accepted")
+    check_quality("offline", cfg, acc, rmse, poses, gt, state, forced_rejects=forced[1:])
+    print(f"[6] Slam(OFFLINE_CONFIG) unchanged, {len(scans)} scans with {int(forced.sum())} garbage: "
+          f"{len(scans) / secs:.1f} scans/s; rejected {int((~acc).sum())}; the GICP rescue ran {rescues} times, "
+          f"{rescues - int((~acc).sum())} of its runs accepted; accepted outside the garbage "
+          f"{acc[~forced[1:]].mean():.3f}; launches {launches}", flush=True)
+    for k in total:
+        total[k] += launches[k]
+
+    # realtime: 12 garbage scans in a row (reseed_after_rejects is 10), fed one by one
+    cfg = realtime_cfg
+    scans, gt, forced = paused_sequence(25, 12, 12, 25, 33, cfg.n_max)
+    pallas.reset_launches()
+    slam = port.Slam(cfg)
+    runs, reseeds, accepted, rmses, traj = [], 0, [], [], []
+    t0 = time.perf_counter()
+    for scan in scans:
+        out = slam.add_scan(scan)
+        runs.append(int(slam.state.reject_run))
+        if len(runs) > 1:
+            accepted.append(out["accepted"])
+            rmses.append(out["rmse"])
+            traj.append(out["pose"])
+            reseeds += (not out["accepted"]) and runs[-2] == cfg.reseed_after_rejects - 1 and runs[-1] == 0
+    secs = time.perf_counter() - t0
+    launches = dict(pallas.LAUNCHES)
+    acc, rmse, poses = np.array(accepted), np.array(rmses), np.array(traj)
+    rescues, rem = divmod(launches["nn_argmin"] - (len(scans) - 1), cfg.icp.max_iterations + 1)
+    _require(rem == 0 and rescues >= int(forced.sum()), f"realtime: the rescue ran {rescues} times")
+    _require(reseeds >= 1, "realtime: the reseed never ran")
+    _require(not acc[forced[1:]].any(), "realtime: a garbage scan was accepted")
+    # after the garbage the map is garbage too, until a second reseed rebuilds it from a good scan
+    recovering = forced.copy()
+    recovering[25 + 12: 25 + 12 + cfg.reseed_after_rejects] = True
+    check_quality("realtime", cfg, acc, rmse, poses, gt, slam.state, forced_rejects=recovering[1:])
+    print(f"[6] Slam(REALTIME_CONFIG) unchanged, {len(scans)} scans fed one by one, {int(forced.sum())} garbage in a "
+          f"row: {len(scans) / secs:.1f} scans/s; rejected {int((~acc).sum())}; the GICP rescue ran {rescues} times, "
+          f"{rescues - int((~acc).sum())} of its runs accepted; reseeds {reseeds}; accepted outside the garbage "
+          f"and the recovery {acc[~recovering[1:]].mean():.3f}; launches {launches}", flush=True)
+    for k in total:
+        total[k] += launches[k]
+
+    pair, _ = synthetic_sequence(2, seed=13)
+    from icp_slam_yolo_tpu_torch.ops import geometry as geo
+    clouds = []
+    for scan in pair:
+        xy, valid = geo.polar_to_cartesian(torch.from_numpy(scan), offline_cfg.gate)
+        clouds.append(xy[valid].numpy())
+    r_k, t_k = port.gicp(clouds[1], clouds[0])
+    r_c, t_c = port.gicp(clouds[1], clouds[0], device="cpu")
+    dt = np.abs(t_k - t_c)
+    print(f"[6] gicp() on one pair: card rmse {r_k:.3f} mm, cpu {r_c:.3f} mm; T differs by {dt[:2, 3].max():.3g} mm / "
+          f"{dt[:2, :2].max():.3g} (tol 1 mm / 2e-3)", flush=True)
+    _require(np.isfinite(r_k) and abs(r_k - r_c) <= 1.0 and dt[:2, 3].max() <= 1.0 and dt[:2, :2].max() <= 2e-3,
+             "gicp(): card and cpu differ")
+    return total
 
 
 def main() -> int:
@@ -560,17 +1049,22 @@ def main() -> int:
     _lib.lib()
     print(f"[2] built kernels in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    import icp_slam_yolo_tpu_torch as port
+
     cfg = slice_config()
     kernels = check_kernels(cfg)
+    kernels["raster_update_grid"], batched = check_batched_kernels(port.FLEET_CONFIG)
     check_edge_cases(cfg)
-    launches, _ = replay(cfg)
+    paths = [replay(cfg)[0], fleet(port.FLEET_CONFIG), presets(port.OFFLINE_CONFIG, port.REALTIME_CONFIG)]
 
     rows = []
-    for name in ("icp_fused", "raster_update", "nn_argmin"):
+    for name in ("icp_fused", "raster_update", "nn_argmin", "raster_update_grid"):
         row = kernels[name]
-        row["launches"] = launches[name]
+        row["launches"] = sum(p[name] for p in paths)  # over the slice, fleet and preset paths
+        _require(row["launches"] > 0, f"no path launched {name}")
         rows.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches", "max_abs_err",
                                          "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    print(json.dumps({"batched": batched}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,18 @@
 """icp_slam_yolo_tpu_torch: the SLAM scan -> pose -> map step in PyTorch + CUDA.
 
 The PyTorch port of ``icp_slam_yolo_tpu`` (which stays the JAX reference).
-Slice 1 holds the per-scan SLAM step (`slam/pipeline.make_step`) with its three
+It holds the whole per-scan SLAM step (`slam/pipeline`: offline and realtime
+semantics, the GICP rescue, the outlier filter, the reseed), written over a
+robot axis, and the fleet path above it (`parallel/fleet`), with four
 hand-written CUDA kernels for Hopper (``csrc/*.cu``): the fused ICP loop, the
-occupancy raster update and the nearest-neighbour argmin.  Each kernel has a
-plain PyTorch version beside it; a wrapper launches the kernel for a CUDA
-tensor and runs the plain version only for a CPU tensor.
+two occupancy raster updates and the nearest-neighbour argmin, each taking
+all robots in one launch.  Each kernel has a plain PyTorch version beside it;
+a wrapper launches the kernel for a CUDA tensor and runs the plain version
+only for a CPU tensor.
 
-Entry points (`Slam`, `run_sequence`, `register`) take ``device=None``, which
-means the card; without one they raise unless the caller passes
-``device="cpu"``.
+Entry points (`Slam`, `run_sequence`, `fleet_run_sequence`, `register`,
+`gicp`) take ``device=None``, which means the card; without one they raise
+unless the caller passes ``device="cpu"``.
 """
 
 import torch
@@ -31,12 +34,19 @@ from icp_slam_yolo_tpu_torch.config import (  # noqa: E402
     OccupancyConfig,
     SlamConfig,
 )
-from icp_slam_yolo_tpu_torch.core.registration import icp, icp_masked, register  # noqa: E402
+from icp_slam_yolo_tpu_torch.core.registration import gicp, icp, icp_masked, register  # noqa: E402
+from icp_slam_yolo_tpu_torch.parallel.fleet import (  # noqa: E402
+    fleet_init,
+    fleet_run_sequence,
+    fleet_run_sharded,
+    make_fleet_step,
+)
 from icp_slam_yolo_tpu_torch.slam.api import Slam  # noqa: E402
 from icp_slam_yolo_tpu_torch.slam.pipeline import (  # noqa: E402
     SlamState,
     StepOutput,
     init_state,
+    make_batched_step,
     make_step,
     run_sequence,
     update_map,
@@ -45,6 +55,7 @@ from icp_slam_yolo_tpu_torch.slam.pipeline import (  # noqa: E402
 __all__ = [
     "FLEET_CONFIG", "OFFLINE_CONFIG", "PRESETS", "REALTIME_CONFIG",
     "GateConfig", "IcpConfig", "MapConfig", "OccupancyConfig", "SlamConfig",
-    "Slam", "SlamState", "StepOutput", "icp", "icp_masked", "init_state",
+    "Slam", "SlamState", "StepOutput", "fleet_init", "fleet_run_sequence", "fleet_run_sharded",
+    "gicp", "icp", "icp_masked", "init_state", "make_batched_step", "make_fleet_step",
     "make_step", "register", "run_sequence", "update_map",
 ]

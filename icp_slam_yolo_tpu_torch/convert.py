@@ -22,7 +22,8 @@ _DTYPES = {
 
 def state_from_numpy(arrays, device) -> SlamState:
     """A mapping of numpy arrays (a JAX ``SlamState._asdict()`` or a loaded
-    ``.npz``) -> the port's state on ``device``.  States saved before the
+    ``.npz``; one robot's, or a fleet's with a leading robot axis on every
+    field) -> the port's state on ``device``.  States saved before the
     motion-model and reseed fields default them as the JAX loader does."""
     fields = {k: np.asarray(arrays[k]) for k in arrays.keys()}
     fields.setdefault("prev_pose", fields["pose"])

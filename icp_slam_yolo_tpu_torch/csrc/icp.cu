@@ -1,4 +1,5 @@
-// K1: the whole gated point-to-point ICP loop in one cooperative launch.
+// K1: the whole gated point-to-point ICP loop, for B independent
+// registrations (the fleet's robot axis), in one cooperative launch.
 //
 // Replaces the TPU kernel `icp_fused_pallas` (icp_slam_yolo_tpu/ops/pallas/
 // icp_fused.py, `_icp_kernel` via `_fused_batched`).  Semantics kept, per
@@ -16,19 +17,32 @@
 // x live target pairs at ~7 FP32 operations (two subtracts, two multiplies,
 // an add, a compare, a select); at the slice's shapes (~250 x ~20k live) that
 // is ~35 MFLOP, ~0.5 us at 67 TFLOP/s.  A single block per registration
-// would leave 131 SMs idle, so every phase of an iteration is spread over
-// the whole card, with two grid-wide barriers between them:
+// would leave 131 SMs idle, so the resident blocks of the card are shared
+// out evenly among the B registrations (all of them to one registration at
+// B = 1, max(1, resident / B) each otherwise; the launcher refuses a B above
+// the resident count instead of hanging at a barrier), and every phase of an
+// iteration is spread over a registration's blocks, with two grid-wide
+// barriers between them:
 //   1. sweep: work items are (256 source rows) x (256-target slice), walked
 //      grid-stride; each writes per-row (min d^2, argmin) partials;
 //   2. fold: one warp per live source row folds its partials across slices
 //      (lane-strided, then a shuffle argmin that keeps the lower index on
-//      equal d^2, i.e. the first index overall), gates, and adds the row's
-//      moments; each block writes its eight moment sums;
-//   3. solve: every block sums the per-block moments in the same fixed
-//      order and runs the same closed-form solve, so all blocks hold the
-//      same pose bit for bit without a third barrier.
-// The loop ends on the device as soon as the convergence test holds: no
-// host read per iteration.  Target slices with no valid point and source
+//      equal d^2, i.e. the first index overall), gates, and writes the row's
+//      eight moment terms (zeros for a row that is gated out);
+//   3. solve: every block sums its registration's per-row moments in one
+//      fixed order (thread t takes rows t, t + 256, ...; then a fixed tree)
+//      and runs the same closed-form solve, so all blocks of a registration
+//      hold the same pose bit for bit without a third barrier.
+// The barriers span the grid, so the registrations iterate in lockstep, but
+// each ends on its own: once its convergence test holds it runs its final
+// sweep (inlier count and RMSE at the final pose), writes its result and
+// from then on only waits at the barriers, costing no sweep and keeping its
+// pose.  A registration entering its final sweep raises a flag in device
+// memory; between the two barriers every block reads all B flags, and the
+// loop ends when all are up: no host read per iteration.  The order of the
+// moment sums does not depend on the blocks a registration was given, so a
+// registration's result is the same bit for bit whether it is launched alone
+// or among others.  Target slices with no valid point and source
 // blocks with no live row skip their sweep.  Sums run in fixed orders, so a
 // run is deterministic.  Invalid target slots are staged at far-away
 // coordinates instead of carrying a mask, so the inner loop has no branch.
@@ -53,15 +67,17 @@ constexpr int kTile = 256;     // targets per work item
 constexpr int kWarps = kThreads / 32;
 
 struct IcpArgs {
-  const float* src;          // (S, 2) sensor-frame source, mm
-  const uint8_t* src_valid;  // (S,)
-  const float* tgt;          // (T, 2) recentred target, mm
-  const uint8_t* tgt_valid;  // (T,)
-  const float* params;       // [x, y, cos, sin] initial pose, recentred
-  float* part_d2;            // (n_slices, S) scratch
-  int* part_idx;             // (n_slices, S) scratch
-  float* part_m;             // (gridDim.x, 8) scratch: per-block moment sums
-  float* out;                // [x, y, cos, sin, rmse, n_in, n_iters, 0]
+  const float* src;          // (B, S, 2) sensor-frame source, mm
+  const uint8_t* src_valid;  // (B, S)
+  const float* tgt;          // (B, T, 2) recentred target, mm
+  const uint8_t* tgt_valid;  // (B, T)
+  const float* params;       // (B, 4) [x, y, cos, sin] initial pose, recentred
+  float* part_d2;            // (B, n_slices, S) scratch
+  int* part_idx;             // (B, n_slices, S) scratch
+  float* row_m;              // (B, S, 8) scratch: per-row moment terms
+  int* finishing;            // (B,) scratch: registration b is in or past its final sweep
+  float* out;                // (B, 8) [x, y, cos, sin, rmse, n_in, n_iters, 0]
+  int B, bpr;                // registrations; blocks per registration
   int S, T, iters, anderson;
   float thr2, tol;
 };
@@ -168,31 +184,44 @@ __global__ void __launch_bounds__(kThreads) icp_kernel(IcpArgs a) {
   const int n_ts = (T + kTile - 1) / kTile;
   const int items = n_sb * n_ts;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // this block's registration and its place among that registration's blocks
+  const int rb = blockIdx.x / a.bpr, lb = blockIdx.x % a.bpr, bpr = a.bpr;
+  const float* src = a.src + static_cast<size_t>(rb) * S * 2;
+  const uint8_t* src_valid = a.src_valid + static_cast<size_t>(rb) * S;
+  const float* tgt = a.tgt + static_cast<size_t>(rb) * T * 2;
+  const uint8_t* tgt_valid = a.tgt_valid + static_cast<size_t>(rb) * T;
+  float* part_d2 = a.part_d2 + static_cast<size_t>(rb) * n_ts * S;
+  int* part_idx = a.part_idx + static_cast<size_t>(rb) * n_ts * S;
+  float* row_m = a.row_m + static_cast<size_t>(rb) * S * 8;
+  float* out = a.out + rb * 8;
 
-  float cth = a.params[2], sth = a.params[3], ptx = a.params[0], pty = a.params[1];
+  float cth = a.params[rb * 4 + 2], sth = a.params[rb * 4 + 3];
+  float ptx = a.params[rb * 4], pty = a.params[rb * 4 + 1];
   Solver solver;
   solver.pg0 = ptx; solver.pg1 = pty; solver.pg2 = cth; solver.pg3 = sth;
-  bool done = false;
+  bool done = false;      // converged: the next iteration is the final sweep
+  bool finished = false;  // result written: only the barriers are left
 
   for (int it = 0;; ++it) {
     const bool final_pass = done || it >= a.iters;
+    if (lb == 0 && tid == 0 && !finished) a.finishing[rb] = final_pass ? 1 : 0;
 
     // ---- 1. sweep: NN partials over (source block, target slice) items ----
-    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    for (int item = lb; item < items && !finished; item += bpr) {
       const int sb = item % n_sb, ts = item / n_sb;
       const int i = sb * kThreads + tid;
-      const bool row_live = i < S && a.src_valid[i];
+      const bool row_live = i < S && src_valid[i];
       if (!__syncthreads_or(row_live)) continue;  // uniform across the block
       const int j = ts * kTile + tid;
-      const bool tv = j < T && a.tgt_valid[j];
+      const bool tv = j < T && tgt_valid[j];
       // an invalid slot sits at kFar: its d^2 (~2e36) never beats kBig
-      tile[tid] = tv ? make_float2(a.tgt[2 * j], a.tgt[2 * j + 1]) : make_float2(kFar, kFar);
+      tile[tid] = tv ? make_float2(tgt[2 * j], tgt[2 * j + 1]) : make_float2(kFar, kFar);
       const bool slice_live = __syncthreads_or(tv);
       if (row_live) {
         float best = kBig;
         int arg = 0;
         if (slice_live) {
-          const float sx = a.src[2 * i], sy = a.src[2 * i + 1];
+          const float sx = src[2 * i], sy = src[2 * i + 1];
           const float px = cth * sx - sth * sy + ptx;
           const float py = sth * sx + cth * sy + pty;
 #pragma unroll 8
@@ -207,25 +236,31 @@ __global__ void __launch_bounds__(kThreads) icp_kernel(IcpArgs a) {
             }
           }
         }
-        a.part_d2[ts * S + i] = best;
-        a.part_idx[ts * S + i] = ts * kTile + arg;
+        part_d2[ts * S + i] = best;
+        part_idx[ts * S + i] = ts * kTile + arg;
       }
       __syncthreads();  // the next item overwrites the shared tile
     }
     grid.sync();
 
+    // every registration in or past its final sweep: this iteration is the last
+    // (a flag rises only before the first barrier of an iteration, and no
+    // block reaches the next iteration before all have read here)
+    bool mine_up = true;
+    for (int r = tid; r < a.B; r += kThreads) mine_up = mine_up && __ldcg(a.finishing + r) != 0;
+    const bool last_iteration = __syncthreads_and(mine_up);
+
     // ---- 2. fold: one warp per live source row ----
-    float m[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    const int n_warps = gridDim.x * kWarps;
-    for (int i = blockIdx.x * kWarps + warp; i < S; i += n_warps) {
-      if (!a.src_valid[i]) continue;  // uniform across the warp
+    const int n_warps = bpr * kWarps;
+    for (int i = lb * kWarps + warp; i < S && !finished; i += n_warps) {
+      if (!src_valid[i]) continue;  // uniform across the warp
       float best = kBig;
       int arg = 0x7fffffff;
       for (int ts = lane; ts < n_ts; ts += 32) {
-        const float d = __ldcg(a.part_d2 + ts * S + i);  // written by other blocks
+        const float d = __ldcg(part_d2 + ts * S + i);  // written by other blocks
         if (d < best) {
           best = d;
-          arg = __ldcg(a.part_idx + ts * S + i);
+          arg = __ldcg(part_idx + ts * S + i);
         }
       }
       for (int off = 16; off > 0; off >>= 1) {
@@ -236,57 +271,54 @@ __global__ void __launch_bounds__(kThreads) icp_kernel(IcpArgs a) {
           arg = oa;
         }
       }
-      if (lane != 0 || !(best < kBig)) continue;  // no valid target: weight 0
-      const float sx = a.src[2 * i], sy = a.src[2 * i + 1];
-      const float px = cth * sx - sth * sy + ptx;
-      const float py = sth * sx + cth * sy + pty;
-      const float mx = a.tgt[2 * arg], my = a.tgt[2 * arg + 1];
-      const float dx = px - mx, dy = py - my;
-      const float d2 = dx * dx + dy * dy;  // equals `best`: same difference form
-      if (!(d2 < a.thr2)) continue;        // gated out: weight 0
-      if (final_pass) {
-        m[0] += 1.f;
-        m[1] += d2;
-      } else {
-        const float pxm = px * 1e-3f, pym = py * 1e-3f, mxm = mx * 1e-3f, mym = my * 1e-3f;
-        m[0] += 1.f;
-        m[1] += pxm;
-        m[2] += pym;
-        m[3] += mxm;
-        m[4] += mym;
-        m[5] += pxm * mxm + pym * mym;
-        m[6] += pxm * mym - pym * mxm;
-        m[7] += sqrtf(d2);
+      if (lane != 0) continue;
+      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;  // no valid target or gated out: weight 0
+      if (best < kBig) {
+        const float sx = src[2 * i], sy = src[2 * i + 1];
+        const float px = cth * sx - sth * sy + ptx;
+        const float py = sth * sx + cth * sy + pty;
+        const float mx = tgt[2 * arg], my = tgt[2 * arg + 1];
+        const float dx = px - mx, dy = py - my;
+        const float d2 = dx * dx + dy * dy;  // equals `best`: same difference form
+        if (d2 < a.thr2) {
+          if (final_pass) {
+            lo = make_float4(1.f, d2, 0.f, 0.f);
+          } else {
+            const float pxm = px * 1e-3f, pym = py * 1e-3f, mxm = mx * 1e-3f, mym = my * 1e-3f;
+            lo = make_float4(1.f, pxm, pym, mxm);
+            hi = make_float4(mym, pxm * mxm + pym * mym, pxm * mym - pym * mxm, sqrtf(d2));
+          }
+        }
       }
-    }
-    block_sum8(m, red);
-    if (tid == 0) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) a.part_m[blockIdx.x * 8 + k] = m[k];
+      float4* dst = reinterpret_cast<float4*>(row_m + 8 * i);
+      dst[0] = lo;
+      dst[1] = hi;
     }
     grid.sync();
 
-    // ---- 3. solve: every block sums the block moments in the same order ----
-    if (warp == 0) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        float x = 0.f;
-        for (int b = lane; b < gridDim.x; b += 32) x += __ldcg(a.part_m + b * 8 + k);
-        for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
-        m[k] = x;
+    // ---- 3. solve: every block sums the registration's row moments in the same order ----
+    if (!finished) {  // uniform across the block
+      float m[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      for (int i = tid; i < S; i += kThreads) {
+        if (!src_valid[i]) continue;
+        const float4 lo = __ldcg(reinterpret_cast<const float4*>(row_m + 8 * i));  // written by other blocks
+        const float4 hi = __ldcg(reinterpret_cast<const float4*>(row_m + 8 * i) + 1);
+        m[0] += lo.x; m[1] += lo.y; m[2] += lo.z; m[3] += lo.w;
+        m[4] += hi.x; m[5] += hi.y; m[6] += hi.z; m[7] += hi.w;
       }
-      if (lane == 0) {
+      block_sum8(m, red);
+      if (tid == 0) {
         if (final_pass) {
-          if (blockIdx.x == 0) {
+          if (lb == 0) {
             const float n_in = m[0];
-            a.out[0] = ptx;
-            a.out[1] = pty;
-            a.out[2] = cth;
-            a.out[3] = sth;
-            a.out[4] = n_in > 0.f ? sqrtf(m[1] / fmaxf(n_in, 1.f)) : kBig;
-            a.out[5] = n_in;
-            a.out[6] = solver.n_iters;
-            a.out[7] = 0.f;
+            out[0] = ptx;
+            out[1] = pty;
+            out[2] = cth;
+            out[3] = sth;
+            out[4] = n_in > 0.f ? sqrtf(m[1] / fmaxf(n_in, 1.f)) : kBig;
+            out[5] = n_in;
+            out[6] = solver.n_iters;
+            out[7] = 0.f;
           }
         } else {
           float p[4] = {cth, sth, ptx, pty};
@@ -298,7 +330,11 @@ __global__ void __launch_bounds__(kThreads) icp_kernel(IcpArgs a) {
         }
       }
     }
-    if (final_pass) break;
+    if (last_iteration) break;  // uniform across the grid
+    if (final_pass) {
+      finished = true;
+      continue;
+    }
     __syncthreads();
     cth = pose_sh[0];
     sth = pose_sh[1];
@@ -310,12 +346,15 @@ __global__ void __launch_bounds__(kThreads) icp_kernel(IcpArgs a) {
 
 }  // namespace
 
-extern "C" int slam_icp_fused(const void* src, const void* src_valid, int S,
+// B registrations in one launch.  Returns cudaErrorCooperativeLaunchTooLarge
+// when B exceeds the blocks the card can hold resident at once.
+extern "C" int slam_icp_fused(const void* src, const void* src_valid, int B, int S,
                               const void* tgt, const void* tgt_valid, int T,
                               const void* params, int iters, float thr2,
                               float tolerance, int anderson, void* part_d2,
-                              void* part_idx, void* part_m, int part_m_blocks,
+                              void* part_idx, void* row_m, void* finishing,
                               void* out, void* stream) {
+  if (B <= 0) return 0;
   int dev = 0, sms = 0, per_sm = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
@@ -325,6 +364,16 @@ extern "C" int slam_icp_fused(const void* src, const void* src_valid, int S,
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, icp_kernel, kThreads, 0);
   if (e != cudaSuccess) return static_cast<int>(e);
 
+  // every block must be co-resident for grid.sync: the resident blocks are
+  // shared out among the registrations; enough warps for the fold
+  const int resident = sms * per_sm;
+  if (B > resident) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const int items = ((S + kThreads - 1) / kThreads) * ((T + kTile - 1) / kTile);
+  const int fold_blocks = (S + kWarps - 1) / kWarps;
+  int bpr = items > fold_blocks ? items : fold_blocks;
+  if (bpr > resident / B) bpr = resident / B;
+  if (bpr < 1) bpr = 1;
+
   IcpArgs a;
   a.src = static_cast<const float*>(src);
   a.src_valid = static_cast<const uint8_t*>(src_valid);
@@ -333,8 +382,11 @@ extern "C" int slam_icp_fused(const void* src, const void* src_valid, int S,
   a.params = static_cast<const float*>(params);
   a.part_d2 = static_cast<float*>(part_d2);
   a.part_idx = static_cast<int*>(part_idx);
-  a.part_m = static_cast<float*>(part_m);
+  a.row_m = static_cast<float*>(row_m);
+  a.finishing = static_cast<int*>(finishing);
   a.out = static_cast<float*>(out);
+  a.B = B;
+  a.bpr = bpr;
   a.S = S;
   a.T = T;
   a.iters = iters;
@@ -342,15 +394,8 @@ extern "C" int slam_icp_fused(const void* src, const void* src_valid, int S,
   a.thr2 = thr2;
   a.tol = tolerance;
 
-  // every block must be co-resident for grid.sync; enough warps for the fold
-  const int items = ((S + kThreads - 1) / kThreads) * ((T + kTile - 1) / kTile);
-  const int fold_blocks = (S + kWarps - 1) / kWarps;
-  int blocks = items > fold_blocks ? items : fold_blocks;
-  if (blocks > sms * per_sm) blocks = sms * per_sm;
-  if (blocks > part_m_blocks) blocks = part_m_blocks;
-  if (blocks < 1) blocks = 1;
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(icp_kernel), blocks,
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(icp_kernel), B * bpr,
                                   kThreads, args, 0, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());

@@ -5,10 +5,15 @@
 // difference form (sx-tx)^2 + (sy-ty)^2, an invalid target never matches, and
 // ties go to the first index.  With no valid target the result is (1e30, 0).
 //
+// One launch serves B independent problems (the fleet's robot axis):
+// blockIdx.y picks the problem, and every pointer is offset by it.
+//
 // Bound on this card: operations, in principle.  S x T pairs at ~6 FP32
-// operations each; at the slice's shapes (S = T = 512, the dynamic-point
-// filter) the whole call is ~1.6 MFLOP and ~10 KB, far below a microsecond
-// of either roof, so what a launch costs is latency.  Design: a block holds
+// operations each; at the step's shapes (S = T = 512, the dynamic-point
+// filter) the whole call is ~1.6 MFLOP and ~10 KB per problem, far below a
+// microsecond of either roof, so what a launch costs is latency; the GICP
+// rescue's 512 x 24576 is ~75 MFLOP, ~1 us at the FP32 roof, and there 16
+// blocks of 32 sources leave most of the card idle.  Design: a block holds
 // 32 source points (one per lane) and 8 warps that split the targets
 // between them (warp y takes targets y, y+8, ...), so each thread's chain of
 // dependent compares is T/8 long; targets are staged through shared memory
@@ -34,6 +39,12 @@ __global__ void __launch_bounds__(kLanes * kParts) nn_argmin_kernel(
     const float* __restrict__ src, const float* __restrict__ tgt,
     const uint8_t* __restrict__ valid, int S, int T,
     float* __restrict__ out_d2, int* __restrict__ out_idx) {
+  const size_t b = blockIdx.y;  // problem (robot)
+  src += b * S * 2;
+  tgt += b * T * 2;
+  valid += b * T;
+  out_d2 += b * S;
+  out_idx += b * S;
   __shared__ float tx[kTile];
   __shared__ float ty[kTile];
   __shared__ uint8_t tv[kTile];
@@ -93,12 +104,14 @@ extern "C" const char* slam_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// src (B, S, 2), tgt (B, T, 2), valid (B, T) -> out_d2 (B, S), out_idx (B, S)
 extern "C" int slam_nn_argmin(const void* src, const void* tgt, const void* valid,
-                              int S, int T, void* out_d2, void* out_idx,
+                              int B, int S, int T, void* out_d2, void* out_idx,
                               void* stream) {
-  if (S <= 0) return 0;
+  if (S <= 0 || B <= 0) return 0;
+  if (B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (S + kLanes - 1) / kLanes;
-  nn_argmin_kernel<<<blocks, dim3(kLanes, kParts), 0, static_cast<cudaStream_t>(stream)>>>(
+  nn_argmin_kernel<<<dim3(blocks, B), dim3(kLanes, kParts), 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(src), static_cast<const float*>(tgt),
       static_cast<const uint8_t*>(valid), S, T, static_cast<float*>(out_d2),
       static_cast<int*>(out_idx));

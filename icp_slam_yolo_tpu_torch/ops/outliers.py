@@ -1,12 +1,26 @@
-"""Dynamic-point rejection (counterpart of ``dynamic_points_mask`` in the JAX
-package's ``ops/outliers.py``).  The statistical outlier filter waits for the
-k-NN slice."""
+"""Point-cloud hygiene filters: statistical outliers and dynamic points
+(counterpart of the JAX package's ``ops/outliers.py``).  The statistical
+filter takes leading batch axes (clouds ``(..., N, 2)``, masks ``(..., N)``);
+the dynamic filter goes through K3 and takes ``(B, N, 2)``."""
 
 from __future__ import annotations
 
 import torch
 
-from icp_slam_yolo_tpu_torch.ops.nn import nearest_neighbor
+from icp_slam_yolo_tpu_torch.ops.nn import knn_mean_distance, nearest_neighbor
+
+
+def statistical_outlier_mask(xy: torch.Tensor, valid: torch.Tensor, nb_neighbors: int = 30,
+                             std_ratio: float = 1.5) -> torch.Tensor:
+    """Keep-mask per Open3D semantics: drop points whose mean k-NN distance
+    exceeds ``mean + std_ratio * std`` of that statistic over the cloud."""
+    mean_knn = knn_mean_distance(xy, valid, nb_neighbors)
+    w = valid.to(torch.float32)
+    denom = torch.clamp(w.sum(-1, keepdim=True), min=1.0)
+    vals = torch.where(valid, mean_knn, torch.zeros_like(mean_knn))
+    mu = vals.sum(-1, keepdim=True) / denom
+    var = (w * (vals - mu) ** 2).sum(-1, keepdim=True) / denom
+    return valid & (mean_knn <= mu + std_ratio * torch.sqrt(var))
 
 
 def dynamic_points_mask(
@@ -20,4 +34,4 @@ def dynamic_points_mask(
     threshold; keep everything when the previous scan is empty."""
     dist, _ = nearest_neighbor(cur_xy, prev_xy, prev_valid, cur_valid)
     keep = cur_valid & (dist < distance_threshold_mm)
-    return torch.where(prev_valid.any(), keep, cur_valid)
+    return torch.where(prev_valid.any(-1, keepdim=True), keep, cur_valid)

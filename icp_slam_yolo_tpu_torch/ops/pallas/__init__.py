@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-LAUNCHES = {"icp_fused": 0, "raster_update": 0, "nn_argmin": 0}
+LAUNCHES = {"icp_fused": 0, "raster_update": 0, "nn_argmin": 0, "raster_update_grid": 0}
 
 
 def reset_launches() -> None:

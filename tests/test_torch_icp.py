@@ -52,8 +52,8 @@ def _room_pair(seed=5, t_slots=1024):
 
 def _both(src, sv, tgt, tv, init, **kw):
     j = icp_fused_pallas(*(jnp.asarray(x) for x in (src, sv, tgt, tv, init)), interpret=True, **kw)
-    t = icp_fused(*(torch.from_numpy(np.array(x)) for x in (src, sv, tgt, tv, init)), **kw)
-    return [np.asarray(x) for x in j], [x.numpy() for x in t]
+    t = icp_fused(*(torch.from_numpy(np.array(x))[None] for x in (src, sv, tgt, tv, init)), **kw)  # B = 1
+    return [np.asarray(x) for x in j], [x[0].numpy() for x in t]
 
 
 def _close(j, t, iters_slack=None):
@@ -119,7 +119,8 @@ def test_icp_masked_matches_jax(backend):
     jcfg = JIcpConfig(backend="fused", tolerance=1e-2)
     tcfg = IcpConfig(backend=backend, tolerance=1e-2)
     jr = jreg.icp_masked(*(jnp.asarray(x) for x in (src, sv, tgt, tv, init)), jcfg)
-    tr = treg.icp_masked(*(torch.from_numpy(x) for x in (src, sv, tgt, tv, init)), tcfg)
+    tr = treg.icp_masked(*(torch.from_numpy(x)[None] for x in (src, sv, tgt, tv, init)), tcfg)
+    tr = type(tr)(*(x[0] for x in tr))
     np.testing.assert_allclose(tr.pose.numpy()[:2], np.asarray(jr.pose)[:2], atol=1.0)
     assert abs(float(tr.pose[2]) - float(jr.pose[2])) <= 2e-3
     assert abs(float(tr.rmse) - float(jr.rmse)) <= 1.0
@@ -133,9 +134,9 @@ def test_degenerate_rule():
     sv = sv.copy()
     sv[np.flatnonzero(sv)[5:]] = False
     init = np.array([10.0, 20.0, 0.3], np.float32)
-    r = treg.icp_masked(*(torch.from_numpy(x) for x in (src, sv, tgt, tv, init)), IcpConfig())
+    r = treg.icp_masked(*(torch.from_numpy(x)[None] for x in (src, sv, tgt, tv, init)), IcpConfig())
     assert not np.isfinite(float(r.rmse))
-    np.testing.assert_array_equal(r.pose.numpy(), init)
+    np.testing.assert_array_equal(r.pose[0].numpy(), init)
 
 
 def test_register_api_matches_jax():
@@ -150,17 +151,6 @@ def test_register_api_matches_jax():
     np.testing.assert_allclose(tr_, jr_, atol=2e-3)
     np.testing.assert_allclose(tt_, jt_, atol=1.0)
     assert abs(trm - jrm) <= 1.0
-
-
-def test_unported_estimators_raise():
-    z = torch.zeros((8, 2))
-    v = torch.ones(8, dtype=torch.bool)
-    for cfg in (IcpConfig(estimator="gicp"), IcpConfig(estimator="point_to_plane"),
-                IcpConfig(huber_delta_mm=50.0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            treg.icp_masked(z, v, z, v, torch.zeros(3), cfg)
-    with pytest.raises(NotImplementedError, match="one ICP"):
-        treg.icp_masked(z, v, z, v, torch.zeros(3), IcpConfig(backend="xla"))
 
 
 def test_register_without_card_raises():

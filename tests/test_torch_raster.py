@@ -26,6 +26,12 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
+def _update(occ, pts, valid, robot, accept=None):
+    """The port's `update_occupancy` on one robot (a leading axis of 1)."""
+    return traster.update_occupancy(occ[None], pts[None], valid[None], robot[None], TMAP, TOCC,
+                                    None if accept is None else accept[None])[0]
+
+
 def _grid_with_wall(rng):
     occ = np.full((400, 400), 0.5, np.float32)
     occ += rng.uniform(-0.3, 0.3, occ.shape).astype(np.float32) * (rng.random(occ.shape) < 0.1)
@@ -52,7 +58,7 @@ def test_update_matches_fused_interpret(rng, robot, n):
     pts, valid = _rays(rng, n, robot)
     j = jraster.update_occupancy(jnp.asarray(occ), jnp.asarray(pts), jnp.asarray(valid),
                                  jnp.asarray(robot), JMAP, JOCC)
-    t = traster.update_occupancy(_t(occ), _t(pts), _t(valid), _t(robot), TMAP, TOCC)
+    t = _update(_t(occ), _t(pts), _t(valid), _t(robot))
     np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-5, rtol=0)
     assert (t.numpy() <= 1.0).all() and (t.numpy() >= 0.0).all()
 
@@ -66,7 +72,7 @@ def test_wall_blocks_rays_and_sequence_agrees(rng):
     for _ in range(3):
         pts, valid = _rays(rng, 512, robot)
         j = jraster.update_occupancy(j, jnp.asarray(pts), jnp.asarray(valid), jnp.asarray(robot), JMAP, JOCC)
-        t = traster.update_occupancy(t, _t(pts), _t(valid), _t(robot), TMAP, TOCC)
+        t = _update(t, _t(pts), _t(valid), _t(robot))
     np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-5, rtol=0)
     behind = t.numpy()[200:210, 255:300]
     assert (behind == occ[200:210, 255:300]).all(), "cells behind the wall must be untouched"
@@ -79,11 +85,11 @@ def test_accept_flag_commits_the_window_only_on_accept(rng):
     robot = np.asarray([150.0, -90.0], np.float32)
     occ = _grid_with_wall(rng)
     pts, valid = _rays(rng, 300, robot)
-    args = (_t(occ), _t(pts), _t(valid), _t(robot), TMAP, TOCC)
-    always = traster.update_occupancy(*args)
-    assert torch.equal(traster.update_occupancy(*args, torch.tensor(True)), always)
+    args = (_t(occ), _t(pts), _t(valid), _t(robot))
+    always = _update(*args)
+    assert torch.equal(_update(*args, torch.tensor(True)), always)
     assert not torch.equal(always, _t(occ))
-    assert torch.equal(traster.update_occupancy(*args, torch.tensor(False)), _t(occ))
+    assert torch.equal(_update(*args, torch.tensor(False)), _t(occ))
 
 
 def test_world_to_px_truncates_toward_zero():
@@ -127,23 +133,25 @@ def test_keep_and_prune_masks(rng, margin):
 
 
 def test_wrapper_checks_and_cpu_path():
-    occ = torch.full((400, 400), 0.5)
-    meta = torch.tensor([10, 10, 140, 140], dtype=torch.int32)
-    ey = torch.tensor([150, 20], dtype=torch.int32)
-    ex = torch.tensor([30, 300], dtype=torch.int32)
-    live = torch.tensor([True, True])
+    occ = torch.full((1, 400, 400), 0.5)
+    meta = torch.tensor([[10, 10, 140, 140]], dtype=torch.int32)
+    ey = torch.tensor([[150, 20]], dtype=torch.int32)
+    ex = torch.tensor([[30, 300]], dtype=torch.int32)
+    live = torch.tensor([[True, True]])
     kw = dict(side_y=384, side_x=384, k=144, p_occ_inc=0.2, p_free_decay=0.9, block_threshold=0.65)
     before = pallas.LAUNCHES["raster_update"]
     out = raster_update(occ, meta, ey, ex, live, **kw)
     assert torch.equal(out, raster_update_plain(occ, meta, ey, ex, live, **kw))
     assert pallas.LAUNCHES["raster_update"] == before
-    assert torch.equal(occ, torch.full((400, 400), 0.5)), "the input grid is not modified"
+    assert torch.equal(occ, torch.full((1, 400, 400), 0.5)), "the input grid is not modified"
     with pytest.raises(ValueError):
         raster_update(occ, meta, ey, ex, live, **dict(kw, side_y=512))
     with pytest.raises(TypeError):
         raster_update(occ, meta.long(), ey, ex, live, **kw)
     with pytest.raises(TypeError):
-        raster_update(occ, meta, ey, ex, live, torch.tensor(1), **kw)
+        raster_update(occ, meta, ey, ex, live, torch.tensor([1]), **kw)
+    with pytest.raises(ValueError, match="occ"):  # one robot still carries the leading axis
+        raster_update(occ[0], meta, ey, ex, live, **kw)
     with pytest.raises(NotImplementedError):
-        traster.update_occupancy(occ, torch.zeros((2, 2)), live, torch.zeros(2), TMAP,
+        traster.update_occupancy(occ, torch.zeros((1, 2, 2)), live, torch.zeros((1, 2)), TMAP,
                                  dataclasses.replace(TOCC, backend="xla"))

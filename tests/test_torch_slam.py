@@ -146,18 +146,40 @@ def test_streaming_equals_batch():
     assert s.map_points().shape[1] == 2 and s.occupancy().shape == (400, 400)
 
 
+def _garbage(scans, seed=0):
+    """The same beams with ranges drawn at random: a scan no pose explains."""
+    rng = np.random.default_rng(seed)
+    out = scans.copy()
+    out[..., 2] = np.where(out[..., 2] > 0, rng.uniform(1200.0, 8000.0, out[..., 2].shape), 0.0)
+    return out.astype(np.float32)
+
+
 @pytest.mark.parametrize("change", [
     dict(icp_rescue="gicp"), dict(realtime_semantics=True), dict(use_outlier_filter=True),
-    dict(reseed_after_rejects=3),
+    dict(reseed_after_rejects=2),
 ])
-def test_unported_features_raise(change):
-    cfg = tc.SlamConfig()
-    if "icp_rescue" in change:
-        cfg = cfg.replace(icp=tc.IcpConfig(rescue_estimator=change["icp_rescue"]))
-    else:
-        cfg = cfg.replace(**change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port.Slam(cfg, device="cpu")
+def test_ported_features_match_jax(change):
+    """The four features that raised before they were ported, each switched
+    on alone on the cut offline configuration: a 7-scan replay with two
+    garbage scans in the middle (they are rejected: the rescue runs on them,
+    and the second one triggers the reseed) matches the JAX replay."""
+    kw = dict(change)
+    jcfg, tcfg = _configs()
+    if "icp_rescue" in kw:
+        est = kw.pop("icp_rescue")
+        kw = {}
+        jcfg = jcfg.replace(icp=dataclasses.replace(jcfg.icp, rescue_estimator=est, gicp_epsilon=0.1))
+        tcfg = tcfg.replace(icp=dataclasses.replace(tcfg.icp, rescue_estimator=est, gicp_epsilon=0.1))
+    jcfg, tcfg = jcfg.replace(**kw), tcfg.replace(**kw)
+    padded, _ = _scans(7, seed=5)
+    padded[3:5] = _garbage(padded[3:5])
+    jstate, jouts = jpipe.run_sequence(jnp.asarray(padded), jcfg)
+    tstate, touts = port.run_sequence(padded, tcfg, device="cpu")
+    _compare(jstate, jouts, tstate, touts)
+    np.testing.assert_array_equal(touts.accepted.numpy()[:4], [True, True, False, False])
+    np.testing.assert_allclose(touts.rmse.numpy(), np.asarray(jouts.rmse), atol=1.0)
+    assert int(tstate.reject_run) == int(jstate.reject_run)
+    assert int(tstate.maint_count) == int(jstate.maint_count)
 
 
 def test_device_rule():
