@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases (each prints a line; any failed check raises, so the script exits
-non-zero):
+non-zero; they run in the order 1-3, 7-9, 4-6, 10, see `main`):
   1. require a CUDA device; print the card's name and power limit;
   2. build the CUDA kernels (``nvcc``, first use) and print the build time;
   3. hold each kernel (K1 ICP, K2 raster, K3 nearest neighbour, K4 fleet
@@ -26,7 +26,19 @@ non-zero):
   6. the presets: ``Slam(OFFLINE_CONFIG)`` and ``Slam(REALTIME_CONFIG)``
      unchanged on sequences with garbage scans, which force the GICP rescue
      and, under ``realtime``, the reseed; ``gicp()`` on the card against the CPU;
-  7. one JSON line listing the kernels, then the card line, then the result
+  7. the detector's kernels (K5 1x1, K6 3x3, K7 3x3 stride 2 conv + bias +
+     SiLU, K8 the whole C2f block) against their plain versions on the card,
+     in bfloat16 and float32, at every distinct shape of a yolo-n forward at
+     640 px at batch 1, 2 and 8 plus edge cases, with device times (kernel,
+     plain version, and the library's ``F.conv2d`` + ``F.silu``);
+  8. the detector path: ``detector_from_checkpoint`` on the trained v8 detect
+     weights, bfloat16, 640 px, fused: ``__call__``, ``detect_pair`` and
+     ``predict_batch`` at batch 8 on seeded synthetic frames, with launch
+     counters (7 / 6 / 12 / 20 launches of K7 / K8 / K5 / K6 per forward);
+     fused against unfused head outputs; float32 on the card against the
+     port on the CPU; a segment checkpoint through the fused path;
+  9. detector times: per forward at batch 1, 2, 8 and 32, fused and unfused;
+  10. one JSON line listing the kernels, then the card line, then the result
      line ``{"ok": true, "device": {...}}`` last.
 
 The synthetic scan generator (`synthetic_sequence`) lives here so the CPU
@@ -159,11 +171,12 @@ def map_points_along(segs: np.ndarray, n: int, rng, noise_mm: float = 10.0) -> n
 # ---------------------------------------------------------------- measurement
 
 PEAK_FP32 = 67e12   # FP32 operations/s outside the tensor cores (H100 SXM data sheet)
+PEAK_BF16 = 989e12  # dense bfloat16 operations/s in the tensor cores (H100 SXM data sheet)
 PEAK_BYTES = 3.35e12  # HBM bytes/s (H100 SXM data sheet)
 
 
-def _bound(ops: float, nbytes: float):
-    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+def _bound(ops: float, nbytes: float, peak_ops: float = PEAK_FP32):
+    t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -219,6 +232,9 @@ def _device_profile(torch, fn, reps: int) -> dict:
     fn()
     torch.cuda.synchronize()
     events = _kernel_events(torch, _traced(torch, calls))
+    if not events:  # a trace that kept nothing: once more before giving up
+        print("    (profiler: a trace recorded no device time; measuring again)", flush=True)
+        events = _kernel_events(torch, _traced(torch, calls))
     if not events:
         raise RuntimeError("the profiler recorded no device time")
     lost = {e.key[:40]: e.count for e in events if e.count % reps}
@@ -304,9 +320,15 @@ def profile_window(torch, fn, n_steps: int) -> str:
     dev_us = sum(e.self_device_time_total for e in avgs)
     top = "; ".join(f"{e.key[:48]} {e.self_device_time_total / n_steps:.1f}" for e in avgs[:6])
     n_launch = sum(e.count for e in avgs)
+    # what the sums would be if no record was lost: each name's mean over the
+    # records kept, times its launches per step rounded up (equal to the
+    # sums when every count is a multiple of the steps)
+    whole = sum(e.self_device_time_total / e.count * -(-e.count // n_steps) for e in avgs)
+    short = sum(1 for e in avgs if e.count % n_steps)
     return (f"device busy {dev_us / 1e6 / wall:.3f} of wall (profiler on), wall {wall / n_steps * 1e3:.2f} ms/step, "
-            f"device {dev_us / n_steps:.1f} us/step, {n_launch / n_steps:.0f} device launches/step; "
-            f"top kernels us/step: {top}")
+            f"device {dev_us / n_steps:.1f} us/step, {n_launch / n_steps:.0f} device launches/step "
+            f"({short} of {len(avgs)} kernel names with a count that is no multiple of the steps; with every name's "
+            f"launches per step rounded up: {whole:.1f} us/step); top kernels us/step: {top}")
 
 
 def slice_config():
@@ -1030,9 +1052,419 @@ def presets(offline_cfg, realtime_cfg) -> dict:
     return total
 
 
-def main() -> int:
+# ---------------------------------------------------------------- detector
+
+DETECT_CHECKPOINT = "checkpoints/pallet_detect_640.msgpack"
+SEGMENT_CHECKPOINT = "checkpoints/pallet_segment_640.msgpack"
+# The conv sites of one yolo-n (v8) forward at 640 px outside the whole-block
+# C2f kernels, by kernel: (Cin, Cout, input H = W, SiLU, launches per forward)
+K5_SITES = ([(64, 64, 80, True, 1), (128, 64, 80, True, 1), (128, 128, 40, True, 1), (256, 128, 40, True, 1),
+             (256, 128, 20, True, 1), (512, 256, 20, True, 1)]
+            + [(64, cout, h, False, 1) for h in (80, 40, 20) for cout in (64, 1)])
+K6_SITES = [(32, 32, 80, True, 4), (64, 64, 40, True, 6), (64, 64, 80, True, 4), (128, 64, 40, True, 2),
+            (256, 64, 20, True, 2), (64, 64, 20, True, 2)]
+K7_SITES = [(3, 16, 640, True, 1), (16, 32, 320, True, 1), (32, 64, 160, True, 1), (64, 128, 80, True, 1),
+            (128, 256, 40, True, 1), (64, 64, 80, True, 1), (128, 128, 40, True, 1)]
+# the six single-bottleneck C2f blocks: (Cin, c, F, H = W, shortcut)
+K8_SITES = [(32, 16, 32, 160, True), (256, 128, 256, 20, True), (384, 64, 128, 40, False),
+            (192, 32, 64, 80, False), (192, 64, 128, 40, False), (384, 128, 256, 20, False)]
+LAUNCHES_PER_FORWARD = {"conv3x3s2_silu": 7, "c2f_fused": 6, "conv1x1_silu": 12, "conv3x3_silu": 20}
+DETECTOR_KERNELS = {
+    "conv1x1_silu": ("icp_slam_yolo_tpu_torch/csrc/conv.cu", "icp_slam_yolo_tpu/ops/pallas/conv_fused.py:102"),
+    "conv3x3_silu": ("icp_slam_yolo_tpu_torch/csrc/conv.cu", "icp_slam_yolo_tpu/ops/pallas/conv_fused.py:207"),
+    "conv3x3s2_silu": ("icp_slam_yolo_tpu_torch/csrc/conv.cu", "icp_slam_yolo_tpu/ops/pallas/conv_fused.py:304"),
+    "c2f_fused": ("icp_slam_yolo_tpu_torch/csrc/c2f.cu", "icp_slam_yolo_tpu/ops/pallas/c2f_fused.py:270"),
+}
+
+
+def _tolerance(dtype_name: str, steps: int, magnitude: float) -> float:
+    """float32: 3e-4 of the output's magnitude (another order of summation
+    over up to 2304 terms).  bfloat16: ``steps`` bfloat16 steps (2^-8) of the
+    output's largest magnitude: the kernel and the plain version hold the same
+    float32 sum up to its order, so they differ where a sum falls on the other
+    side of a rounding boundary."""
+    scale = max(1.0, magnitude)
+    return 3e-4 * scale if dtype_name == "float32" else steps * 2.0 ** -8 * scale
+
+
+def _conv_case(torch, rng, dt, bsz, h, w, cin, cout, k):
+    dev = torch.device("cuda")
+
+    def mk(shape, scale):
+        return torch.tensor(rng.standard_normal(shape) * scale, dtype=torch.float32, device=dev).to(dt)
+
+    return mk((bsz, h, w, cin), 1.0), mk((k, k, cin, cout), 1.0 / np.sqrt(k * k * cin)), mk((cout,), 0.1)
+
+
+def _c2f_case(torch, rng, dt, bsz, h, w, cin, c, feat):
+    dev = torch.device("cuda")
+
+    def mk(shape, scale, t=dt):
+        return torch.tensor(rng.standard_normal(shape) * scale, dtype=torch.float32, device=dev).to(t)
+
+    f32 = torch.float32
+    return (mk((bsz, h, w, cin), 1.0), mk((cin, 2 * c), 1.0 / np.sqrt(cin)), mk((2 * c,), 0.1, f32),
+            mk((3, 3, c, c), 1.0 / np.sqrt(9 * c)), mk((c,), 0.1, f32), mk((3, 3, c, c), 1.0 / np.sqrt(9 * c)),
+            mk((c,), 0.1, f32), mk((3 * c, feat), 1.0 / np.sqrt(3 * c)), mk((feat,), 0.1, f32))
+
+
+def _c2f_unfused(torch, x, w1, b1, wm1, bm1, wm2, bm2, w2, b2, shortcut):
+    """The unfused sequence a C2f block with one bottleneck is without K8:
+    four ``F.conv2d`` + ``F.silu`` pairs in the working type, a split, an add
+    and a concatenation (what ``fused=False`` runs)."""
+    F = torch.nn.functional
+
+    def cba(v, w, b):
+        return F.silu(F.conv2d(v, w, b, padding=w.shape[-1] // 2))
+
+    c = w1.shape[0] // 2
+    y = cba(x, w1, b1)
+    a, b = y[:, :c], y[:, c:]
+    t2 = cba(cba(b, wm1, bm1), wm2, bm2)
+    return cba(torch.cat([a, b, b + t2 if shortcut else t2], dim=1), w2, b2)
+
+
+def check_detector_kernels() -> dict:
+    """Phase 7: K5-K8 against their plain versions on the card.  Every
+    distinct site shape of the forward at batch 1, 2 and 8, bfloat16 (timed)
+    and float32 (checked), then edge cases.  Returns the kernels' rows: each
+    time is the mean per launch over the launches of one batch-2 forward (the
+    stereo tick), the error the largest over all checks."""
     import torch
 
+    from icp_slam_yolo_tpu_torch.ops.pallas import c2f_fused as c2f
+    from icp_slam_yolo_tpu_torch.ops.pallas import conv_fused as conv
+
+    F = torch.nn.functional
+    rng = np.random.default_rng(11)
+    wrappers = {
+        "conv1x1_silu": (1, 1, lambda x, w, b, act: conv.conv1x1_silu(x, w[0, 0], b, act=act)),
+        "conv3x3_silu": (3, 1, lambda x, w, b, act: conv.conv3x3_silu(x, w, b)),
+        "conv3x3s2_silu": (3, 2, lambda x, w, b, act: conv.conv3x3s2_silu(x, w, b)),
+    }
+    sites = {"conv1x1_silu": K5_SITES, "conv3x3_silu": K6_SITES, "conv3x3s2_silu": K7_SITES}
+    worst = dict.fromkeys(DETECTOR_KERNELS, 0.0)
+    sums = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, by={}) for name in DETECTOR_KERNELS}
+    n_checks = 0
+
+    def held(name, what, got, want, dt, steps):
+        nonlocal n_checks
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        mag = float(want.float().abs().max())
+        tol = _tolerance(str(dt).split(".")[-1], steps, mag)
+        _require(got.shape == want.shape and got.dtype == want.dtype and err <= tol,
+                 f"{name} {what}: max error {err} against the plain version (tolerance {tol}, magnitude {mag})")
+        worst[name] = max(worst[name], err)
+        n_checks += 1
+        return err, mag
+
+    for name, (k, stride, fn) in wrappers.items():
+        for cin, cout, h, act, count in sites[name]:
+            for dt in (torch.bfloat16, torch.float32):
+                for bsz in (1, 2, 8):
+                    x, w, b = _conv_case(torch, rng, dt, bsz, h, h, cin, cout, k)
+                    what = f"{dt} B={bsz} {cin}->{cout} @{h} act={act}"
+                    err, mag = held(name, what, fn(x, w, b, act), conv.conv_bias_act_plain(x, w, b, stride, act), dt, 2)
+                    if dt != torch.bfloat16:
+                        continue
+                    x_nchw = x.permute(0, 3, 1, 2)
+                    w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+                    def library():
+                        y = F.conv2d(x_nchw, w_oihw, b, stride=stride, padding=k // 2)
+                        return F.silu(y) if act else y
+
+                    ms = _device_ms(torch, lambda: fn(x, w, b, act), 10)
+                    plain = _device_ms(torch, lambda: conv.conv_bias_act_plain(x, w, b, stride, act), 5)
+                    lib = _device_ms(torch, library, 10)
+                    ho = h // stride
+                    bound = _bound(2.0 * bsz * ho * ho * k * k * cin * cout,
+                                   2.0 * (x.numel() + w.numel() + b.numel() + bsz * ho * ho * cout), PEAK_BF16)
+                    print(f"[7] {name} bf16 B={bsz} {cin}->{cout} @{h}{'' if act else ' no act'} (x{count} per forward): "
+                          f"err {err:.3g} of {mag:.3g}; device {ms * 1e3:.2f} us, plain {plain * 1e3:.1f} us, "
+                          f"F.conv2d{' + F.silu' if act else ''} {lib * 1e3:.2f} us, bound {bound[0] * 1e3:.3f} us "
+                          f"({bound[1]})", flush=True)
+                    if bsz == 2:
+                        acc = sums[name]
+                        acc["ms"] += count * ms
+                        acc["plain_ms"] += count * plain
+                        acc["library_ms"] += count * lib
+                        acc["bound_ms"] += count * bound[0]
+                        acc["by"][bound[1]] = acc["by"].get(bound[1], 0.0) + count * bound[0]
+
+    for cin, c, feat, h, shortcut in K8_SITES:
+        for dt in (torch.bfloat16, torch.float32):
+            for bsz in (1, 2, 8):
+                args = _c2f_case(torch, rng, dt, bsz, h, h, cin, c, feat)
+                what = f"{dt} B={bsz} Cin {cin} c {c} F {feat} @{h} shortcut={shortcut}"
+                err, mag = held("c2f_fused", what, c2f.c2f_fused(*args, shortcut=shortcut),
+                                c2f.c2f_fused_plain(*args, shortcut=shortcut), dt, 4)
+                if dt != torch.bfloat16:
+                    continue
+                x_nchw = args[0].permute(0, 3, 1, 2)
+                ws = [w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                      for w in (args[1][None, None], args[3], args[5], args[7][None, None])]
+                bs = [b.to(dt) for b in args[2::2]]
+                seq = (x_nchw, ws[0], bs[0], ws[1], bs[1], ws[2], bs[2], ws[3], bs[3], shortcut)
+                ms = _device_ms(torch, lambda: c2f.c2f_fused(*args, shortcut=shortcut), 10)
+                tiles = {}
+                for t in (4, 8):
+                    tiles[t] = _device_ms(torch, lambda: c2f.c2f_fused(*args, shortcut=shortcut, tile=t), 5)
+                plain = _device_ms(torch, lambda: c2f.c2f_fused_plain(*args, shortcut=shortcut), 5)
+                lib = _device_ms(torch, lambda: _c2f_unfused(torch, *seq), 10)
+                n_w = sum(a.numel() for a in args[1::2])
+                bound = _bound(2.0 * bsz * h * h * (cin * 2 * c + 18 * c * c + 3 * c * feat),
+                               2.0 * (args[0].numel() + n_w + bsz * h * h * feat) + 4.0 * (4 * c + feat), PEAK_BF16)
+                print(f"[7] c2f_fused bf16 B={bsz} Cin {cin} c {c} F {feat} @{h} shortcut {shortcut}: err {err:.3g} of "
+                      f"{mag:.3g}; device {ms * 1e3:.2f} us (tile 4: {tiles[4] * 1e3:.1f}, tile 8: {tiles[8] * 1e3:.1f}), "
+                      f"plain {plain * 1e3:.1f} us, the unfused sequence (4 F.conv2d + F.silu, add, concat) "
+                      f"{lib * 1e3:.2f} us, bound {bound[0] * 1e3:.3f} us ({bound[1]})", flush=True)
+                if bsz == 2:
+                    acc = sums["c2f_fused"]
+                    acc["ms"] += ms
+                    acc["plain_ms"] += plain
+                    acc["library_ms"] += lib
+                    acc["bound_ms"] += bound[0]
+                    acc["by"][bound[1]] = acc["by"].get(bound[1], 0.0) + bound[0]
+
+    # edge cases: odd channel counts (no vector load may assume a multiple of
+    # 8), one output channel, images of one tile, ragged last tiles, 2 x 2
+    for dt in (torch.bfloat16, torch.float32):
+        for name, (k, stride, fn) in wrappers.items():
+            for bsz, h, w, cin, cout in ((3, 10, 6, 5, 7), (1, 2, 2, 3, 1), (2, 18, 22, 192, 3), (1, 4, 4, 384, 65)):
+                x, wt, b = _conv_case(torch, rng, dt, bsz, h, w, cin, cout, k)
+                for act in ((True, False) if k == 1 else (True,)):
+                    held(name, f"edge {dt} B={bsz} {h}x{w} {cin}->{cout} act={act}", fn(x, wt, b, act),
+                         conv.conv_bias_act_plain(x, wt, b, stride, act), dt, 2)
+        for bsz, h, w, cin, c, feat in ((1, 4, 4, 32, 16, 32), (2, 13, 11, 24, 8, 20), (1, 8, 8, 7, 5, 3),
+                                        (1, 9, 17, 40, 24, 48), (2, 5, 3, 384, 12, 16)):
+            args = _c2f_case(torch, rng, dt, bsz, h, w, cin, c, feat)
+            for shortcut in (True, False):
+                want = c2f.c2f_fused_plain(*args, shortcut=shortcut)
+                for tile in (None, 2, 4, 8):
+                    held("c2f_fused", f"edge {dt} B={bsz} {h}x{w} Cin {cin} c {c} F {feat} shortcut={shortcut} "
+                                      f"tile={tile}", c2f.c2f_fused(*args, shortcut=shortcut, tile=tile), want, dt, 4)
+    print(f"[7] K5-K8: {n_checks} checks against the plain versions passed (float32: 3e-4 of the magnitude; bfloat16: "
+          f"2 steps of 2^-8 of the magnitude for K5-K7, 4 for K8, whose three intermediate roundings can each flip)",
+          flush=True)
+
+    rows = {}
+    for name, (source, replaces) in DETECTOR_KERNELS.items():
+        acc, n = sums[name], LAUNCHES_PER_FORWARD[name]
+        rows[name] = dict(
+            name=name, route="cuda", source=source, replaces=replaces, max_abs_err=worst[name],
+            ms=acc["ms"] / n, plain_ms=acc["plain_ms"] / n, bound_ms=acc["bound_ms"] / n,
+            bound_by=max(acc["by"], key=acc["by"].get), library_ms=acc["library_ms"] / n)
+        print(f"[7] {name}: over the {n} launches of one bf16 batch-2 forward, mean per launch: device "
+              f"{rows[name]['ms'] * 1e3:.2f} us, plain {rows[name]['plain_ms'] * 1e3:.1f} us, library "
+              f"{rows[name]['library_ms'] * 1e3:.2f} us, bound {rows[name]['bound_ms'] * 1e3:.3f} us "
+              f"(mostly {rows[name]['bound_by']})", flush=True)
+    return rows
+
+
+def synthetic_frame(seed: int, h: int = 480, w: int = 640) -> np.ndarray:
+    """A seeded camera-like frame, uint8 HWC: a floor and wall gradient,
+    a few boxes with slats (pallet-like), sensor noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([90 + 60 * yy / h, 85 + 50 * yy / h, 80 + 40 * xx / w], axis=-1)
+    for _ in range(6):
+        bw, bh = int(rng.integers(60, 220)), int(rng.integers(30, 110))
+        x0, y0 = int(rng.integers(0, w - bw)), int(rng.integers(h // 3, h - bh))
+        img[y0:y0 + bh, x0:x0 + bw] = rng.uniform(90, 200, 3) * np.array([1.0, 0.8, 0.55])
+        for sx in range(x0 + bw // 6, x0 + bw, max(bw // 3, 1)):
+            img[y0 + bh // 3:y0 + bh, sx:sx + max(bw // 10, 2)] *= 0.35
+    return np.clip(img + rng.normal(0, 6, img.shape), 0, 255).astype(np.uint8)
+
+
+def _head_tensors(outs):
+    if isinstance(outs, tuple):
+        return [t for level in outs[0] for t in level] + [outs[1]]
+    return [t for level in outs for t in level]
+
+
+def detector_path() -> dict:
+    """Phase 8: the detector's serving path on the card.  Returns the launch
+    counts of the run between the counters' reset and their reading."""
+    import torch
+
+    import icp_slam_yolo_tpu_torch as port
+    from icp_slam_yolo_tpu_torch.ops import pallas
+
+    # so low that NMS has candidates: the trained weights score these frames (they show no pallet) at 2e-5 to 1e-4
+    conf = 1e-6
+    t0 = time.perf_counter()
+    det = port.detector_from_checkpoint(DETECT_CHECKPOINT, conf_threshold=conf, pallas_convs=True)
+    load_s = time.perf_counter() - t0
+    frames = [synthetic_frame(s) for s in range(40, 50)]
+    det(frames[0])  # warm-up
+    torch.cuda.synchronize()
+
+    # -- the main path: counters zeroed just before, read just after
+    pallas.reset_launches()
+    per_forward = []
+
+    def counted(fn):
+        before = dict(pallas.LAUNCHES)
+        out = fn()
+        per_forward.append({k: pallas.LAUNCHES[k] - before[k] for k in LAUNCHES_PER_FORWARD})
+        return out
+
+    t0 = time.perf_counter()
+    singles = [counted(lambda f=f: det(f)) for f in frames[:4]]
+    call_s = (time.perf_counter() - t0) / 4
+    t0 = time.perf_counter()
+    pair = counted(lambda: det.detect_pair(frames[0], frames[1]))
+    pair_s = time.perf_counter() - t0
+    batch8 = np.concatenate([det.preprocess(f)[0] for f in frames[:8]])
+    t0 = time.perf_counter()
+    dets8 = counted(lambda: det.predict_batch(batch8))
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    launches = dict(pallas.LAUNCHES)
+
+    for counts in per_forward:
+        _require(counts == LAUNCHES_PER_FORWARD, f"detector: launches per forward {counts}, expected {LAUNCHES_PER_FORWARD}")
+    n_valid = [len(o["boxes"]) for o in singles]
+    for o in singles + list(pair):
+        _require(o["boxes"].shape == (len(o["scores"]), 4) and np.isfinite(o["boxes"]).all()
+                 and np.isfinite(o["scores"]).all() and (o["scores"] >= conf).all() and (o["classes"] == 0).all(),
+                 "detector: malformed detections")
+    _require(sum(n_valid) > 0, "detector: no candidate above the threshold on any frame")
+    _require(tuple(dets8.boxes.shape) == (8, det.max_detections, 4) and bool(torch.isfinite(dets8.boxes).all()),
+             "predict_batch(8): malformed detections")
+    for got, want in zip(pair, singles[:2]):
+        _require(len(got["boxes"]) == len(want["boxes"]) and np.allclose(got["boxes"], want["boxes"], atol=1e-3)
+                 and np.allclose(got["scores"], want["scores"], atol=1e-5)
+                 and np.array_equal(got["classes"], want["classes"]), "detect_pair differs from two single calls")
+    exact = all(np.array_equal(g["boxes"], w["boxes"]) and np.array_equal(g["scores"], w["scores"])
+                for g, w in zip(pair, singles[:2]))
+    for i in range(2):  # predict_batch's first rows against the single calls, in model pixels
+        valid = dets8.valid[i].cpu().numpy()
+        _require(int(valid.sum()) == n_valid[i] and np.allclose(dets8.scores[i].cpu().numpy()[valid], singles[i]["scores"], atol=1e-5),
+                 "predict_batch(8) differs from the single calls")
+    print(f"[8] detector_from_checkpoint({DETECT_CHECKPOINT!r}, pallas_convs=True): yolo-n v8 at 640 px, bfloat16, loaded in "
+          f"{load_s:.2f} s; __call__ on 4 synthetic 480x640 frames {call_s * 1e3:.2f} ms per frame (host letterbox and "
+          f"copies included), detect_pair {pair_s * 1e3:.2f} ms, predict_batch(8) {batch_s * 1e3:.2f} ms; detections above "
+          f"{conf} per frame {n_valid}, best scores {[float(f'{o["scores"][0]:.3g}') if len(o['scores']) else None for o in singles]}; "
+          f"detect_pair equal to two single calls (bit equal: {exact}); launches per forward {per_forward[0]} at batch 1, 2 "
+          f"and 8; launches {launches}", flush=True)
+
+    # -- fused against unfused head outputs on the card, bfloat16, and both against float32
+    unfused = port.detector_from_checkpoint(DETECT_CHECKPOINT, conf_threshold=conf, pallas_convs=False)
+    full = port.detector_from_checkpoint(DETECT_CHECKPOINT, conf_threshold=conf, pallas_convs=True,
+                                         compute_dtype=torch.float32)
+    images = torch.from_numpy(batch8[:2]).cuda()
+    with torch.no_grad():
+        heads = [_head_tensors(d.model(images)) for d in (det, unfused, full)]
+    worst_fu, worst_f, worst_u, mag = 0.0, 0.0, 0.0, 0.0
+    for a, b, c in zip(*heads):
+        worst_fu = max(worst_fu, float((a.float() - b.float()).abs().max()))
+        worst_f = max(worst_f, float((a.float() - c).abs().max()))
+        worst_u = max(worst_u, float((b.float() - c).abs().max()))
+        mag = max(mag, float(c.abs().max()))
+        _require(a.shape == b.shape and bool(torch.isfinite(a.float()).all()), "fused head outputs malformed")
+    # bfloat16 keeps 8 significant bits; ~25 stacked convs each round once
+    # (fused) or three times (unfused: conv, bias, SiLU), so the two paths
+    # drift apart by a few per cent of the logits' magnitude.  Held: the
+    # fused path is within 4 % of the magnitude of the unfused one, and no
+    # further from the float32 forward than twice the unfused path is.
+    tol = 0.04 * mag
+    print(f"[8] head outputs, bfloat16, batch 2: fused vs unfused max diff {worst_fu:.4g} (tolerance {tol:.4g} = 4 % of the "
+          f"largest float32 logit {mag:.4g}); against the float32 forward: fused {worst_f:.4g}, unfused {worst_u:.4g}",
+          flush=True)
+    _require(worst_fu <= tol and worst_f <= max(2.0 * worst_u, tol / 2), "fused and unfused head outputs differ")
+
+    # -- float32: the card (kernels) against the port on the CPU (plain versions)
+    cpu = port.detector_from_checkpoint(DETECT_CHECKPOINT, conf_threshold=conf, pallas_convs=True,
+                                        compute_dtype=torch.float32, device="cpu")
+    t0 = time.perf_counter()
+    d_cpu = cpu.predict_batch(batch8[:2])
+    cpu_s = time.perf_counter() - t0
+    d_card = full.predict_batch(batch8[:2])
+    score_tol, box_tol = 2e-3, 0.05  # scores: relative (they are ~4e-5 here); boxes: model pixels
+    n_compared, worst_box, worst_score = 0, 0.0, 0.0
+    for i in range(2):
+        rows_card = {int(a): r for r, a in enumerate(d_card.anchor_idx[i].tolist()) if a >= 0}
+        rows_cpu = {int(a): r for r, a in enumerate(d_cpu.anchor_idx[i].tolist()) if a >= 0}
+        for mine, other, d_mine, d_other in ((rows_card, rows_cpu, d_card, d_cpu), (rows_cpu, rows_card, d_cpu, d_card)):
+            for anchor, r in mine.items():
+                if abs(float(d_mine.scores[i, r]) - conf) <= score_tol * conf:
+                    continue  # at the threshold: may fall on either side
+                _require(anchor in other, f"float32 card vs cpu: anchor {anchor} of image {i} kept on one side only")
+                q = other[anchor]
+                worst_box = max(worst_box, float((d_mine.boxes[i, r].cpu() - d_other.boxes[i, q].cpu()).abs().max()))
+                worst_score = max(worst_score, abs(float(d_mine.scores[i, r]) / float(d_other.scores[i, q]) - 1.0))
+                _require(int(d_mine.classes[i, r]) == int(d_other.classes[i, q]), "float32 card vs cpu: classes differ")
+                n_compared += 1
+    _require(n_compared > 0 and worst_box <= box_tol and worst_score <= score_tol,
+             f"float32 card vs cpu: boxes differ by {worst_box} px, scores by {worst_score}")
+    print(f"[8] float32, the card (kernels) against the port on the CPU (plain versions, {cpu_s:.1f} s for 2 frames): "
+          f"{n_compared // 2} kept candidates on both sides, boxes within {worst_box:.3g} px (tolerance {box_tol}), scores "
+          f"within {worst_score:.3g} of their value (tolerance {score_tol}), classes equal", flush=True)
+
+    # -- another task: the segment checkpoint once through the fused path
+    seg = port.detector_from_checkpoint(SEGMENT_CHECKPOINT, conf_threshold=conf, pallas_convs=True)
+    before = dict(pallas.LAUNCHES)
+    out = seg(frames[2])
+    seg_launches = {k: pallas.LAUNCHES[k] - before[k] for k in LAUNCHES_PER_FORWARD}
+    n = len(out["boxes"])
+    _require(n > 0 and out["mask_coeffs"].shape == (n, 32) and out["masks"].shape == (n, 160, 160)
+             and np.isfinite(out["masks"]).all() and out["masks"].min() >= 0.0 and out["masks"].max() <= 1.0,
+             "segment detector: malformed extras")
+    print(f"[8] {SEGMENT_CHECKPOINT}: task segment, {n} detections above {conf}, mask coefficients {out['mask_coeffs'].shape}, "
+          f"masks {out['masks'].shape} in [0, 1]; launches of its forward {seg_launches}", flush=True)
+    return launches
+
+
+def detector_times() -> None:
+    """Phase 9: a forward (``predict_batch`` on a batch already on the card:
+    model, top-K decode, NMS) at batch 1, 2, 8 and 32, fused (K5-K8) and
+    unfused (``F.conv2d`` + ``F.silu``), bfloat16: wall per forward in turns
+    (fused, unfused, unfused, fused), then a profiler window each."""
+    import torch
+
+    import icp_slam_yolo_tpu_torch as port
+
+    dets = {"fused": port.detector_from_checkpoint(DETECT_CHECKPOINT, conf_threshold=1e-6, pallas_convs=True),
+            "unfused": port.detector_from_checkpoint(DETECT_CHECKPOINT, conf_threshold=1e-6, pallas_convs=False)}
+    one = np.concatenate([dets["fused"].preprocess(synthetic_frame(60 + i))[0] for i in range(8)])
+    for bsz in (1, 2, 8, 32):
+        images = torch.from_numpy(np.tile(one, (4, 1, 1, 1))[:bsz]).cuda()
+        n = 20 if bsz <= 8 else 8
+        walls = []
+        for which in ("fused", "unfused", "unfused", "fused"):
+            det = dets[which]
+            det.predict_batch(images)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                det.predict_batch(images)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) / n * 1e3)
+        print(f"[9] forward at batch {bsz}, bfloat16, wall ms per forward in turns: fused {walls[0]:.3f}, unfused "
+              f"{walls[1]:.3f}, unfused {walls[2]:.3f}, fused {walls[3]:.3f}", flush=True)
+        for which in ("fused", "unfused"):
+            det = dets[which]
+
+            def window():
+                for _ in range(n):
+                    det.predict_batch(images)
+
+            print(f"[9] batch {bsz} {which}, profiled {n} forwards: " + profile_window(torch, window, n), flush=True)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--phases", choices=("all", "slam", "detector"), default="all",
+                        help="run every phase (the default: the only run that ends in the result line), or only "
+                             "the SLAM and fleet phases 3-6, or only the detector phases 7-9")
+    phases = parser.parse_args(argv).phases
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -1051,22 +1483,38 @@ def main() -> int:
 
     import icp_slam_yolo_tpu_torch as port
 
-    cfg = slice_config()
-    kernels = check_kernels(cfg)
-    kernels["raster_update_grid"], batched = check_batched_kernels(port.FLEET_CONFIG)
-    check_edge_cases(cfg)
-    paths = [replay(cfg)[0], fleet(port.FLEET_CONFIG), presets(port.OFFLINE_CONFIG, port.REALTIME_CONFIG)]
+    # Order: every kernel check and the detector's phases (7-9) run before the
+    # SLAM paths (4-6).  After those paths' long profiler windows the tracer
+    # was seen to keep 3 records of 10 calls, and then none, in the hundreds
+    # of short traces that phase 7 takes; ahead of them it loses none.
+    kernels, paths = {}, []
+    if phases in ("all", "slam"):
+        cfg = slice_config()
+        kernels = check_kernels(cfg)
+        kernels["raster_update_grid"], batched = check_batched_kernels(port.FLEET_CONFIG)
+        check_edge_cases(cfg)
+        print(json.dumps({"batched": batched}))
+    if phases in ("all", "detector"):
+        kernels.update(check_detector_kernels())
+        paths.append(detector_path())
+        detector_times()
+    if phases in ("all", "slam"):
+        paths += [replay(cfg)[0], fleet(port.FLEET_CONFIG), presets(port.OFFLINE_CONFIG, port.REALTIME_CONFIG)]
 
     rows = []
-    for name in ("icp_fused", "raster_update", "nn_argmin", "raster_update_grid"):
+    order = ("icp_fused", "raster_update", "nn_argmin", "raster_update_grid", *DETECTOR_KERNELS)
+    _require(phases != "all" or set(kernels) == set(order), f"kernels checked: {sorted(kernels)}")
+    for name in (n for n in order if n in kernels):
         row = kernels[name]
-        row["launches"] = sum(p[name] for p in paths)  # over the slice, fleet and preset paths
+        row["launches"] = sum(p[name] for p in paths)  # over the slice, fleet, preset and detector paths
         _require(row["launches"] > 0, f"no path launched {name}")
         rows.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches", "max_abs_err",
                                          "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-    print(json.dumps({"batched": batched}))
     print(json.dumps({"kernels": rows}))
     print(card)
+    if phases != "all":
+        print(f"chip_smoke: ran the {phases} phases only; the result line is printed by a full run")
+        return 0
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

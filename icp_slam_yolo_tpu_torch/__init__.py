@@ -1,4 +1,4 @@
-"""icp_slam_yolo_tpu_torch: the SLAM scan -> pose -> map step in PyTorch + CUDA.
+"""icp_slam_yolo_tpu_torch: SLAM and pallet detection in PyTorch + CUDA.
 
 The PyTorch port of ``icp_slam_yolo_tpu`` (which stays the JAX reference).
 It holds the whole per-scan SLAM step (`slam/pipeline`: offline and realtime
@@ -6,12 +6,15 @@ semantics, the GICP rescue, the outlier filter, the reseed), written over a
 robot axis, and the fleet path above it (`parallel/fleet`), with four
 hand-written CUDA kernels for Hopper (``csrc/*.cu``): the fused ICP loop, the
 two occupancy raster updates and the nearest-neighbour argmin, each taking
-all robots in one launch.  Each kernel has a plain PyTorch version beside it;
-a wrapper launches the kernel for a CUDA tensor and runs the plain version
-only for a CPU tensor.
+all robots in one launch.  It also holds the v8 pallet detector
+(`models/detect.Detector`, `detector_from_checkpoint`) with four more: the
+fused conv + bias + SiLU kernels (1x1, 3x3, 3x3 stride 2) and the whole-C2f
+kernel.  Each kernel has a plain PyTorch version beside it; a wrapper
+launches the kernel for a CUDA tensor and runs the plain version only for a
+CPU tensor.
 
 Entry points (`Slam`, `run_sequence`, `fleet_run_sequence`, `register`,
-`gicp`) take ``device=None``, which means the card; without one they raise
+`gicp`, `Detector`, `detector_from_checkpoint`) take ``device=None``, which means the card; without one they raise
 unless the caller passes ``device="cpu"``.
 """
 
@@ -35,6 +38,7 @@ from icp_slam_yolo_tpu_torch.config import (  # noqa: E402
     SlamConfig,
 )
 from icp_slam_yolo_tpu_torch.core.registration import gicp, icp, icp_masked, register  # noqa: E402
+from icp_slam_yolo_tpu_torch.models.detect import Detector, detector_from_checkpoint  # noqa: E402
 from icp_slam_yolo_tpu_torch.parallel.fleet import (  # noqa: E402
     fleet_init,
     fleet_run_sequence,
@@ -55,6 +59,7 @@ from icp_slam_yolo_tpu_torch.slam.pipeline import (  # noqa: E402
 __all__ = [
     "FLEET_CONFIG", "OFFLINE_CONFIG", "PRESETS", "REALTIME_CONFIG",
     "GateConfig", "IcpConfig", "MapConfig", "OccupancyConfig", "SlamConfig",
+    "Detector", "detector_from_checkpoint",
     "Slam", "SlamState", "StepOutput", "fleet_init", "fleet_run_sequence", "fleet_run_sharded",
     "gicp", "icp", "icp_masked", "init_state", "make_batched_step", "make_fleet_step",
     "make_step", "register", "run_sequence", "update_map",

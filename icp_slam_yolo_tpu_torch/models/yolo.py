@@ -1,0 +1,533 @@
+"""The v8-family YOLO detector in PyTorch: the counterpart of the JAX
+package's ``models/yolo.py`` for ``family="v8"`` (variants n/s/m; tasks
+detect, obb, segment, pose).
+
+Inference only.  Activations are NHWC (``(B, H, W, C)`` contiguous) at every
+public function and between the modules, as in the JAX package, so outputs
+compare like with like and the conv kernels take them as they are.  Child
+modules carry the names flax gives them (``ConvBnAct_0``, ``Bottleneck_0``,
+``Conv_3`` ...), so a checkpoint's tree maps onto the ``state_dict`` by rule
+(`convert.detector_state_from_numpy`).
+
+Parameters stay float32; ``dtype`` is the working type a module computes in
+(inputs, weights and, except in the fused C2f, biases are cast to it).
+
+Two conv paths, chosen by the caller through ``fused`` and never silently:
+  * ``fused=True`` (needs ``folded``): every folded ``ConvBnAct`` with
+    (kernel, stride) in {(1, 1), (3, 1), (3, 2)} and every plain 1x1 head
+    conv is one hand-written kernel (K5-K7, `ops/pallas/conv_fused`), and a
+    ``C2f`` with one bottleneck is one kernel as a whole (K8,
+    `ops/pallas/c2f_fused`);
+  * ``fused=False``: ``F.conv2d`` + ``F.silu``, the counterpart of the JAX
+    package's unfused path through XLA's conv emitter.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from icp_slam_yolo_tpu_torch.ops.pallas import c2f_fused as c2f_kernel
+from icp_slam_yolo_tpu_torch.ops.pallas import conv_fused as conv_kernels
+
+BN_EPS = 1e-3
+_FUSED_SITES = ((1, 1), (3, 1), (3, 2))
+
+
+def _make_divisible(x: float, div: int = 8) -> int:
+    return max(div, int(round(x / div) * div))
+
+
+class _Cached(nn.Module):
+    """A module that keeps casted or re-laid copies of its parameters, made
+    at first use and dropped when the module is moved or reloaded."""
+
+    def __init__(self):
+        super().__init__()
+        self._memo = {}
+
+    def _apply(self, *args, **kwargs):
+        self._memo = {}
+        return super()._apply(*args, **kwargs)
+
+    def _cached(self, key, make):
+        if key not in self._memo:
+            with torch.no_grad():
+                self._memo[key] = make()
+        return self._memo[key]
+
+
+def _hwio(conv: nn.Conv2d, dtype) -> torch.Tensor:
+    """A conv's OIHW weight as a contiguous HWIO tensor in ``dtype``: the
+    layout the kernels read, made once."""
+    return conv.weight.detach().permute(2, 3, 1, 0).to(dtype).contiguous()
+
+
+class ConvBnAct(_Cached):
+    """Conv + BatchNorm + SiLU; ``folded=True`` is the inference form with the
+    BN affine absorbed into a biased conv (`fold_batchnorm`)."""
+
+    def __init__(self, cin: int, features: int, kernel: int = 3, stride: int = 1,
+                 dtype=torch.float32, folded: bool = False, fused: bool = False):
+        super().__init__()
+        self.kernel, self.stride, self.dtype, self.folded, self.fused = kernel, stride, dtype, folded, fused
+        self.conv = nn.Conv2d(cin, features, kernel, stride, kernel // 2, bias=folded)
+        self.bn = None if folded else nn.BatchNorm2d(features, eps=BN_EPS, momentum=0.03)
+
+    def fused_params(self):
+        """``(w HWIO, b)`` in the working type: what K5-K7 take (the bias is
+        rounded to the working type, as the JAX dispatch does)."""
+        return self._cached("fused", lambda: (_hwio(self.conv, self.dtype), self.conv.bias.detach().to(self.dtype)))
+
+    def forward(self, x):
+        dt = self.dtype
+        if (self.fused and self.folded and (self.kernel, self.stride) in _FUSED_SITES
+                and conv_kernels.use_kernels(x.shape[0], x.shape[1])):
+            w, b = self.fused_params()
+            x = x.to(dt).contiguous()
+            if self.kernel == 1:
+                return conv_kernels.conv1x1_silu(x, w[0, 0], b)
+            if self.stride == 2:
+                return conv_kernels.conv3x3s2_silu(x, w, b)
+            return conv_kernels.conv3x3_silu(x, w, b)
+        w, b = self._cached("plain", lambda: (
+            self.conv.weight.detach().to(dt),
+            None if self.conv.bias is None else self.conv.bias.detach().to(dt)))
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), w, b, self.stride, self.kernel // 2)
+        if not self.folded:
+            mean, var, g, beta = self._cached("bn", lambda: tuple(
+                t.detach().to(dt) for t in (self.bn.running_mean, self.bn.running_var, self.bn.weight, self.bn.bias)))
+            y = F.batch_norm(y, mean, var, g, beta, False, 0.0, BN_EPS)
+        return F.silu(y).permute(0, 2, 3, 1)
+
+
+class Conv1x1(_Cached):
+    """A plain biased 1x1 conv without activation (the heads' outputs)."""
+
+    def __init__(self, cin: int, features: int, dtype=torch.float32, fused: bool = False):
+        super().__init__()
+        self.dtype, self.fused = dtype, fused
+        self.conv = nn.Conv2d(cin, features, 1)
+
+    def forward(self, x):
+        dt = self.dtype
+        if self.fused and conv_kernels.use_kernels(x.shape[0], x.shape[1]):
+            w, b = self._cached("fused", lambda: (_hwio(self.conv, dt)[0, 0].contiguous(), self.conv.bias.detach().to(dt)))
+            return conv_kernels.conv1x1_silu(x.to(dt).contiguous(), w, b, act=False)
+        w, b = self._cached("plain", lambda: (self.conv.weight.detach().to(dt), self.conv.bias.detach().to(dt)))
+        return F.conv2d(x.to(dt).permute(0, 3, 1, 2), w, b).permute(0, 2, 3, 1)
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, cin: int, features: int, shortcut: bool = True, **kw):
+        super().__init__()
+        self.shortcut = shortcut and cin == features
+        self.ConvBnAct_0 = ConvBnAct(cin, features, 3, **kw)
+        self.ConvBnAct_1 = ConvBnAct(features, features, 3, **kw)
+
+    def forward(self, x):
+        y = self.ConvBnAct_1(self.ConvBnAct_0(x))
+        return x + y if self.shortcut else y
+
+
+class C2f(_Cached):
+    """Cross-stage partial block with ``n`` bottlenecks.  Folded, fused and
+    with ``n == 1`` it runs as one kernel (K8); the shortcut flag is the
+    module's own (``self.shortcut``), whatever the block is called."""
+
+    def __init__(self, cin: int, features: int, n: int = 1, shortcut: bool = False,
+                 dtype=torch.float32, folded: bool = False, fused: bool = False):
+        super().__init__()
+        self.features, self.n, self.shortcut = features, n, shortcut
+        self.dtype, self.folded, self.fused = dtype, folded, fused
+        kw = dict(dtype=dtype, folded=folded, fused=fused)
+        c = features // 2
+        self.ConvBnAct_0 = ConvBnAct(cin, 2 * c, 1, **kw)
+        for i in range(n):
+            self.add_module(f"Bottleneck_{i}", Bottleneck(c, c, shortcut, **kw))
+        self.ConvBnAct_1 = ConvBnAct((2 + n) * c, features, 1, **kw)
+
+    def whole_block_kernel(self) -> bool:
+        return self.fused and self.folded and self.n == 1
+
+    def fused_params(self):
+        """K8's operands: weights HWIO in the working type, biases float32."""
+        def make():
+            dt = self.dtype
+            m = self.Bottleneck_0
+            convs = (self.ConvBnAct_0.conv, m.ConvBnAct_0.conv, m.ConvBnAct_1.conv, self.ConvBnAct_1.conv)
+            w1, wm1, wm2, w2 = (_hwio(cv, dt) for cv in convs)
+            b1, bm1, bm2, b2 = (cv.bias.detach().float().contiguous() for cv in convs)
+            return (w1[0, 0].contiguous(), b1, wm1, bm1, wm2, bm2, w2[0, 0].contiguous(), b2)
+        return self._cached("fused", make)
+
+    def forward(self, x):
+        if self.whole_block_kernel() and conv_kernels.use_kernels(x.shape[0], x.shape[1]):
+            return c2f_kernel.c2f_fused(x.to(self.dtype).contiguous(), *self.fused_params(),
+                                        shortcut=self.Bottleneck_0.shortcut)
+        c = self.features // 2
+        y = self.ConvBnAct_0(x)
+        parts = [y[..., :c], y[..., c:]]
+        for i in range(self.n):
+            parts.append(getattr(self, f"Bottleneck_{i}")(parts[-1]))
+        return self.ConvBnAct_1(torch.cat(parts, dim=-1))
+
+
+def _max_pool5(x):
+    """5x5 max-pool, stride 1, SAME, on NHWC (a library call, as the JAX
+    package leaves it to XLA)."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 5, 1, 2).permute(0, 2, 3, 1)
+
+
+class SPPF(nn.Module):
+    """Spatial pyramid pooling (fast): 3 chained 5x5 max-pools."""
+
+    def __init__(self, cin: int, features: int, **kw):
+        super().__init__()
+        c = features // 2
+        self.ConvBnAct_0 = ConvBnAct(cin, c, 1, **kw)
+        self.ConvBnAct_1 = ConvBnAct(4 * c, features, 1, **kw)
+
+    def forward(self, x):
+        x = self.ConvBnAct_0(x)
+        p1 = _max_pool5(x)
+        p2 = _max_pool5(p1)
+        p3 = _max_pool5(p2)
+        return self.ConvBnAct_1(torch.cat([x, p1, p2, p3], dim=-1))
+
+
+def _upsample2(x):
+    """Nearest-neighbour 2x upsampling of NHWC."""
+    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+
+class DetectHead(nn.Module):
+    """Decoupled anchor-free head with DFL box regression (``reg_max`` bins).
+    Children are numbered as flax numbers them: per level two box
+    ``ConvBnAct``s, the box ``Conv``, two class ``ConvBnAct``s, the class
+    ``Conv``; a subclass's branches continue the counters."""
+
+    def __init__(self, feats: Sequence[int], num_classes: int, reg_max: int = 16,
+                 dtype=torch.float32, folded: bool = False, fused: bool = False):
+        super().__init__()
+        self.feats, self.num_classes, self.reg_max = tuple(feats), num_classes, reg_max
+        self._kw = dict(dtype=dtype, folded=folded, fused=fused)
+        self._kw1 = dict(dtype=dtype, fused=fused and folded)
+        self._n_cba = self._n_conv = 0
+        c2 = max(16, feats[0] // 4, reg_max * 4)
+        c3 = max(feats[0], min(num_classes, 100))
+        self._levels = []
+        for f in feats:
+            box = [self._cba(f, c2), self._cba(c2, c2), self._conv(c2, 4 * reg_max)]
+            cls = [self._cba(f, c3), self._cba(c3, c3), self._conv(c3, num_classes)]
+            nn.init.constant_(getattr(self, cls[2]).conv.bias, -4.6)  # prior p ~ 0.01
+            self._levels.append((box, cls))
+
+    def _cba(self, cin, cout):
+        name = f"ConvBnAct_{self._n_cba}"
+        self._n_cba += 1
+        self.add_module(name, ConvBnAct(cin, cout, 3, **self._kw))
+        return name
+
+    def _conv(self, cin, cout):
+        name = f"Conv_{self._n_conv}"
+        self._n_conv += 1
+        self.add_module(name, Conv1x1(cin, cout, **self._kw1))
+        return name
+
+    def _run(self, names, x):
+        for name in names:
+            x = getattr(self, name)(x)
+        return x
+
+    def forward(self, feats):
+        return [(self._run(box, f), self._run(cls, f)) for f, (box, cls) in zip(feats, self._levels)]
+
+
+class _ExtraBranchHead(DetectHead):
+    """A detect head with one more per-level branch of ``n_cba`` 3x3
+    ``ConvBnAct``s of width ``c4`` and a 1x1 conv to ``n_out`` channels."""
+
+    def _add_branch(self, c4: int, n_cba: int, n_out: int):
+        self._extra = []
+        for f in self.feats:
+            names, cin = [], f
+            for _ in range(n_cba):
+                names.append(self._cba(cin, c4))
+                cin = c4
+            names.append(self._conv(c4, n_out))
+            self._extra.append(names)
+
+    def forward(self, feats):
+        outs = super().forward(feats)
+        return [(box, cls, self._run(names, f)) for f, (box, cls), names in zip(feats, outs, self._extra)]
+
+
+class OBBHead(_ExtraBranchHead):
+    """Adds a per-anchor rotation-angle branch; angle in (-pi/4, 3pi/4)."""
+
+    def __init__(self, feats, num_classes, reg_max=16, **kw):
+        super().__init__(feats, num_classes, reg_max, **kw)
+        self._add_branch(max(feats[0] // 4, 16), 1, 1)
+
+
+class PoseHead(_ExtraBranchHead):
+    """Adds a per-anchor keypoint branch: ``n_kpt`` keypoints of ``(dx, dy,
+    visibility logit)``."""
+
+    def __init__(self, feats, num_classes, reg_max=16, n_kpt: int = 4, **kw):
+        super().__init__(feats, num_classes, reg_max, **kw)
+        self.n_kpt = n_kpt
+        self._add_branch(max(feats[0] // 4, n_kpt * 3), 2, n_kpt * 3)
+
+
+class SegmentHead(_ExtraBranchHead):
+    """Adds per-anchor mask coefficients."""
+
+    def __init__(self, feats, num_classes, reg_max=16, n_coeffs: int = 32, **kw):
+        super().__init__(feats, num_classes, reg_max, **kw)
+        self.n_coeffs = n_coeffs
+        self._add_branch(max(feats[0] // 4, n_coeffs), 1, n_coeffs)
+
+
+class Proto(nn.Module):
+    """Prototype-mask net from the P3 feature: conv -> 2x upsample -> conv ->
+    ``n_protos`` mask bases at 1/4 input resolution."""
+
+    def __init__(self, cin: int, n_protos: int = 32, mid: int = 64,
+                 dtype=torch.float32, folded: bool = False, fused: bool = False):
+        super().__init__()
+        kw = dict(dtype=dtype, folded=folded, fused=fused)
+        self.ConvBnAct_0 = ConvBnAct(cin, mid, 3, **kw)
+        self.ConvBnAct_1 = ConvBnAct(mid, mid, 3, **kw)
+        self.Conv_0 = Conv1x1(mid, n_protos, dtype=dtype, fused=fused and folded)
+
+    def forward(self, p3):
+        return self.Conv_0(self.ConvBnAct_1(_upsample2(self.ConvBnAct_0(p3))))
+
+
+_V8_SCALES = {"n": (0.33, 0.25), "s": (0.33, 0.5), "m": (0.67, 0.75)}
+
+
+class YOLO(nn.Module):
+    """YOLO detector, ``family="v8"``: CSP backbone with C2f blocks + SPPF,
+    PAN-FPN neck.  ``variant``: n/s/m; ``task``: detect | obb | segment |
+    pose.  ``fold_bn``: the inference form with BN folded into the convs;
+    ``fused``: run the convs in the hand-written kernels (needs ``fold_bn``).
+    """
+
+    def __init__(self, num_classes: int = 1, variant: str = "n", task: str = "detect", family: str = "v8",
+                 reg_max: int = 16, n_kpt: int = 4, compute_dtype=torch.float32, fold_bn: bool = False,
+                 fused: bool = False):
+        super().__init__()
+        if family in ("v11", "v12"):
+            raise NotImplementedError(
+                f"family {family!r} is not ported yet (ROADMAP.md, open items 1, item 4: the v11 and v12 families)")
+        if family != "v8":
+            raise ValueError(f"unknown family: {family}")
+        if fused and not fold_bn:
+            raise ValueError("fused=True needs fold_bn=True: the kernels take BN-folded convs")
+        self.num_classes, self.variant, self.task, self.family = num_classes, variant, task, family
+        self.reg_max, self.n_kpt, self.compute_dtype, self.fold_bn, self.fused = reg_max, n_kpt, compute_dtype, fold_bn, fused
+        depth, width = _V8_SCALES[variant]
+        ch = [_make_divisible(c * width) for c in (64, 128, 256, 512, 1024)]
+        self.ch = ch
+        kw = dict(dtype=compute_dtype, folded=fold_bn, fused=fused)
+        n1, n2 = max(round(3 * depth), 1), max(round(6 * depth), 1)
+        self.stem = ConvBnAct(3, ch[0], 3, 2, **kw)
+        self.down2 = ConvBnAct(ch[0], ch[1], 3, 2, **kw)
+        self.c2f_2 = C2f(ch[1], ch[1], n1, True, **kw)
+        self.down3 = ConvBnAct(ch[1], ch[2], 3, 2, **kw)
+        self.c2f_3 = C2f(ch[2], ch[2], n2, True, **kw)
+        self.down4 = ConvBnAct(ch[2], ch[3], 3, 2, **kw)
+        self.c2f_4 = C2f(ch[3], ch[3], n2, True, **kw)
+        self.down5 = ConvBnAct(ch[3], ch[4], 3, 2, **kw)
+        self.c2f_5 = C2f(ch[4], ch[4], n1, True, **kw)
+        self.sppf = SPPF(ch[4], ch[4], **kw)
+        self.neck_p4 = C2f(ch[4] + ch[3], ch[3], n1, False, **kw)
+        self.neck_p3 = C2f(ch[3] + ch[2], ch[2], n1, False, **kw)
+        self.pan_d3 = ConvBnAct(ch[2], ch[2], 3, 2, **kw)
+        self.pan_p4 = C2f(ch[2] + ch[3], ch[3], n1, False, **kw)
+        self.pan_d4 = ConvBnAct(ch[3], ch[3], 3, 2, **kw)
+        self.pan_p5 = C2f(ch[3] + ch[4], ch[4], n1, False, **kw)
+        feats = ch[2:]
+        if task == "obb":
+            self.head = OBBHead(feats, num_classes, reg_max, **kw)
+        elif task == "segment":
+            self.head = SegmentHead(feats, num_classes, reg_max, **kw)
+            self.proto = Proto(ch[2], **kw)
+        elif task == "pose":
+            self.head = PoseHead(feats, num_classes, reg_max, n_kpt=n_kpt, **kw)
+        else:
+            self.head = DetectHead(feats, num_classes, reg_max, **kw)
+        self.eval()
+
+    def load_state_dict(self, *args, **kwargs):
+        out = super().load_state_dict(*args, **kwargs)
+        for m in self.modules():
+            if isinstance(m, _Cached):
+                m._memo = {}
+        return out
+
+    def forward(self, images):
+        """images: ``(B, H, W, 3)`` float in [0, 1]; H, W divisible by 32.
+        Returns the per-level raw head outputs, NHWC (decode with
+        `decode_predictions` or `decode_topk`); for the segment task
+        ``(outs, protos)``."""
+        x = images.to(self.compute_dtype)
+        x = self.c2f_2(self.down2(self.stem(x)))
+        p3 = self.c2f_3(self.down3(x))
+        p4 = self.c2f_4(self.down4(p3))
+        p5 = self.sppf(self.c2f_5(self.down5(p4)))
+        n4 = self.neck_p4(torch.cat([_upsample2(p5), p4], dim=-1))
+        n3 = self.neck_p3(torch.cat([_upsample2(n4), p3], dim=-1))
+        o4 = self.pan_p4(torch.cat([self.pan_d3(n3), n4], dim=-1))
+        o5 = self.pan_p5(torch.cat([self.pan_d4(o4), p5], dim=-1))
+        outs = self.head([n3, o4, o5])
+        if self.task == "segment":
+            return outs, self.proto(n3)
+        return outs
+
+
+STRIDES = (8, 16, 32)
+
+
+def make_anchors(img_size: int, strides=STRIDES, device=None):
+    """Anchor-free grid centres per level: ``(A, 2)`` xy in pixels and ``(A,)`` stride."""
+    pts, strs = [], []
+    for s in strides:
+        n = img_size // s
+        yy, xx = torch.meshgrid(torch.arange(n, device=device), torch.arange(n, device=device), indexing="ij")
+        pts.append(((torch.stack([xx, yy], dim=-1).reshape(-1, 2) + 0.5) * s).to(torch.float32))
+        strs.append(torch.full((n * n,), float(s), dtype=torch.float32, device=device))
+    return torch.cat(pts), torch.cat(strs)
+
+
+def dfl_decode(box_logits: torch.Tensor, reg_max: int = 16) -> torch.Tensor:
+    """Distribution-focal decode: ``(..., 4*reg_max)`` -> expected ltrb distances."""
+    logits = box_logits.reshape(*box_logits.shape[:-1], 4, reg_max)
+    probs = torch.softmax(logits.float(), dim=-1)
+    bins = torch.arange(reg_max, dtype=torch.float32, device=box_logits.device)
+    return (probs * bins).sum(-1)
+
+
+def decode_keypoints(raw: torch.Tensor, anchors: torch.Tensor, strides: torch.Tensor) -> torch.Tensor:
+    """Raw pose-head output ``(..., A, K*3)`` -> ``(..., A, K, 3)`` decoded
+    ``[x_px, y_px, visibility]``: ``xy = raw*2*stride + (anchor - stride/2)``,
+    visibility through a sigmoid.  ``anchors (..., A, 2)`` and ``strides
+    (..., A)`` broadcast against ``raw``'s leading axes."""
+    kpts = raw.reshape(*raw.shape[:-1], raw.shape[-1] // 3, 3).float()
+    base = anchors - 0.5 * strides[..., None]
+    xy = kpts[..., :2] * 2.0 * strides[..., None, None] + base[..., None, :]
+    return torch.cat([xy, torch.sigmoid(kpts[..., 2:3])], dim=-1)
+
+
+def _decode_extra(raw: torch.Tensor, task, anc, stri):
+    """The task head's extra output on flat rows ``(B, N, E)``."""
+    if task == "pose":
+        return decode_keypoints(raw, anc, stri)
+    if task == "obb" or (task is None and raw.shape[-1] == 1):
+        # explicit task wins; the channel count is only the task-less fallback
+        return (torch.sigmoid(raw[..., 0].float()) - 0.25) * math.pi
+    return raw.float()  # segment: mask coefficients
+
+
+def decode_predictions(outs, img_size: int, reg_max: int = 16, task: str | None = None):
+    """Head outputs -> flat per-anchor ``(boxes_xyxy, scores, extras)``:
+    boxes in pixels, scores per-class sigmoid probabilities ``(B, A, C)``,
+    extras by head (OBB angle ``(B, A)``, mask coefficients ``(B, A, P)``,
+    pose keypoints ``(B, A, K, 3)``, detect ``None``)."""
+    anchors, strides = make_anchors(img_size, device=outs[0][0].device)
+    boxes, scores, extras_l = [], [], []
+    a0 = 0
+    for out in outs:
+        box_l, cls_l = out[0], out[1]
+        b, h, w, _ = box_l.shape
+        n = h * w
+        ltrb = dfl_decode(box_l.reshape(b, n, 4 * reg_max), reg_max)
+        anc, stri = anchors[a0:a0 + n], strides[a0:a0 + n]
+        a0 += n
+        xy1 = anc[None] - ltrb[..., :2] * stri[None, :, None]
+        xy2 = anc[None] + ltrb[..., 2:] * stri[None, :, None]
+        boxes.append(torch.cat([xy1, xy2], dim=-1))
+        scores.append(torch.sigmoid(cls_l.reshape(b, n, -1).float()))
+        if len(out) == 3:
+            extras_l.append(_decode_extra(out[2].reshape(b, n, -1), task, anc, stri))
+    extras = torch.cat(extras_l, dim=1) if extras_l else None
+    return torch.cat(boxes, dim=1), torch.cat(scores, dim=1), extras
+
+
+def decode_topk(outs, img_size: int, k: int, reg_max: int = 16, task: str | None = None):
+    """Head decode that selects the top-K candidates before the per-anchor
+    decode: ranks in float32 sigmoid space (ties to the lower anchor index,
+    as ``jax.lax.top_k`` does), then runs the DFL softmax, the box assembly
+    and the task head's extra decode on the K winners only.
+
+    Returns per-image score-sorted ``(boxes_xyxy (B, K, 4), scores (B, K),
+    classes (B, K) int32, idx (B, K) int32, extras)``; ``idx`` indexes the
+    flat anchor axis in `decode_predictions` order and ``extras`` rows are
+    aligned with the candidate rows."""
+    dev = outs[0][0].device
+    anchors, strides = make_anchors(img_size, device=dev)
+    cls_flat, box_flat, extra_flat = [], [], []
+    for out in outs:
+        b, h, w, _ = out[0].shape
+        box_flat.append(out[0].reshape(b, h * w, 4 * reg_max))
+        cls_flat.append(out[1].reshape(b, h * w, -1))
+        if len(out) == 3:
+            extra_flat.append(out[2].reshape(b, h * w, -1))
+    cls_flat, box_flat = torch.cat(cls_flat, dim=1), torch.cat(box_flat, dim=1)
+
+    probs = torch.sigmoid(cls_flat.float())
+    conf, cls_idx = probs.max(dim=-1)  # first index on ties
+    order = torch.sort(conf, dim=1, descending=True, stable=True).indices[:, :k]
+    top_conf = torch.gather(conf, 1, order)
+
+    def rows(t):
+        return torch.gather(t, 1, order[..., None].expand(-1, -1, t.shape[-1]))
+
+    ltrb = dfl_decode(rows(box_flat), reg_max)
+    anc, stri = anchors[order], strides[order]
+    boxes = torch.cat([anc - ltrb[..., :2] * stri[..., None], anc + ltrb[..., 2:] * stri[..., None]], dim=-1)
+    classes = torch.gather(cls_idx, 1, order).to(torch.int32)
+    extras = _decode_extra(rows(torch.cat(extra_flat, dim=1)), task, anc, stri) if extra_flat else None
+    return boxes, top_conf, classes, order.to(torch.int32), extras
+
+
+def fold_batchnorm(params: dict, batch_stats: dict, eps: float = BN_EPS):
+    """Absorb every ConvBnAct's BatchNorm affine into its conv kernel and
+    bias, on a flax-shaped tree of numpy arrays: ``K' = K * s`` and ``b' =
+    bias - mean * s`` with ``s = scale / sqrt(var + eps)``.  Only scopes that
+    are a ConvBnAct (exactly ``{Conv_0, BatchNorm_0}``) fold.  Returns
+    ``(params, batch_stats)`` shaped for ``YOLO(fold_bn=True)``."""
+
+    def walk(p, bs):
+        if not isinstance(p, dict):
+            return p, bs
+        if set(p.keys()) == {"Conv_0", "BatchNorm_0"} and "kernel" in p["Conv_0"]:
+            k = np.asarray(p["Conv_0"]["kernel"], np.float32)
+            g = np.asarray(p["BatchNorm_0"]["scale"], np.float32)
+            b = np.asarray(p["BatchNorm_0"]["bias"], np.float32)
+            mean = np.asarray(bs["BatchNorm_0"]["mean"], np.float32)
+            var = np.asarray(bs["BatchNorm_0"]["var"], np.float32)
+            s = g / np.sqrt(var + np.float32(eps))
+            return {"Conv_0": {"kernel": k * s, "bias": b - mean * s}}, None
+        new_p, new_bs = {}, {}
+        for key, sub in p.items():
+            fp, fbs = walk(sub, bs.get(key, {}) if isinstance(bs, dict) else {})
+            new_p[key] = fp
+            if fbs:
+                new_bs[key] = fbs
+        if isinstance(bs, dict):
+            for key, sub in bs.items():
+                if key not in p:
+                    new_bs[key] = sub
+        return new_p, (new_bs or None)
+
+    fp, fbs = walk(params, batch_stats or {})
+    return fp, (fbs or {})

@@ -13,7 +13,10 @@ from __future__ import annotations
 
 import torch
 
-LAUNCHES = {"icp_fused": 0, "raster_update": 0, "nn_argmin": 0, "raster_update_grid": 0}
+LAUNCHES = {
+    "icp_fused": 0, "raster_update": 0, "nn_argmin": 0, "raster_update_grid": 0,
+    "conv1x1_silu": 0, "conv3x3_silu": 0, "conv3x3s2_silu": 0, "c2f_fused": 0,
+}
 
 
 def reset_launches() -> None:

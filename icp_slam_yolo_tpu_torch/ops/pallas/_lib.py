@@ -20,13 +20,24 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
-SOURCES = ("nn.cu", "raster.cu", "icp.cu")
+SOURCES = ("nn.cu", "raster.cu", "icp.cu", "conv.cu", "c2f.cu")
+HEADERS = ("conv_common.cuh",)
 # -fmad=false: products and sums round as the plain PyTorch versions' separate
 # operations do, so a kernel can be held to its plain version tightly
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xcompiler", "-fPIC",
 )
+# the conv kernels sum in another order than any library does, so nothing is
+# gained by splitting their multiply-adds: they keep the compiler's fused ones
+FUSED_MULTIPLY_ADD = ("conv.cu", "c2f.cu")
+
+
+def _flags(name: str) -> tuple:
+    if name in FUSED_MULTIPLY_ADD:
+        return tuple(f for f in NVCC_FLAGS if f != "-fmad=false")
+    return NVCC_FLAGS
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +47,9 @@ _SIGNATURES = {
     "slam_raster_update": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P, _P],
     "slam_raster_update_grid": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P, _P],
     "slam_icp_fused": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _F, _F, _I, _P, _P, _P, _P, _P, _P],
+    "slam_conv_bias_act": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "slam_c2f_smem_bytes": [_I, _I, _I, _I],
+    "slam_c2f_fused": [_P] * 10 + [_I] * 10 + [_P],
 }
 
 _lib = None
@@ -54,7 +68,8 @@ def _nvcc() -> str:
 
 def _build_dir() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    h.update(" ".join(FUSED_MULTIPLY_ADD).encode())
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + f.read())
     return os.path.join(BUILD_ROOT, h.hexdigest()[:16])
@@ -74,7 +89,7 @@ def build() -> str:
     for name in SOURCES:
         obj = os.path.join(out_dir, name.replace(".cu", ".o"))
         objs.append(obj)
-        cmd = [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, name), "-o", obj]
+        cmd = [nvcc, *_flags(name), "-c", os.path.join(CSRC, name), "-o", obj]
         procs.append((name, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     errors = []
     for name, p in procs:

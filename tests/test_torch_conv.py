@@ -1,0 +1,115 @@
+"""K5-K7 (conv + bias + SiLU): the port's plain versions against the JAX
+Pallas kernels in interpret mode (they pick it themselves on the CPU).
+
+Tolerances: float32 3e-4 (order of summation; the JAX package's own tests
+use 2e-4 and 3e-4), bfloat16 0.05 as `tests/test_conv_fused.py` does."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from icp_slam_yolo_tpu.ops.pallas import conv_fused as jconv
+from icp_slam_yolo_tpu_torch.ops import pallas
+from icp_slam_yolo_tpu_torch.ops.pallas import conv_fused as tconv
+
+torch.set_num_threads(2)
+
+F32, BF16 = (jnp.float32, torch.float32, 3e-4), (jnp.bfloat16, torch.bfloat16, 0.05)
+
+
+def _inputs(seed, x_shape, w_shape, jdt, tdt):
+    rng = np.random.default_rng(seed)
+    arrs = (rng.standard_normal(x_shape), rng.standard_normal(w_shape) * 0.1, rng.standard_normal(w_shape[-1]) * 0.1)
+    j = [jnp.asarray(a, jnp.float32).astype(jdt) for a in arrs]
+    # the same rounded values on both sides
+    t = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(tdt) for a in j]
+    return j, t
+
+
+def _close(got: torch.Tensor, want, tol):
+    assert got.dtype in (torch.float32, torch.bfloat16)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("types", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cin,cout", [(32, 32), (64, 32), (16, 48)])
+def test_conv1x1_matches_pallas_interpret(cin, cout, types):
+    jdt, tdt, tol = types
+    (jx, jw, jb), (tx, tw, tb) = _inputs(cin + cout, (2, 16, 16, cin), (cin, cout), jdt, tdt)
+    _close(tconv.conv1x1_silu(tx, tw, tb), jconv.conv1x1_silu(jx, jw, jb, tile_m=128), tol)
+
+
+@pytest.mark.parametrize("types", [F32, BF16], ids=["f32", "bf16"])
+def test_conv1x1_no_act_one_output_channel(types):
+    """The class head's shape: 64 -> 1 without activation."""
+    jdt, tdt, tol = types
+    (jx, jw, jb), (tx, tw, tb) = _inputs(4, (1, 8, 32, 64), (64, 1), jdt, tdt)
+    got = tconv.conv1x1_silu(tx, tw, tb, act=False)
+    assert got.shape == (1, 8, 32, 1)
+    _close(got, jconv.conv1x1_silu(jx, jw, jb, tile_m=64, act=False), tol)
+
+
+@pytest.mark.parametrize("types", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cin,cout,h,w", [(32, 32, 16, 16), (16, 32, 8, 32), (64, 64, 16, 16), (16, 16, 4, 8)])
+def test_conv3x3_matches_pallas_interpret(cin, cout, h, w, types):
+    """The last case is a single row tile."""
+    jdt, tdt, tol = types
+    (jx, jw, jb), (tx, tw, tb) = _inputs(cin + h, (2, h, w, cin), (3, 3, cin, cout), jdt, tdt)
+    _close(tconv.conv3x3_silu(tx, tw, tb), jconv.conv3x3_silu(jx, jw, jb, tile_h=8), tol)
+
+
+@pytest.mark.parametrize("types", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cin,cout,h,w", [(3, 16, 32, 32), (16, 32, 32, 32), (64, 128, 16, 16), (3, 16, 8, 64)])
+def test_conv3x3s2_matches_pallas_interpret(cin, cout, h, w, types):
+    """Cin = 3 is the stem; the last case is a single row tile."""
+    jdt, tdt, tol = types
+    (jx, jw, jb), (tx, tw, tb) = _inputs(cin + cout, (2, h, w, cin), (3, 3, cin, cout), jdt, tdt)
+    got = tconv.conv3x3s2_silu(tx, tw, tb)
+    assert got.shape == (2, h // 2, w // 2, cout)
+    _close(got, jconv.conv3x3s2_silu(jx, jw, jb, tile_h=4), tol)
+
+
+def _xla_conv(x, w, b, stride, act):
+    y = jax.lax.conv_general_dilated(x, w, (stride, stride), [(w.shape[0] // 2,) * 2] * 2,
+                                     dimension_numbers=("NHWC", "HWIO", "NHWC"))
+    y = y + b
+    return jax.nn.silu(y) if act else y
+
+
+@pytest.mark.parametrize("k,stride,cin,cout,h,w,act", [
+    (1, 1, 5, 7, 9, 11, True), (1, 1, 192, 3, 5, 5, False), (3, 1, 5, 7, 9, 11, True), (3, 1, 384, 8, 3, 5, True),
+    (3, 2, 5, 7, 10, 6, True), (3, 2, 3, 1, 2, 2, True)])
+def test_shapes_the_jax_kernels_refuse(k, stride, cin, cout, h, w, act):
+    """The port takes every shape (the JAX kernels' packing conditions go
+    with the packing): held against XLA's conv, float32 at 3e-4.  Stride 2
+    puts the window of output (i, j) at input rows 2i-1..2i+1."""
+    (jx, jw, jb), (tx, tw, tb) = _inputs(k * cin + h, (3, h, w, cin), (k, k, cin, cout), jnp.float32, torch.float32)
+    if k == 1:
+        got = tconv.conv1x1_silu(tx, tw[0, 0], tb, act=act)
+    else:
+        got = (tconv.conv3x3s2_silu if stride == 2 else tconv.conv3x3_silu)(tx, tw, tb)
+    _close(got, _xla_conv(jx, jw, jb, stride, act), 3e-4)
+
+
+def test_wrappers_raise_on_what_the_kernel_does_not_take():
+    x, w, b = torch.zeros(1, 5, 4, 8), torch.zeros(3, 3, 8, 8), torch.zeros(8)
+    with pytest.raises(ValueError, match="even"):
+        tconv.conv3x3s2_silu(x, w, b)
+    with pytest.raises(TypeError):
+        tconv.conv3x3_silu(x.double(), w.double(), b.double())
+    with pytest.raises(TypeError):
+        tconv.conv3x3_silu(x, w.bfloat16(), b)
+    with pytest.raises(ValueError, match="contiguous"):
+        tconv.conv3x3_silu(torch.zeros(1, 5, 8, 4).transpose(2, 3), w, b)
+    with pytest.raises(ValueError):
+        tconv.conv1x1_silu(x, w, b)
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    before = dict(pallas.LAUNCHES)
+    x, w, b = torch.randn(1, 4, 4, 8), torch.randn(3, 3, 8, 8), torch.randn(8)
+    assert torch.equal(tconv.conv3x3_silu(x, w, b), tconv.conv_bias_act_plain(x, w, b, 1, True))
+    assert pallas.LAUNCHES == before
+    assert tconv.use_kernels(128, 20) and tconv.use_kernels(1, 640)
