@@ -52,9 +52,9 @@ struct XRows {
   __device__ __forceinline__ int prep(int k) const { return k; }
   __device__ __forceinline__ float load(int m, int k) const {
     const int p = m0 + m;
-    if (p >= P) return 0.f;
-    const int g = ta[p];
-    return g < 0 ? 0.f : to_f32(x[(size_t)g * Cin + k]);
+    const int g = p < P ? ta[p] : -1;
+    const float v = to_f32(x[g < 0 ? 0 : (size_t)g * Cin + k]);
+    return g < 0 ? 0.f : v;  // loaded at a clamped address and masked: no branch around the load
   }
 };
 

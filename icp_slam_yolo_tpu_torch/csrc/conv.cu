@@ -46,8 +46,9 @@ struct ImageRows {
   }
   __device__ __forceinline__ float load(int m, const KC& kc) const {
     const int iy = piy[m] + kc.dy, ix = pix[m] + kc.dx;
-    if ((unsigned)iy >= (unsigned)H || (unsigned)ix >= (unsigned)W) return 0.f;
-    return to_f32(x[(((size_t)pb[m] * H + iy) * W + ix) * Cin + kc.ci]);
+    const bool ok = (unsigned)iy < (unsigned)H && (unsigned)ix < (unsigned)W;
+    const float v = to_f32(x[ok ? (((size_t)pb[m] * H + iy) * W + ix) * Cin + kc.ci : 0]);
+    return ok ? v : 0.f;  // loaded at a clamped address and masked: no branch around the load
   }
 };
 

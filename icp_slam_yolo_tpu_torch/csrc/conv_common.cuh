@@ -73,18 +73,26 @@ __device__ __forceinline__ void chunk_loop(const ALoad& aload, const T* __restri
   const int kk = tid % kBK, mrow = tid / kBK;
 
   auto load = [&](int k0, auto&& sink_a, auto&& sink_b) {
+    // every load is issued whether or not its element exists (at a clamped
+    // address) and masked afterwards, so the loads of a chunk go out together
     const int k = k0 + kk;
     const bool kok = k < K;
     const auto kc = aload.prep(kok ? k : 0);
+    float va[A_PER], vb[B_PER];
 #pragma unroll
-    for (int i = 0; i < A_PER; ++i)
-      sink_a(i, kok ? aload.load(mrow + i * (kThreads / kBK), kc) : 0.f);
+    for (int i = 0; i < A_PER; ++i) va[i] = aload.load(mrow + i * (kThreads / kBK), kc);
 #pragma unroll
     for (int i = 0; i < B_PER; ++i) {
       const int idx = tid + i * kThreads;
       const int kb = k0 + idx / BN, n = n0 + idx % BN;
-      sink_b(i, (kb < K && n < N) ? to_f32(w[(size_t)kb * N + n]) : 0.f);
+      const bool ok = kb < K && n < N;
+      vb[i] = to_f32(w[ok ? (size_t)kb * N + n : 0]);
+      vb[i] = ok ? vb[i] : 0.f;
     }
+#pragma unroll
+    for (int i = 0; i < A_PER; ++i) sink_a(i, kok ? va[i] : 0.f);
+#pragma unroll
+    for (int i = 0; i < B_PER; ++i) sink_b(i, vb[i]);
   };
   auto stage_a = [&](int i, float v) { store_a(mrow + i * (kThreads / kBK), kk, v); };
   auto stage_b = [&](int i, float v) {
