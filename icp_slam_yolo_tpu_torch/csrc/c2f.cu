@@ -26,9 +26,11 @@
 //
 // Bound on this card: bytes in principle (x read once, out written once,
 // ~60-190 operations per byte, below the tensor cores' ~295); in fact this
-// first version is bound by float32 FMAs fed from shared memory, by the
-// halo's recomputation ((T+4)^2 / T^2 of the first product) and, at 20 x 20
-// and batch 1, by having 9-25 blocks for 132 SMs.
+// version is bound by the latency of its chunk loop (load, stage, multiply,
+// two barriers per 32 K values, 8 warps a block), by the halo's
+// recomputation ((T+4)^2 / T^2 of the first product), by tile rows that hold
+// no pixel (a 4 x 4 tile fills 16 to 64 rows of a 64-row tile) and, at 20 x
+// 20 and batch 1, by having 25 blocks for 132 SMs.
 
 #include "conv_common.cuh"
 
@@ -70,7 +72,8 @@ struct WindowRows {
   }
   __device__ __forceinline__ float load(int m, int off) const {
     const int p = m0 + m;
-    return p < P ? to_f32(src[ta[p] * cs + off]) : 0.f;
+    const float v = to_f32(src[ta[p < P ? p : 0] * cs + off]);
+    return p < P ? v : 0.f;
   }
 };
 
@@ -80,9 +83,10 @@ struct ConcatRows {
   const T* y; const T* pbuf; const int* ta; int m0, P, c;
   __device__ __forceinline__ int prep(int k) const { return k; }
   __device__ __forceinline__ float load(int m, int k) const {
-    const int p = m0 + m;
-    if (p >= P) return 0.f;
-    return k < 2 * c ? to_f32(y[ta[p] * 2 * c + k]) : to_f32(pbuf[p * c + k - 2 * c]);
+    const int p = m0 + m, q = p < P ? p : 0;
+    const T* at = k < 2 * c ? y + ta[q] * 2 * c + k : pbuf + q * c + k - 2 * c;
+    const float v = to_f32(*at);
+    return p < P ? v : 0.f;
   }
 };
 

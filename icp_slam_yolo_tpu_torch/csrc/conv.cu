@@ -21,10 +21,14 @@
 //
 // Bound on this card: bytes for the 1x1s and for every layer at batch 1
 // (yolo-n's layers do 8-150 operations per byte moved, below the ~295 at
-// which the bf16 tensor cores would bound them); this first version is in
-// fact bound by its own shared-memory loads and, at batch 1 and small
-// feature maps, by how few blocks it has (20 x 20 pixels x 64 channels is 7
-// blocks on 132 SMs).  It sums with float32 FMAs, not with the tensor cores.
+// which the bf16 tensor cores would bound them).  In fact this version is
+// bound by latency: a chunk of 32 K values is loaded, staged, multiplied
+// (bfloat16 on the tensor cores, float32 with FMAs) and fenced by two
+// barriers before the next, with 8 warps a block, and at batch 1 and small
+// feature maps it has few blocks (20 x 20 pixels x 64 channels is 7 blocks on
+// 132 SMs).  The gathers are loaded at clamped addresses and masked, not
+// branched around, so that a chunk's loads are in flight together: that
+// alone halved the kernels' times.
 
 #include "conv_common.cuh"
 
