@@ -5,7 +5,9 @@
 Phases (each prints a line; any failed check raises, so the script exits
 non-zero; they run in the order 1-3, 7-9, 4-6, 10, see `main`):
   1. require a CUDA device; print the card's name and power limit;
-  2. build the CUDA kernels (``nvcc``, first use) and print the build time;
+  2. build the CUDA kernels (``nvcc``, first use) and print the build time
+     and, for the conv kernels, each one's registers, shared memory and
+     spills (``ptxas -v``);
   3. hold each kernel (K1 ICP, K2 raster, K3 nearest neighbour, K4 fleet
      raster) against its plain PyTorch version on the card, at the shapes the
      paths below give it, one robot and batched (B = 8, B = 64), and time
@@ -30,7 +32,10 @@ non-zero; they run in the order 1-3, 7-9, 4-6, 10, see `main`):
      SiLU, K8 the whole C2f block) against their plain versions on the card,
      in bfloat16 and float32, at every distinct shape of a yolo-n forward at
      640 px at batch 1, 2 and 8 plus edge cases, with device times (kernel,
-     plain version, and the library's ``F.conv2d`` + ``F.silu``);
+     plain version, and the library's ``F.conv2d`` + ``F.silu``); in
+     bfloat16 also the variants the wrappers do not pick, forced (the other
+     gather, the split or cluster on and off, every K8 tile and cluster that
+     fits), and two launches at one site giving the same bits;
   8. the detector path: ``detector_from_checkpoint`` on the trained v8 detect
      weights, bfloat16, 640 px, fused: ``__call__``, ``detect_pair`` and
      ``predict_batch`` at batch 8 on seeded synthetic frames, with launch
@@ -49,6 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -248,6 +254,16 @@ def _device_profile(torch, fn, reps: int) -> dict:
 def _device_ms(torch, fn, reps: int) -> float:
     """Device time per call (ms), summed over the call's device events."""
     return sum(_device_profile(torch, fn, reps).values())
+
+
+def _kernel_name(mangled: str) -> str:
+    """``conv_bf16_kernel<128, 64, 0>`` from a mangled kernel name (the tail
+    of the mangled name where it does not parse)."""
+    m = re.search(r"\d+([A-Za-z][A-Za-z0-9_]*?_kernel)I(.*?)EE", mangled)
+    if not m:
+        return mangled[-60:]
+    args = [num or {"f": "float", "d": "double"}[t] for num, t in re.findall(r"L[ib](\d+)E|([fd])", m.group(2) + "E")]
+    return f"{m.group(1)}<{', '.join(args)}>"
 
 
 def _require(cond: bool, what: str) -> None:
@@ -1137,13 +1153,17 @@ def check_detector_kernels() -> dict:
     from icp_slam_yolo_tpu_torch.ops.pallas import c2f_fused as c2f
     from icp_slam_yolo_tpu_torch.ops.pallas import conv_fused as conv
 
+    from icp_slam_yolo_tpu_torch.ops.pallas import _lib
+
     F = torch.nn.functional
+    lib_c = _lib.lib()
     rng = np.random.default_rng(11)
     wrappers = {
-        "conv1x1_silu": (1, 1, lambda x, w, b, act: conv.conv1x1_silu(x, w[0, 0], b, act=act)),
-        "conv3x3_silu": (3, 1, lambda x, w, b, act: conv.conv3x3_silu(x, w, b)),
-        "conv3x3s2_silu": (3, 2, lambda x, w, b, act: conv.conv3x3s2_silu(x, w, b)),
+        "conv1x1_silu": (1, 1, lambda x, w, b, act, **kw: conv.conv1x1_silu(x, w[0, 0], b, act=act, **kw)),
+        "conv3x3_silu": (3, 1, lambda x, w, b, act, **kw: conv.conv3x3_silu(x, w, b, **kw)),
+        "conv3x3s2_silu": (3, 2, lambda x, w, b, act, **kw: conv.conv3x3s2_silu(x, w, b, **kw)),
     }
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     sites = {"conv1x1_silu": K5_SITES, "conv3x3_silu": K6_SITES, "conv3x3s2_silu": K7_SITES}
     worst = dict.fromkeys(DETECTOR_KERNELS, 0.0)
     sums = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, by={}) for name in DETECTOR_KERNELS}
@@ -1161,15 +1181,41 @@ def check_detector_kernels() -> dict:
         n_checks += 1
         return err, mag
 
+    def repeat_equal(name, what, call):
+        """Two launches at one site give the same bits (no atomics; sums in a fixed order)."""
+        nonlocal n_checks
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        _require(torch.equal(first, second), f"{name} {what}: two launches differ")
+        n_checks += 1
+
     for name, (k, stride, fn) in wrappers.items():
         for cin, cout, h, act, count in sites[name]:
             for dt in (torch.bfloat16, torch.float32):
                 for bsz in (1, 2, 8):
                     x, w, b = _conv_case(torch, rng, dt, bsz, h, h, cin, cout, k)
                     what = f"{dt} B={bsz} {cin}->{cout} @{h} act={act}"
-                    err, mag = held(name, what, fn(x, w, b, act), conv.conv_bias_act_plain(x, w, b, stride, act), dt, 2)
+                    want = conv.conv_bias_act_plain(x, w, b, stride, act)
+                    got = fn(x, w, b, act)
+                    err, mag = held(name, what, got, want, dt, 2)
                     if dt != torch.bfloat16:
                         continue
+                    plan = conv.conv_plan(bsz, h // stride, h // stride, cin, cout, k, True, n_sm)
+                    # the other gather, the split on and off and (where the plan takes the warpgroup products)
+                    # mma.sync, forced: the same bits (one order of summation), which `detect_pair` needs
+                    base = fn(x, w, b, act, wgmma=False) if plan.wgmma else got
+                    _require(torch.equal(got, base), f"{name} {what}: wgmma and mma.sync give other bits")
+                    splits = [sp for sp in conv.SPLITS[1:] if conv.smem_bytes(
+                        plan._replace(split=sp, wgmma=False), True) <= conv.SMEM_LIMIT]
+                    forced = [dict(split=1 if plan.split > 1 else splits[0])]
+                    if plan.vec:
+                        forced.append(dict(vec=False))
+                    for opt in forced:
+                        alt = fn(x, w, b, act, wgmma=False, **opt)
+                        held(name, f"{what} forced {opt}", alt, want, dt, 2)
+                        _require(torch.equal(alt, base), f"{name} {what}: forced {opt} changes the bits")
+                    if bsz == 2:
+                        repeat_equal(name, what, lambda: fn(x, w, b, act))
                     x_nchw = x.permute(0, 3, 1, 2)
                     w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
 
@@ -1178,13 +1224,18 @@ def check_detector_kernels() -> dict:
                         return F.silu(y) if act else y
 
                     ms = _device_ms(torch, lambda: fn(x, w, b, act), 10)
+                    other = (f", split {forced[0]['split']}: "
+                             f"{_device_ms(torch, lambda: fn(x, w, b, act, wgmma=False, **forced[0]), 10) * 1e3:.2f} us")
                     plain = _device_ms(torch, lambda: conv.conv_bias_act_plain(x, w, b, stride, act), 5)
                     lib = _device_ms(torch, library, 10)
                     ho = h // stride
                     bound = _bound(2.0 * bsz * ho * ho * k * k * cin * cout,
                                    2.0 * (x.numel() + w.numel() + b.numel() + bsz * ho * ho * cout), PEAK_BF16)
                     print(f"[7] {name} bf16 B={bsz} {cin}->{cout} @{h}{'' if act else ' no act'} (x{count} per forward): "
-                          f"err {err:.3g} of {mag:.3g}; device {ms * 1e3:.2f} us, plain {plain * 1e3:.1f} us, "
+                          f"err {err:.3g} of {mag:.3g}; {'16-byte' if plan.vec else 'scalar'} gather, tile "
+                          f"{plan.bm} x {plan.bn}, {'wgmma' if plan.wgmma else f'split {plan.split}'}: device "
+                          f"{ms * 1e3:.2f} us{other}, plain "
+                          f"{plain * 1e3:.1f} us, "
                           f"F.conv2d{' + F.silu' if act else ''} {lib * 1e3:.2f} us, bound {bound[0] * 1e3:.3f} us "
                           f"({bound[1]})", flush=True)
                     if bsz == 2:
@@ -1195,31 +1246,72 @@ def check_detector_kernels() -> dict:
                         acc["bound_ms"] += count * bound[0]
                         acc["by"][bound[1]] = acc["by"].get(bound[1], 0.0) + count * bound[0]
 
+    # the warpgroup products (wgmma) against mma.sync on the same tile, batch 2, 8 and 32: every 3x3 site with
+    # Cout a multiple of 64, and the 1x1s at the 80 x 80 inputs
+    for name, (k, stride, fn) in wrappers.items():
+        for cin, cout, h, act, count in sites[name]:
+            if cout % 64 or (k == 1 and h != 80):
+                continue
+            for bsz in (2, 8, 32):
+                x, w, b = _conv_case(torch, rng, torch.bfloat16, bsz, h, h, cin, cout, k)
+                want = conv.conv_bias_act_plain(x, w, b, stride, act)
+                plan = conv.conv_plan(bsz, h // stride, h // stride, cin, cout, k, True, n_sm)
+                wg = conv.conv_plan(bsz, h // stride, h // stride, cin, cout, k, True, n_sm, wgmma=True)
+                got_wg = fn(x, w, b, act, wgmma=True)
+                got_mma = fn(x, w, b, act, wgmma=False, split=1)
+                err, mag = held(name, f"bf16 B={bsz} {cin}->{cout} @{h} act={act} wgmma", got_wg, want, torch.bfloat16, 2)
+                repeat_equal(name, f"bf16 B={bsz} {cin}->{cout} @{h} act={act} wgmma", lambda: fn(x, w, b, act, wgmma=True))
+                held(name, f"bf16 B={bsz} {cin}->{cout} @{h} act={act} mma.sync", got_mma, want, torch.bfloat16, 2)
+                _require(torch.equal(got_wg, got_mma), f"{name} bf16 B={bsz} {cin}->{cout} @{h}: wgmma and mma.sync differ")
+                t_wg = _device_ms(torch, lambda: fn(x, w, b, act, wgmma=True), 10)
+                t_mma = _device_ms(torch, lambda: fn(x, w, b, act, wgmma=False, split=1), 10)
+                print(f"[7] {name} bf16 B={bsz} {cin}->{cout} @{h}{'' if act else ' no act'}: wgmma ({wg.bm} rows) "
+                      f"{t_wg * 1e3:.2f} us, mma.sync (tile {plan.bm} x {plan.bn}, split 1) {t_mma * 1e3:.2f} us, "
+                      f"the same bits; err {err:.3g} of {mag:.3g}; the plan takes "
+                      f"{'wgmma' if plan.wgmma else f'mma.sync, split {plan.split}'}", flush=True)
+
     for cin, c, feat, h, shortcut in K8_SITES:
         for dt in (torch.bfloat16, torch.float32):
             for bsz in (1, 2, 8):
                 args = _c2f_case(torch, rng, dt, bsz, h, h, cin, c, feat)
                 what = f"{dt} B={bsz} Cin {cin} c {c} F {feat} @{h} shortcut={shortcut}"
-                err, mag = held("c2f_fused", what, c2f.c2f_fused(*args, shortcut=shortcut),
-                                c2f.c2f_fused_plain(*args, shortcut=shortcut), dt, 4)
+                want = c2f.c2f_fused_plain(*args, shortcut=shortcut)
+                got = c2f.c2f_fused(*args, shortcut=shortcut)
+                err, mag = held("c2f_fused", what, got, want, dt, 4)
                 if dt != torch.bfloat16:
                     continue
+                plan = c2f.c2f_plan(bsz, h, h, cin, c, feat, True, n_sm)
+                # every tile and cluster that fits, timed, and the scalar gather once
+                combos = [(t, s) for t in c2f.TILES for s in c2f.CLUSTERS
+                          if c2f.cluster_fits(c, feat, s) and c2f.smem_bytes(c, t, s, True, plan.vec) <= c2f._SMEM_LIMIT]
+                for t, s in combos:
+                    _require(lib_c.slam_c2f_smem_bytes(c, t, s, 1, int(plan.vec)) == c2f.smem_bytes(c, t, s, True, plan.vec),
+                             f"c2f_fused: shared memory of the wrapper and the kernel differ at c {c}, tile {t}, cluster {s}")
+                    if (t, s) != (plan.tile, plan.cluster):
+                        alt = c2f.c2f_fused(*args, shortcut=shortcut, tile=t, cluster=s)
+                        held("c2f_fused", f"{what} tile={t} cluster={s}", alt, want, dt, 4)
+                        _require(torch.equal(alt, got), f"c2f_fused {what}: tile {t}, cluster {s} change the bits")
+                if bsz == 2:
+                    alt = c2f.c2f_fused(*args, shortcut=shortcut, vec=False)
+                    held("c2f_fused", f"{what} scalar gather", alt, want, dt, 4)
+                    _require(torch.equal(alt, got), f"c2f_fused {what}: the scalar gather changes the bits")
+                    repeat_equal("c2f_fused", what, lambda: c2f.c2f_fused(*args, shortcut=shortcut))
                 x_nchw = args[0].permute(0, 3, 1, 2)
                 ws = [w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
                       for w in (args[1][None, None], args[3], args[5], args[7][None, None])]
                 bs = [b.to(dt) for b in args[2::2]]
                 seq = (x_nchw, ws[0], bs[0], ws[1], bs[1], ws[2], bs[2], ws[3], bs[3], shortcut)
                 ms = _device_ms(torch, lambda: c2f.c2f_fused(*args, shortcut=shortcut), 10)
-                tiles = {}
-                for t in (4, 8):
-                    tiles[t] = _device_ms(torch, lambda: c2f.c2f_fused(*args, shortcut=shortcut, tile=t), 5)
+                variants = {(t, s): _device_ms(torch, lambda: c2f.c2f_fused(*args, shortcut=shortcut, tile=t, cluster=s), 5)
+                            for t, s in combos if t >= 4 and (t, s) != (plan.tile, plan.cluster)}
                 plain = _device_ms(torch, lambda: c2f.c2f_fused_plain(*args, shortcut=shortcut), 5)
                 lib = _device_ms(torch, lambda: _c2f_unfused(torch, *seq), 10)
                 n_w = sum(a.numel() for a in args[1::2])
                 bound = _bound(2.0 * bsz * h * h * (cin * 2 * c + 18 * c * c + 3 * c * feat),
                                2.0 * (args[0].numel() + n_w + bsz * h * h * feat) + 4.0 * (4 * c + feat), PEAK_BF16)
                 print(f"[7] c2f_fused bf16 B={bsz} Cin {cin} c {c} F {feat} @{h} shortcut {shortcut}: err {err:.3g} of "
-                      f"{mag:.3g}; device {ms * 1e3:.2f} us (tile 4: {tiles[4] * 1e3:.1f}, tile 8: {tiles[8] * 1e3:.1f}), "
+                      f"{mag:.3g}; tile {plan.tile}, cluster {plan.cluster}: device {ms * 1e3:.2f} us (others: "
+                      f"{', '.join(f'{t}/{s_}: {v * 1e3:.1f}' for (t, s_), v in variants.items())}), "
                       f"plain {plain * 1e3:.1f} us, the unfused sequence (4 F.conv2d + F.silu, add, concat) "
                       f"{lib * 1e3:.2f} us, bound {bound[0] * 1e3:.3f} us ({bound[1]})", flush=True)
                 if bsz == 2:
@@ -1237,16 +1329,25 @@ def check_detector_kernels() -> dict:
             for bsz, h, w, cin, cout in ((3, 10, 6, 5, 7), (1, 2, 2, 3, 1), (2, 18, 22, 192, 3), (1, 4, 4, 384, 65)):
                 x, wt, b = _conv_case(torch, rng, dt, bsz, h, w, cin, cout, k)
                 for act in ((True, False) if k == 1 else (True,)):
-                    held(name, f"edge {dt} B={bsz} {h}x{w} {cin}->{cout} act={act}", fn(x, wt, b, act),
-                         conv.conv_bias_act_plain(x, wt, b, stride, act), dt, 2)
+                    want = conv.conv_bias_act_plain(x, wt, b, stride, act)
+                    held(name, f"edge {dt} B={bsz} {h}x{w} {cin}->{cout} act={act}", fn(x, wt, b, act), want, dt, 2)
+                    if dt == torch.bfloat16:  # the split, forced, on the scalar gather
+                        held(name, f"edge {dt} B={bsz} {h}x{w} {cin}->{cout} act={act} split=2",
+                             fn(x, wt, b, act, split=2), want, dt, 2)
         for bsz, h, w, cin, c, feat in ((1, 4, 4, 32, 16, 32), (2, 13, 11, 24, 8, 20), (1, 8, 8, 7, 5, 3),
-                                        (1, 9, 17, 40, 24, 48), (2, 5, 3, 384, 12, 16)):
+                                        (1, 9, 17, 40, 24, 48), (2, 5, 3, 384, 12, 16), (1, 9, 13, 64, 32, 64),
+                                        (1, 6, 10, 7, 16, 32)):
             args = _c2f_case(torch, rng, dt, bsz, h, w, cin, c, feat)
             for shortcut in (True, False):
                 want = c2f.c2f_fused_plain(*args, shortcut=shortcut)
                 for tile in (None, 2, 4, 8):
                     held("c2f_fused", f"edge {dt} B={bsz} {h}x{w} Cin {cin} c {c} F {feat} shortcut={shortcut} "
                                       f"tile={tile}", c2f.c2f_fused(*args, shortcut=shortcut, tile=tile), want, dt, 4)
+                    for s in c2f.CLUSTERS[1:] if dt == torch.bfloat16 and tile else ():
+                        if c2f.cluster_fits(c, feat, s):
+                            held("c2f_fused", f"edge {dt} B={bsz} {h}x{w} Cin {cin} c {c} F {feat} shortcut={shortcut} "
+                                              f"tile={tile} cluster={s}",
+                                 c2f.c2f_fused(*args, shortcut=shortcut, tile=tile, cluster=s), want, dt, 4)
     print(f"[7] K5-K8: {n_checks} checks against the plain versions passed (float32: 3e-4 of the magnitude; bfloat16: "
           f"2 steps of 2^-8 of the magnitude for K5-K7, 4 for K8, whose three intermediate roundings can each flip)",
           flush=True)
@@ -1482,6 +1583,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _lib.lib()
     print(f"[2] built kernels in {time.perf_counter() - t0:.1f} s", flush=True)
+    for source in _lib.FUSED_MULTIPLY_ADD:  # the conv kernels' resources, from `ptxas -v`
+        for kernel, regs, spill_st, spill_ld, smem in _lib.ptxas_summary(source):
+            print(f"[2] {source} {_kernel_name(kernel)}: {regs} registers, {smem} bytes static shared memory, spills "
+                  f"{spill_st} bytes stored / {spill_ld} loaded", flush=True)
 
     import icp_slam_yolo_tpu_torch as port
 

@@ -1,25 +1,22 @@
-// Shared by conv.cu (K5-K7) and c2f.cu (K8): one block-level tile of a matrix
-// product C = A x W with a float32 sum, where A is read through a functor (so
-// a caller can gather an im2col row from an image or from shared memory) and
-// W is a row-major K x N weight matrix in device memory.
+// Shared by conv.cu (K5-K7) and c2f.cu (K8).  Two kinds of block tile of a
+// matrix product C = A x W with a float32 sum:
 //
-// A block of 256 threads computes a BM x BN tile (BM * BN = 4096).  The K
-// axis is walked in chunks of 32: the chunk of A (BM x 32) and of W (32 x BN)
-// are staged in shared memory, then multiplied.  Ragged edges (rows past the
-// end, K or N not a multiple of the tile) are zero-filled at staging and
-// masked by the caller's epilogue.  Two bodies, by the operands' type:
-//
-//   float32:  staged as float32; each thread owns a 4 x 4 patch and runs 32
-//             steps of 4 + 4 shared loads and 16 FMAs.
-//   bfloat16: staged as bfloat16 (W transposed, so both operands have K
-//             contiguous); each warp owns four 16 x 8 tiles and multiplies
-//             them on the tensor cores, `mma.sync.m16n8k16` with a float32
-//             sum, two K steps a chunk.  Rows are padded to 40 values (80
-//             bytes), which spreads a fragment's eight rows over all banks.
-//
-// With 64 x 64 tiles the next chunk is fetched into registers while this one
-// is multiplied; the wider row tiles would hold 16 or 32 values a thread in
-// flight and measured slower that way, so they stage directly.
+//   float32 (`gemm_tile`): 256 threads, a BM x BN tile (BM * BN = 4096).  The
+//     K axis is walked in chunks of 32; the chunk of A (read through a functor,
+//     so a caller can gather an im2col row from an image or from shared
+//     memory) and of W (row-major K x N in device memory) are staged in shared
+//     memory as float32, then each thread multiplies its 4 x 4 patch with
+//     FMAs.  Ragged edges are zero-filled at staging and masked by the
+//     caller's epilogue.  With 64 x 64 tiles the next chunk is fetched into
+//     registers while this one is multiplied.  No TF32: the sums are float32.
+//   bfloat16: the helpers below, from which conv.cu and c2f.cu build their
+//     pipelined tiles: 16-byte `cp.async` copies (zero-filled where the
+//     source does not exist) into a ring of shared-memory stages, fragments
+//     read with `ldmatrix` (A) and `ldmatrix.trans` (W, stored K x N as it is
+//     in device memory), `mma.sync.m16n8k16` on the tensor cores.  Every
+//     shared row that `ldmatrix` reads is padded to an odd number of 16-byte
+//     units, so the eight rows of one `ldmatrix` phase fall in eight distinct
+//     bank groups.
 
 #pragma once
 
@@ -34,7 +31,42 @@ namespace slamconv {
 constexpr int kThreads = 256;
 constexpr int kBK = 32;               // K chunk
 constexpr int kAStride = kBK + 1;     // float32 body: padded row of the staged A chunk
-constexpr int kHalfStride = kBK + 8;  // bfloat16 body: padded row of either staged operand
+constexpr int kARow = kBK + 8;        // bfloat16: staged A row, 40 values = 5 units of 16 bytes
+
+// ---- bfloat16 building blocks (sm_90a)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared; `bytes` 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// A fragment of m16n8k16 from a row-major 16 x 16 tile: lane l gives the
+// address of row (l % 8) + 8 ((l / 8) % 2), columns 8 (l / 16) .. + 7
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+// B fragments of two m16n8k16 (n 0-7 in r[0..1], n 8-15 in r[2..3]) from a
+// K x N tile stored row-major: lane l gives the address of K row
+// (l % 8) + 8 ((l / 8) % 2), columns 8 (l / 16) .. + 7
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -49,14 +81,40 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 }
 
 __device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
+// The bfloat16 kernels' SiLU: the fast exponential and division (relative
+// error ~1e-6, far below a bfloat16 step); below -80 the result is -0.
+__device__ __forceinline__ float silu_fast(float v) {
+  return v < -80.f ? -0.f : __fdividef(v, 1.0f + __expf(-v));
+}
 
-// Floats of shared memory the staging areas need (the float32 body's: the W
-// chunk first, read as float4, then the A chunk; the bfloat16 body needs less
-// and uses the same area).
+// ---- distributed shared memory (a thread-block cluster)
+
+// the same shared-memory offset in block `rank` of the cluster
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t saddr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(saddr), "r"(rank));
+  return r;
+}
+// stores into another block's shared memory: they wait for no answer
+__device__ __forceinline__ void st_cluster(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, float a, float b) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b) : "memory");
+}
+// the two halves of a cluster barrier: arrive (no ordering) early, wait
+// before the first store into another block (every block then runs)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory"); }
+
+// Floats of shared memory the float32 staging areas need: the W chunk
+// first, read as float4, then the A chunk.
 template <int BN>
 __host__ __device__ constexpr int stage_floats() { return kBK * BN + (4096 / BN) * kAStride; }
 
-// The chunk loop both bodies share.  A thread's i-th value of the A chunk is
+// The float32 chunk loop.  A thread's i-th value of the A chunk is
 // at row tid / 32 + 8 i, column tid % 32; its i-th value of the W chunk at
 // flat index tid + 256 i of the 32 x BN chunk.  `store_a(row, col, v)` and
 // `store_b(k, n, v)` put a value into the staged operands, `multiply()`
@@ -122,109 +180,107 @@ __device__ __forceinline__ void chunk_loop(const ALoad& aload, const T* __restri
   }
 }
 
-// One BM x BN tile.  `aload.prep(k)` decodes a K index once per chunk for
-// the calling thread; `aload.load(m, kc)` returns A[m, k] as float for the
-// tile's local row m (0 for rows that do not exist).  `epi(m, n, v)` takes
-// the finished sums: local row m, global column n (it masks n >= N).
+// One float32 BM x BN tile.  `aload.prep(k)` decodes a K index once per
+// chunk for the calling thread; `aload.load(m, kc)` returns A[m, k] as float
+// for the tile's local row m (0 for rows that do not exist).  `epi(m, n, v)`
+// takes the finished sums: local row m, global column n (it masks n >= N).
 // Ends with all threads past a barrier; the epilogue runs after it.
-template <int BN, typename T, typename ALoad, typename Epi>
+template <int BN, typename ALoad, typename Epi>
 __device__ __forceinline__ void gemm_tile(float* __restrict__ stage, const ALoad& aload,
-                                          const T* __restrict__ w, int K, int N, int n0,
+                                          const float* __restrict__ w, int K, int N, int n0,
                                           const Epi& epi) {
+  constexpr int TX = BN / 4;
+  float* Bs = stage;
+  float* As = stage + kBK * BN;
   const int tid = threadIdx.x;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    constexpr int BM = 4096 / BN;
-    constexpr int TILES_N = BN / 8;                 // 16 x 8 tiles across the block tile
-    constexpr int WN = TILES_N >= 4 ? 4 : TILES_N;  // tiles of a warp across ...
-    constexpr int WM = 4 / WN;                      // ... and down: four in all
-    constexpr int WARPS_N = TILES_N / WN;
-    __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(stage);  // BM rows of 40
-    __nv_bfloat16* Bt = As + BM * kHalfStride;                    // BN rows of 40: W transposed
-    const int lane = tid % 32, wid = tid / 32;
-    const int g = lane / 4, t = lane % 4;
-    const int mt0 = (wid / WARPS_N) * WM, nt0 = (wid % WARPS_N) * WN;
-    float acc[WM][WN][4];
+  const int tx = tid % TX, ty = tid / TX;
+  float acc[4][4];
 #pragma unroll
-    for (int i = 0; i < WM; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < WN; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-    auto store_a = [&](int m, int c, float v) { As[m * kHalfStride + c] = __float2bfloat16_rn(v); };
-    auto store_b = [&](int k, int n, float v) { Bt[n * kHalfStride + k] = __float2bfloat16_rn(v); };
-    // Fragments of m16n8k16 (lane = 4 g + t): A holds rows g and g + 8 at
-    // columns 2t, 2t + 1 and 2t + 8, 2t + 9; B holds column g at the same
-    // four K indices; C holds rows g and g + 8 at columns 2t, 2t + 1.
-    auto multiply = [&]() {
-#pragma unroll
-      for (int ks = 0; ks < kBK; ks += 16) {
-        uint32_t b[WN][2];
-#pragma unroll
-        for (int j = 0; j < WN; ++j) {
-          const __nv_bfloat16* p = &Bt[((nt0 + j) * 8 + g) * kHalfStride + ks + 2 * t];
-          b[j][0] = *reinterpret_cast<const uint32_t*>(p);
-          b[j][1] = *reinterpret_cast<const uint32_t*>(p + 8);
-        }
-#pragma unroll
-        for (int i = 0; i < WM; ++i) {
-          const __nv_bfloat16* p = &As[((mt0 + i) * 16 + g) * kHalfStride + ks + 2 * t];
-          const uint32_t a0 = *reinterpret_cast<const uint32_t*>(p);
-          const uint32_t a1 = *reinterpret_cast<const uint32_t*>(p + 8 * kHalfStride);
-          const uint32_t a2 = *reinterpret_cast<const uint32_t*>(p + 8);
-          const uint32_t a3 = *reinterpret_cast<const uint32_t*>(p + 8 * kHalfStride + 8);
-#pragma unroll
-          for (int j = 0; j < WN; ++j) {
-            asm volatile(
-                "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-                "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-                : "+f"(acc[i][j][0]), "+f"(acc[i][j][1]), "+f"(acc[i][j][2]), "+f"(acc[i][j][3])
-                : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b[j][0]), "r"(b[j][1]));
-          }
-        }
-      }
-    };
-    chunk_loop<BN>(aload, w, K, N, n0, store_a, store_b, multiply);
-#pragma unroll
-    for (int i = 0; i < WM; ++i)
-#pragma unroll
-      for (int j = 0; j < WN; ++j) {
-        const int r = (mt0 + i) * 16 + g, c = n0 + (nt0 + j) * 8 + 2 * t;
-        epi(r, c, acc[i][j][0]);
-        epi(r, c + 1, acc[i][j][1]);
-        epi(r + 8, c, acc[i][j][2]);
-        epi(r + 8, c + 1, acc[i][j][3]);
-      }
-  } else {
-    constexpr int TX = BN / 4;
-    float* Bs = stage;
-    float* As = stage + kBK * BN;
-    const int tx = tid % TX, ty = tid / TX;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    auto store_a = [&](int m, int c, float v) { As[m * kAStride + c] = v; };
-    auto store_b = [&](int k, int n, float v) { Bs[k * BN + n] = v; };
-    auto multiply = [&]() {
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  auto store_a = [&](int m, int c, float v) { As[m * kAStride + c] = v; };
+  auto store_b = [&](int k, int n, float v) { Bs[k * BN + n] = v; };
+  auto multiply = [&]() {
 #pragma unroll 8
-      for (int r = 0; r < kBK; ++r) {
-        float a[4];
+    for (int r = 0; r < kBK; ++r) {
+      float a[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[(ty * 4 + i) * kAStride + r];
-        const float4 b4 = *reinterpret_cast<const float4*>(&Bs[r * BN + tx * 4]);
-        const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+      for (int i = 0; i < 4; ++i) a[i] = As[(ty * 4 + i) * kAStride + r];
+      const float4 b4 = *reinterpret_cast<const float4*>(&Bs[r * BN + tx * 4]);
+      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  };
+  chunk_loop<BN>(aload, w, K, N, n0, store_a, store_b, multiply);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) epi(ty * 4 + i, n0 + tx * 4 + j, acc[i][j]);
+}
+
+// ---- warpgroup products (wgmma), operands in shared memory
+
+// Descriptor of a 64-value-wide (128-byte) operand tile in the 128-byte
+// swizzled layout: row r of the tile at byte 128 r, its 16-byte chunk j at
+// chunk j ^ (r % 8); groups of 8 rows 1024 bytes apart; 1024-byte aligned.
+// Both offsets are 1024 bytes: the stride of 8-row groups, and of 64-wide
+// atoms, of which a 64-wide tile has one.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t saddr) {
+  return (uint64_t)((saddr >> 4) & 0x3FFF) | ((uint64_t)(1024 >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// cp.async's writes become visible to the tensor cores' reads (another proxy)
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// keeps the compiler from moving reads of d across an asynchronous product
+__device__ __forceinline__ void wgmma_fence_operands(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A (64 x 16, K-major) x B (16 x 64, stored K x N: N-major); scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// One k16 step of a warp on the tensor cores: MT row tiles of 16 (lane
+// addresses `a[i]` for `ldmatrix_x4`; tiles i >= `mt_count` are skipped)
+// times NP pairs of 8-column tiles (lane addresses `b[j]` for
+// `ldmatrix_x4_trans`), summed into `acc[i][2 j + h]`.
+template <int MT, int NP>
+__device__ __forceinline__ void warp_k16(float (&acc)[MT][2 * NP][4], const uint32_t (&a)[MT], int mt_count,
+                                         const uint32_t (&b)[NP]) {
+  uint32_t bf[NP][4];
+#pragma unroll
+  for (int j = 0; j < NP; ++j) ldmatrix_x4_trans(bf[j], b[j]);
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    if (i < mt_count) {
+      uint32_t af[4];
+      ldmatrix_x4(af, a[i]);
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        mma_bf16(acc[i][2 * j], af, bf[j][0], bf[j][1]);
+        mma_bf16(acc[i][2 * j + 1], af, bf[j][2], bf[j][3]);
       }
-    };
-    chunk_loop<BN>(aload, w, K, N, n0, store_a, store_b, multiply);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) epi(ty * 4 + i, n0 + tx * 4 + j, acc[i][j]);
+    }
   }
 }
 

@@ -29,13 +29,15 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xcompiler", "-fPIC",
 )
 # the conv kernels sum in another order than any library does, so nothing is
-# gained by splitting their multiply-adds: they keep the compiler's fused ones
+# gained by splitting their multiply-adds: they keep the compiler's fused ones;
+# their builds report registers, shared memory and spills (`ptxas -v`)
 FUSED_MULTIPLY_ADD = ("conv.cu", "c2f.cu")
+VERBOSE_PTXAS = ("-Xptxas", "-v")
 
 
 def _flags(name: str) -> tuple:
     if name in FUSED_MULTIPLY_ADD:
-        return tuple(f for f in NVCC_FLAGS if f != "-fmad=false")
+        return tuple(f for f in NVCC_FLAGS if f != "-fmad=false") + VERBOSE_PTXAS
     return NVCC_FLAGS
 
 
@@ -47,13 +49,14 @@ _SIGNATURES = {
     "slam_raster_update": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P, _P],
     "slam_raster_update_grid": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P, _P],
     "slam_icp_fused": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _F, _F, _I, _P, _P, _P, _P, _P, _P],
-    "slam_conv_bias_act": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "slam_c2f_smem_bytes": [_I, _I, _I, _I],
-    "slam_c2f_fused": [_P] * 10 + [_I] * 10 + [_P],
+    "slam_conv_bias_act": [_P] * 4 + [_I] * 14 + [_P],
+    "slam_c2f_smem_bytes": [_I] * 5,
+    "slam_c2f_fused": [_P] * 10 + [_I] * 11 + [_P],
 }
 
 _lib = None
 build_seconds = None  # wall time of the build this process did (None: none yet)
+build_logs = {}  # source -> the compiler's output of the build this process did
 
 
 def _nvcc() -> str:
@@ -68,7 +71,7 @@ def _nvcc() -> str:
 
 def _build_dir() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(" ".join(FUSED_MULTIPLY_ADD).encode())
+    h.update(" ".join(FUSED_MULTIPLY_ADD + VERBOSE_PTXAS).encode())
     for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + f.read())
@@ -94,6 +97,7 @@ def build() -> str:
     errors = []
     for name, p in procs:
         log, _ = p.communicate()
+        build_logs[name] = log.decode(errors="replace")
         if p.returncode != 0:
             errors.append(f"{name}:\n{log.decode(errors='replace')}")
     if errors:
@@ -108,6 +112,29 @@ def build() -> str:
     os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
     build_seconds = time.perf_counter() - t0
     return lib_path
+
+
+def ptxas_summary(source: str) -> list:
+    """``(kernel, registers, spill bytes stored, spill bytes loaded, shared
+    bytes)`` per kernel entry of a source this process built with ``ptxas
+    -v`` (empty when the library came from the build cache)."""
+    import re
+
+    rows, name, spill = [], None, (0, 0)
+    for line in build_logs.get(source, "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), spill[0], spill[1], int(m.group(2) or 0)))
+            name, spill = None, (0, 0)
+    return rows
 
 
 def lib() -> ctypes.CDLL:

@@ -2,7 +2,9 @@
 
 Counterpart of the JAX package's ``c2f_fused`` (``ops/pallas/c2f_fused.py``).
 The CUDA kernel is ``csrc/c2f.cu``; its source says what bounds it and how it
-is laid out.  The JAX kernel's weight arrangement (`arrange_c2f_weights`,
+is laid out.  `c2f_plan` picks its variant from the shape: the block's output
+tile, how many blocks of a cluster share it, and the gather (16-byte copies
+or scalar loads).  The JAX kernel's weight arrangement (`arrange_c2f_weights`,
 the permuted and banded matrices) is a layout workaround of its target and is
 not carried over: the kernel takes the folded weights as they are.
 
@@ -16,14 +18,124 @@ single-conv kernels K5-K7 round theirs to the working type instead).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
 from icp_slam_yolo_tpu_torch.ops import pallas
-from icp_slam_yolo_tpu_torch.ops.pallas import _lib
+from icp_slam_yolo_tpu_torch.ops.pallas import _lib, conv_fused
 
 _TYPES = (torch.bfloat16, torch.float32)
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may ask for on sm_90
+TILES = (8, 4, 2)  # output pixels a side of a block's tile
+CLUSTERS = (1, 2, 4)  # blocks of a cluster that share one tile (bfloat16)
+RING, BK, A_ROW = 3, 32, 40  # stages of the x and W rings, K values a chunk, staged x row
+BK_VEC = 64  # K values a chunk of stages 2-4 with the 16-byte copies (A read in place)
+
+
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _odd_row(n: int) -> int:
+    """A shared pixel row of ``n`` values grown to an odd number of 16-byte units."""
+    return ((n // 8) | 1) * 8
+
+
+def width(c: int, cluster: int) -> int:
+    """The bfloat16 kernel's pass width: its share of t1's channels rounded
+    up to 16, 32 or 64 (``c2f_width`` in c2f.cu)."""
+    share = _round8(c) // cluster
+    return 16 if share <= 16 else 32 if share <= 32 else 64
+
+
+def wide(bn: int) -> int:
+    """The pass width of stages 1 and 4 (``c2f_wide``): twice `width`, at most 64."""
+    return 64 if bn >= 32 else 32
+
+
+def smem_bytes(c: int, tile: int, cluster: int, bf16: bool, vec: bool) -> int:
+    """Dynamic shared memory of one block (``slam_c2f_smem_bytes`` in c2f.cu);
+    ``vec``: the 16-byte copies, whose W ring holds chunks of `BK_VEC` rows."""
+    p1, p2, p3 = (tile + 4) ** 2, (tile + 2) ** 2, tile ** 2
+    if not bf16:
+        bn = 16 if c <= 16 else 32 if c <= 32 else 64
+        return 4 * (BK * bn + (4096 // bn) * (BK + 1)) + 8 * p1 + 4 * (p1 * 2 * c + p2 * c + p3 * c)
+    cp, ma = _round8(c), -(-p1 // 16) * 16
+    ys, ts = _odd_row(2 * cp), _odd_row(cp)
+    # x's ring (stage 1 only) overlays t1 and p
+    w_rows = BK_VEC if vec else BK
+    return (2 * p1 * ys + max(2 * (p2 + p3) * ts, RING * ma * A_ROW * 2)
+            + RING * w_rows * (wide(width(c, cluster)) + 8) * 2 + 4 * ma)
+
+
+def cluster_fits(c: int, feat: int, cluster: int) -> bool:
+    """Each block of a cluster takes an equal share of every product's
+    padded channels, in 16-byte units."""
+    return all(n % (8 * cluster) == 0 for n in (2 * _round8(c), _round8(c), _round8(feat)))
+
+
+class C2fPlan(NamedTuple):
+    tile: int  # output pixels a side of a block's tile
+    cluster: int  # blocks that share one tile
+    vec: bool  # 16-byte copies (Cin, c and F multiples of 8) or scalar loads
+
+
+def c2f_plan(bsz: int, h: int, wd: int, cin: int, c: int, feat: int, bf16: bool, n_sm: int = 132,
+             tile: int | None = None, cluster: int | None = None, vec: bool | None = None) -> C2fPlan:
+    """The kernel's variant for a shape.  bfloat16, the first of: 8 x 8
+    with the least cluster (1, 2, 4) whose blocks fill the SMs and are all
+    resident at once (shared memory); 8 x 8 with a cluster of 4 if that
+    fills half the SMs; 4 x 4 as the first; else the most blocks that are
+    all resident.  So a tile grows its cluster before it shrinks (a 4 x 4
+    tile recomputes 2.25 times the halo), and no launch runs in two waves.
+    On an H100 it picked the fastest tile and cluster at 16 of the 18 yolo-n
+    sites at batch 1, 2 and 8 (`chip_smoke.py` phase 7 times every one;
+    PERF.md section 6).  Every choice gives the same bits: each output is
+    summed in one order.
+    float32 (one block per tile, no cluster): 8 x 8 where that
+    gives three blocks for every four SMs, else 4 x 4; 2 x 2 only where
+    shared memory allows nothing larger.  ``tile``, ``cluster`` and ``vec``
+    force those; a forced choice must be valid."""
+    can_vec = bf16 and cin % 8 == 0 and c % 8 == 0 and feat % 8 == 0
+    if vec and not can_vec:
+        raise ValueError(f"c2f_fused: the 16-byte copies need bfloat16 and Cin, c, F multiples of 8 "
+                         f"(got {cin}, {c}, {feat})")
+    if cluster is not None and (cluster not in CLUSTERS or not cluster_fits(c, feat, cluster)
+                                or (cluster > 1 and not bf16)):
+        raise ValueError(f"c2f_fused: no cluster of {cluster} at c = {c}, F = {feat} ({'bf16' if bf16 else 'f32'})")
+    if tile is not None and tile not in TILES:
+        raise ValueError(f"c2f_fused: tile {tile}, expected one of {TILES}")
+    vec = can_vec if vec is None else vec
+
+    def tiles(t):
+        return bsz * -(-h // t) * -(-wd // t)
+
+    clusters = [s for s in (CLUSTERS if bf16 else (1,)) if cluster_fits(c, feat, s)]
+    fits = [(t, s) for t in TILES for s in clusters if smem_bytes(c, t, s, bf16, vec) <= _SMEM_LIMIT]
+    if tile is not None:
+        fits = [f for f in fits if f[0] == tile]
+    if cluster is not None:
+        fits = [f for f in fits if f[1] == cluster]
+    if not fits:
+        raise ValueError(f"c2f_fused: no tile{'' if tile is None else f' of {tile}'} at c = {c} fits a block's "
+                         f"shared memory")
+    if bf16:
+        def full(f, least):  # at least `least` blocks, all resident at once
+            smem = smem_bytes(c, f[0], f[1], True, vec)
+            return least <= tiles(f[0]) * f[1] <= n_sm * (conv_fused.SMEM_SM // (smem + 1024))
+
+        order = [f for f in fits if f[0] >= 4] or fits
+        largest = [f for f in order if f[0] == order[0][0]]
+        t, s = (next((f for f in largest if full(f, n_sm)), None)
+                or next((f for f in largest if f[1] == 4 and full(f, n_sm // 2)), None)
+                or next((f for f in order if f not in largest and full(f, n_sm)), None)
+                or max((f for f in order if full(f, 0)), key=lambda f: tiles(f[0]) * f[1], default=order[0]))
+        return C2fPlan(t, s, vec)
+    prefer = [t for t, _ in fits if t >= 4] or [t for t, _ in fits]
+    pick = next((t for t in prefer if 4 * tiles(t) >= 3 * n_sm), prefer[-1])
+    return C2fPlan(pick, 1, False)
 
 
 def _conv(x, w_hwio, b, pad):
@@ -44,31 +156,18 @@ def c2f_fused_plain(x, w1, b1, wm1, bm1, wm2, bm2, w2, b2, shortcut: bool = True
     return out.permute(0, 2, 3, 1).contiguous().to(dt)
 
 
-def _pick_tile(lib, bsz: int, h: int, wd: int, c: int, bf16: bool, n_sm: int) -> int:
-    """The block's output tile: 8 x 8 pixels when that fits shared memory and
-    gives at least three blocks for every four SMs, else 4 x 4 (four times the
-    blocks, 2.25 times the halo work; measured faster below that many blocks
-    on an H100); 2 x 2 only where shared memory allows nothing larger."""
-    fits = [t for t in (8, 4, 2) if lib.slam_c2f_smem_bytes(c, t, t, int(bf16)) <= _SMEM_LIMIT]
-    if not fits:
-        raise ValueError(f"c2f_fused: c = {c} does not fit a block's shared memory at any tile")
-    prefer = [t for t in fits if t >= 4] or fits
-    for t in prefer:
-        if 4 * bsz * -(-h // t) * -(-wd // t) >= 3 * n_sm:
-            return t
-    return prefer[-1]
-
-
-def c2f_fused(x, w1, b1, wm1, bm1, wm2, bm2, w2, b2, shortcut: bool = True, tile: int | None = None):
+def c2f_fused(x, w1, b1, wm1, bm1, wm2, bm2, w2, b2, shortcut: bool = True, tile: int | None = None,
+              cluster: int | None = None, vec: bool | None = None):
     """Fused v8 ``C2f(features, n=1)`` forward on folded weights.
 
     ``x (B, H, W, Cin)``; ``w1 (Cin, 2c)``; ``wm1``, ``wm2 (3, 3, c, c)`` HWIO;
     ``w2 (3c, F)``, all of ``x``'s type (bfloat16 or float32); ``b1 (2c,)``,
     ``bm1``, ``bm2 (c,)``, ``b2 (F,)`` float32.  ``shortcut=False`` is the neck
     variant (``[a | b | t2]`` instead of ``[a | b | b + t2]``).  Returns
-    ``(B, H, W, F)`` in ``x``'s type.  ``tile`` overrides the block's output
-    tile (pixels a side).  Launches the CUDA kernel for CUDA tensors; the
-    plain version runs only for CPU tensors."""
+    ``(B, H, W, F)`` in ``x``'s type.  ``tile``, ``cluster`` and ``vec``
+    override `c2f_plan`'s choices (pixels a side of a block's output tile,
+    blocks that share it, the 16-byte gather).  Launches the CUDA kernel for
+    CUDA tensors; the plain version runs only for CPU tensors."""
     dev, dt = x.device, x.dtype
     if dt not in _TYPES:
         raise TypeError(f"c2f_fused: dtype {dt}, expected bfloat16 or float32")
@@ -81,21 +180,17 @@ def c2f_fused(x, w1, b1, wm1, bm1, wm2, bm2, w2, b2, shortcut: bool = True, tile
     pallas.check_tensor(w2, "w2", dt, (3 * c, feat), dev)
     for name, t, n in (("b1", b1, 2 * c), ("bm1", bm1, c), ("bm2", bm2, c), ("b2", b2, feat)):
         pallas.check_tensor(t, name, torch.float32, (n,), dev)
+    bf16 = dt == torch.bfloat16
+    plan = c2f_plan(bsz, h, wd, cin, c, feat, bf16, conv_fused.sm_count(dev), tile, cluster, vec)
     if dev.type == "cpu":
         return c2f_fused_plain(x, w1, b1, wm1, bm1, wm2, bm2, w2, b2, shortcut)
     if dev.type != "cuda":
         raise ValueError(f"c2f_fused: unsupported device {dev}")
-    lib = _lib.lib()
-    bf16 = dt == torch.bfloat16
-    if tile is None:
-        tile = _pick_tile(lib, bsz, h, wd, c, bf16, torch.cuda.get_device_properties(dev).multi_processor_count)
-    elif lib.slam_c2f_smem_bytes(c, tile, tile, int(bf16)) > _SMEM_LIMIT:
-        raise ValueError(f"c2f_fused: a {tile} x {tile} tile at c = {c} does not fit a block's shared memory")
     out = torch.empty((bsz, h, wd, feat), dtype=dt, device=dev)
-    err = lib.slam_c2f_fused(
+    err = _lib.lib().slam_c2f_fused(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), wm1.data_ptr(), bm1.data_ptr(), wm2.data_ptr(),
         bm2.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), bsz, h, wd, cin, c, feat,
-        tile, tile, int(shortcut), int(bf16), _lib.stream_ptr(dev),
+        plan.tile, plan.cluster, int(shortcut), int(bf16), int(plan.vec), _lib.stream_ptr(dev),
     )
     _lib.check(err, "c2f_fused")
     pallas.LAUNCHES["c2f_fused"] += 1

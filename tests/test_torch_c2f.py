@@ -84,3 +84,70 @@ def test_wrapper_checks_and_counts_no_launch_on_cpu():
         tc2f.c2f_fused(*[a.bfloat16() for a in t])
     with pytest.raises(ValueError):  # w2 must take 3c channels
         tc2f.c2f_fused(*t[:7], t[7][:8], t[8])
+
+
+# -- the variant the wrapper picks (`c2f_plan`): the same choice the card gets
+
+SITES = [(32, 16, 32, 160), (256, 128, 256, 20), (384, 64, 128, 40), (192, 32, 64, 80), (192, 64, 128, 40),
+         (384, 128, 256, 20)]  # (Cin, c, F, H = W): the six C2f blocks of a yolo-n forward at 640 px
+
+
+def _check_plan(plan, cin, c, feat, bf16):
+    assert plan.tile in tc2f.TILES and plan.cluster in tc2f.CLUSTERS
+    assert tc2f.cluster_fits(c, feat, plan.cluster) and (bf16 or plan.cluster == 1)
+    assert tc2f.smem_bytes(c, plan.tile, plan.cluster, bf16, plan.vec) <= 227 * 1024
+    assert plan.vec == (bf16 and cin % 8 == 0 and c % 8 == 0 and feat % 8 == 0)
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+@pytest.mark.parametrize("bsz", [1, 2, 8, 32])
+def test_c2f_plan_is_valid_at_every_site(bsz, bf16):
+    for cin, c, feat, h in SITES:
+        plan = tc2f.c2f_plan(bsz, h, h, cin, c, feat, bf16)
+        _check_plan(plan, cin, c, feat, bf16)
+        if bf16:  # the cluster grows only while the tiles leave SMs idle
+            tiles = bsz * -(-h // plan.tile) ** 2
+            assert plan.cluster == 1 or tiles * plan.cluster // 2 < 132
+
+
+def test_every_c2f_shape_takes_some_variant():
+    rng = np.random.default_rng(4)
+    for _ in range(300):
+        cin, c, feat = int(rng.integers(1, 400)), int(rng.integers(1, 140)), int(rng.integers(1, 300))
+        bsz, h, w = int(rng.integers(1, 9)), int(rng.integers(1, 90)), int(rng.integers(1, 90))
+        for bf16 in (True, False):
+            _check_plan(tc2f.c2f_plan(bsz, h, w, cin, c, feat, bf16), cin, c, feat, bf16)
+
+
+def test_c2f_shared_memory_by_hand():
+    """c = 128 at an 8 x 8 tile, bfloat16: y 144 rows of 264 values, t1 100
+    and p 64 rows of 136 (x's ring, 3 x 144 rows of 40, overlays them), W's
+    ring 3 x 64 rows of 72 with the 16-byte copies (3 x 32 with scalar
+    loads), a table of 144 ints.  A cluster of 4 narrows the passes of
+    stages 2 and 3 to 32 columns, but stages 1 and 4 keep 64, and the ring
+    holds those.  At c = 16 x's ring is the larger of the two, and W's rows
+    are 32 + 8 wide."""
+    y, t1p, xr, wr, tab = 144 * 264 * 2, (100 + 64) * 136 * 2, 3 * 144 * 40 * 2, 3 * 64 * 72 * 2, 144 * 4
+    assert t1p > xr
+    assert tc2f.smem_bytes(128, 8, 1, True, True) == y + t1p + wr + tab
+    assert tc2f.smem_bytes(128, 8, 1, True, False) == y + t1p + 3 * 32 * 72 * 2 + tab
+    assert tc2f.smem_bytes(128, 8, 4, True, True) == y + t1p + wr + tab
+    assert tc2f.smem_bytes(16, 8, 1, True, True) == 144 * 40 * 2 + xr + 3 * 64 * 40 * 2 + tab
+    assert tc2f.smem_bytes(128, 8, 1, False, False) > 227 * 1024  # float32 keeps everything in float32: 4 x 4 there
+
+
+def test_forced_c2f_variants_are_checked():
+    _, t = _case(2, 1, 6, 6, 16, 8, 16, jnp.bfloat16, torch.bfloat16)
+    want = tc2f.c2f_fused_plain(*t)
+    for tile, cluster in ((2, 1), (4, None), (8, 1)):
+        assert torch.equal(tc2f.c2f_fused(*t, tile=tile, cluster=cluster), want)
+    with pytest.raises(ValueError, match="cluster"):
+        tc2f.c2f_fused(*t, cluster=4)  # 8 channels of t1 do not split four ways in 16-byte units
+    with pytest.raises(ValueError, match="tile"):
+        tc2f.c2f_fused(*t, tile=3)
+    _, odd = _case(3, 1, 4, 4, 7, 5, 3, jnp.bfloat16, torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        tc2f.c2f_fused(*odd, vec=True)
+    f32 = [a.float() for a in t]
+    with pytest.raises(ValueError, match="cluster"):
+        tc2f.c2f_fused(*f32, cluster=2)

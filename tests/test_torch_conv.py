@@ -113,3 +113,95 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert torch.equal(tconv.conv3x3_silu(x, w, b), tconv.conv_bias_act_plain(x, w, b, 1, True))
     assert pallas.LAUNCHES == before
     assert tconv.use_kernels(128, 20) and tconv.use_kernels(1, 640)
+
+
+# -- the variant the wrapper picks (`conv_plan`): the same choice the card gets
+
+SITES = [  # (Cin, Cout, H = W of the output, k): every K5-K7 site of a yolo-n forward at 640 px
+    (64, 64, 80, 1), (128, 64, 80, 1), (128, 128, 40, 1), (256, 128, 40, 1), (256, 128, 20, 1), (512, 256, 20, 1),
+    (64, 1, 80, 1), (64, 64, 40, 1), (64, 1, 20, 1),
+    (32, 32, 80, 3), (64, 64, 40, 3), (64, 64, 80, 3), (128, 64, 40, 3), (256, 64, 20, 3), (64, 64, 20, 3),
+    (3, 16, 320, 3), (16, 32, 160, 3), (32, 64, 80, 3), (64, 128, 40, 3), (128, 256, 20, 3), (64, 64, 40, 3)]
+
+
+def _check_plan(plan, bsz, ho, wo, cin, cout, k, bf16):
+    assert plan.bn in (16, 32, 64) and plan.bn == tconv.width(cout)
+    assert tconv.smem_bytes(plan, bf16) <= tconv.SMEM_LIMIT
+    if not bf16:
+        assert (plan.vec, plan.split, plan.bm * plan.bn) == (False, 1, 4096)
+        return
+    assert plan.bm in tconv.BF16_ROWS[plan.bn] and plan.split in tconv.SPLITS and plan.bm % plan.split == 0
+    assert plan.vec == (cin % 8 == 0 and cout % 8 == 0)
+    if plan.split > 1:  # every block of the cluster keeps a 64-value block of the K axis or more
+        assert -(-k * k * cin // tconv.GROUP_UNIT) >= plan.split
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+@pytest.mark.parametrize("bsz", [1, 2, 8, 32])
+def test_conv_plan_is_valid_at_every_site(bsz, bf16):
+    for cin, cout, ho, k in SITES:
+        _check_plan(tconv.conv_plan(bsz, ho, ho, cin, cout, k, bf16), bsz, ho, ho, cin, cout, k, bf16)
+
+
+def test_conv_plan_fills_the_card_at_small_maps():
+    """At batch 1 and 2 every site gets about 1.5 blocks per SM: where its
+    rows alone do not, the K axis is split over a cluster, up to the most
+    blocks the K axis allows; a 1x1 of at most 128 channels is never split;
+    the 16-byte gather is taken at every site but the stem and the class
+    head."""
+    for bsz in (1, 2):
+        for cin, cout, ho, k in SITES:
+            plan = tconv.conv_plan(bsz, ho, ho, cin, cout, k, True)
+            blocks = -(-bsz * ho * ho // plan.bm) * -(-cout // plan.bn) * plan.split
+            units = -(-k * k * cin // tconv.GROUP_UNIT)
+            assert plan.vec == (cin != 3 and cout != 1)
+            if units <= 2:
+                assert plan.split == 1
+            else:
+                assert blocks >= 1.5 * 132 or plan.split == max(s for s in tconv.SPLITS if s <= units)
+    assert tconv.conv_plan(2, 20, 20, 256, 64, 3, True) == tconv.ConvPlan(True, 32, 64, 8)
+    assert tconv.conv_plan(2, 40, 40, 64, 64, 3, True) == tconv.ConvPlan(True, 64, 64, 4)
+    # an unsplit 3x3 of 64 output channels on 64 rows or more takes the warpgroup products
+    assert tconv.conv_plan(1, 80, 80, 64, 64, 3, True) == tconv.ConvPlan(True, 32, 64, 1, False)
+    assert tconv.conv_plan(2, 80, 80, 64, 64, 3, True) == tconv.ConvPlan(True, 64, 64, 1, True)
+    assert tconv.conv_plan(8, 80, 80, 64, 64, 3, True) == tconv.ConvPlan(True, 128, 64, 1, True)
+    assert tconv.conv_plan(32, 80, 80, 64, 64, 3, True) == tconv.ConvPlan(True, 64, 64, 1, True)
+    assert not tconv.conv_plan(8, 80, 80, 64, 64, 1, True).wgmma
+
+
+def test_every_shape_takes_some_variant():
+    rng = np.random.default_rng(3)
+    for _ in range(400):
+        cin, cout = int(rng.integers(1, 600)), int(rng.integers(1, 300))
+        bsz, ho, wo, k = int(rng.integers(1, 40)), int(rng.integers(1, 200)), int(rng.integers(1, 200)), int(rng.choice([1, 3]))
+        for bf16 in (True, False):
+            _check_plan(tconv.conv_plan(bsz, ho, wo, cin, cout, k, bf16), bsz, ho, wo, cin, cout, k, bf16)
+
+
+def test_forced_variants_are_checked_and_run_the_plain_version_on_cpu():
+    x, w, b = (torch.randn(2, 6, 6, 16).bfloat16(), (torch.randn(3, 3, 16, 8) * 0.1).bfloat16(),
+               torch.randn(8).bfloat16())
+    want = tconv.conv_bias_act_plain(x, w, b, 1, True)
+    for vec, split in ((False, None), (None, 2), (True, 8), (False, 1)):
+        assert torch.equal(tconv.conv3x3_silu(x, w, b, vec=vec, split=split), want)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tconv.conv3x3s2_silu(torch.zeros(1, 4, 4, 3).bfloat16(), torch.zeros(3, 3, 3, 16).bfloat16(),
+                             torch.zeros(16).bfloat16(), vec=True)
+    with pytest.raises(ValueError, match="split"):
+        tconv.conv3x3_silu(x, w, b, split=3)
+    with pytest.raises(ValueError, match="float32"):
+        tconv.conv1x1_silu(x.float(), w[1, 1].float(), b.float(), split=2)
+    with pytest.raises(ValueError, match="wgmma"):  # Cout 8 is no multiple of 64
+        tconv.conv3x3_silu(x, w, b, wgmma=True)
+
+
+@pytest.mark.parametrize("bsz,ho,cin,cout,k", [(8, 80, 64, 64, 3), (32, 80, 64, 64, 3), (1, 20, 256, 64, 3),
+                                               (8, 40, 64, 128, 3), (2, 80, 128, 64, 1)])
+def test_wgmma_plan(bsz, ho, cin, cout, k):
+    """The warpgroup variant: 64 or 128 rows (one or two warpgroups), 64
+    columns, no split, the 16-byte gather; its shared memory fits."""
+    plan = tconv.conv_plan(bsz, ho, ho, cin, cout, k, True, wgmma=True)
+    assert plan.wgmma and plan.vec and plan.bm in (64, 128) and plan.bn == 64 and plan.split == 1
+    assert tconv.smem_bytes(plan, True) <= tconv.SMEM_LIMIT
+    with pytest.raises(ValueError):
+        tconv.conv_plan(bsz, ho, ho, cin, cout, k, True, wgmma=True, split=2)
