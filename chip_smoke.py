@@ -6,14 +6,19 @@ Phases (each prints a line; any failed check raises, so the script exits
 non-zero; they run in the order 1-3, 7-9, 4-6, 10, see `main`):
   1. require a CUDA device; print the card's name and power limit;
   2. build the CUDA kernels (``nvcc``, first use) and print the build time
-     and, for the conv kernels, each one's registers, shared memory and
-     spills (``ptxas -v``);
+     and each kernel's registers, shared memory and spills (``ptxas -v``);
   3. hold each kernel (K1 ICP, K2 raster, K3 nearest neighbour, K4 fleet
      raster) against its plain PyTorch version on the card, at the shapes the
      paths below give it, one robot and batched (B = 8, B = 64), and time
      both (device time from the profiler) and, for K3, the library call
-     ``torch.cdist(...).min``; then again at small edge cases (ragged sizes,
-     nothing valid, a window clamped at the grid's corner);
+     ``torch.cdist(...).min``; K1 at B = 1, 8 and 64 with its time a sweep
+     and a sweep's fixed cost (the same registrations against 256 targets),
+     and every other K1 layout that fits forced and required to give the
+     picked layout's bits; K3 at 512 x 512, B = 8, B = 64 and the rescue's
+     512 x 24576 (targets duplicated T/2 apart, so ties straddle the
+     cluster's slices), every layout forced, each required bit-equal; then
+     again at small edge cases (ragged sizes, nothing valid, a window
+     clamped at the grid's corner);
   4. the ``slice`` path: ``Slam(cfg).run(scans)`` at the full-width offline
      configuration without the GICP rescue over a seeded synthetic
      warehouse, with launch counters reset just before and read just after;
@@ -27,7 +32,8 @@ non-zero; they run in the order 1-3, 7-9, 4-6, 10, see `main`):
      robot 0 against the single-robot ``Slam``, and a CPU fleet replay;
   6. the presets: ``Slam(OFFLINE_CONFIG)`` and ``Slam(REALTIME_CONFIG)``
      unchanged on sequences with garbage scans, which force the GICP rescue
-     and, under ``realtime``, the reseed; ``gicp()`` on the card against the CPU;
+     and, under ``realtime``, the reseed, and a profiler window over each
+     preset's steps on the good scans; ``gicp()`` on the card against the CPU;
   7. the detector's kernels (K5 1x1, K6 3x3, K7 3x3 stride 2 conv + bias +
      SiLU, K8 the whole C2f block) against their plain versions on the card,
      in bfloat16 and float32, at every distinct shape of a yolo-n forward at
@@ -386,6 +392,7 @@ def check_kernels(cfg) -> dict:
     err3 = float((d_k - d_p).abs().max())
     _require(bool((i_k == i_p).all()), "K3: argmin differs from the plain version (ties go to the first index)")
     _require(err3 <= 1e-6 * float(d_p.abs().max()), f"K3: d2 error {err3}")
+    picked3, layouts3 = k3_layouts(f"{n}x{n}", src, tgt, tv)
     ms3 = _device_ms(torch, lambda: nn_argmin(src, tgt, tv), 200)
     plain3 = _device_ms(torch, lambda: nn_argmin_plain(src, tgt, tv), 50)
     lib3 = _device_ms(torch, lambda: torch.cdist(src, tgt).min(2), 200)
@@ -396,9 +403,9 @@ def check_kernels(cfg) -> dict:
         name="nn_argmin", route="cuda", source="icp_slam_yolo_tpu_torch/csrc/nn.cu",
         replaces="icp_slam_yolo_tpu/ops/pallas/nn_kernel.py:76", max_abs_err=err3,
         ms=ms3, plain_ms=plain3, bound_ms=b3[0], bound_by=b3[1], library_ms=lib3)
-    print(f"[3] K3 nn_argmin {n}x{n}: idx equal, max|d2 err| {err3:.3g} (tol 1e-6 rel); "
-          f"device {ms3 * 1e3:.2f} us (wall per call {wall3 * 1e3:.1f} us), plain {plain3 * 1e3:.2f} us, "
-          f"cdist+min {lib3 * 1e3:.2f} us", flush=True)
+    print(f"[3] K3 nn_argmin {n}x{n}: idx equal, max|d2 err| {err3:.3g} (tol 1e-6 rel), every layout the same bits; "
+          f"layout {picked3} device {ms3 * 1e3:.2f} us (wall per call {wall3 * 1e3:.1f} us), plain {plain3 * 1e3:.2f} us, "
+          f"cdist+min {lib3 * 1e3:.2f} us; us per layout (lanes x cluster): {layouts3}", flush=True)
 
     # K1: the ICP loop on a 24576-slot map holding 20k live points
     segs = warehouse_segments(10000.0, 6000.0)
@@ -668,6 +675,36 @@ def replay(cfg, n_scans: int = 150, n_cpu: int = 8) -> tuple[dict, float]:
     return launches, n_scans / secs
 
 
+def k3_layouts(name, src, tgt, tv):
+    """K3 in the layout its plan picks, against the plain version, and every
+    other layout forced, each required to give the same bits: ``(the picked
+    layout, device us of every layout)``."""
+    import torch
+
+    from icp_slam_yolo_tpu_torch.ops.pallas import _lib
+    from icp_slam_yolo_tpu_torch.ops.pallas.nn_kernel import CLUSTERS, LANES, nn_argmin, nn_argmin_plain, nn_plan
+
+    d_k, i_k = nn_argmin(src, tgt, tv)
+    d_p, i_p = nn_argmin_plain(src, tgt, tv)
+    _require(torch.equal(i_k, i_p) and torch.equal(d_k, d_p), f"K3 {name}: kernel differs from the plain version")
+    picked = nn_plan(src.shape[0], src.shape[1], tgt.shape[1], _lib.sm_count(src.device))
+    times = []
+    for lanes in LANES:
+        for cluster in CLUSTERS:
+            d_f, i_f = nn_argmin(src, tgt, tv, lanes=lanes, cluster=cluster)
+            _require(torch.equal(i_f, i_k) and torch.equal(d_f, d_k),
+                     f"K3 {name}: layout {lanes} lanes x cluster {cluster} differs from the picked {picked}")
+            t_ms = _device_ms(torch, lambda: nn_argmin(src, tgt, tv, lanes=lanes, cluster=cluster), 50)
+            times.append(f"{lanes}x{cluster} {t_ms * 1e3:.2f}")
+    return picked, "; ".join(times)
+
+
+# K1 layouts forced beside the picked one, (row groups, slices, cluster):
+# each that fits must give the picked layout's bits
+K1_LAYOUTS = ((4, 66, False), (4, 33, False), (2, 16, False), (4, 8, False), (1, 6, False),
+              (2, 8, True), (1, 16, True), (2, 4, True))
+
+
 def check_batched_kernels(cfg) -> tuple[dict, dict]:
     """Phase 3, continued: the robot axis.  K4 against its plain version at
     B = 8 on the fleet's 864 x 1024 grids; K1 at B = 8 against its plain
@@ -676,7 +713,15 @@ def check_batched_kernels(cfg) -> tuple[dict, dict]:
     times)``."""
     import torch
 
-    from icp_slam_yolo_tpu_torch.ops.pallas.icp_fused import _finish, _prepare, icp_fused, icp_fused_plain
+    from icp_slam_yolo_tpu_torch.ops.pallas.icp_fused import (
+        _finish,
+        _prepare,
+        card,
+        card_plan,
+        icp_fused,
+        icp_fused_plain,
+        plan_fits,
+    )
     from icp_slam_yolo_tpu_torch.ops.pallas.nn_kernel import nn_argmin, nn_argmin_plain
     from icp_slam_yolo_tpu_torch.ops.pallas.raster_fused import raster_update_grid, raster_update_grid_plain
     from icp_slam_yolo_tpu_torch.ops.raster import window_dims
@@ -790,11 +835,35 @@ def check_batched_kernels(cfg) -> tuple[dict, dict]:
         k_ms = max(kernel_ms.values())  # the cooperative kernel itself
         sweeps = its.to(torch.float64) + 1.0
         bound = _bound(7.0 * n_src * n_map * float(sweeps.sum()), count * (n * 9 + cap * 9 + 16 + 32))
-        batched[f"icp_fused_b{count}"] = dict(ms=ms1, kernel_ms=k_ms, bound_ms=bound[0], iters=its.tolist())
+        # the same registrations against their first 256 targets: what a sweep costs besides the pairs
+        small = (a[0], a[1], a[2][:, :256].contiguous(), a[3][:, :256].contiguous(), a[4])
+        sweeps_small = float(icp_fused(*small, **kw)[3].max()) + 1.0
+        fixed = max(_device_profile(torch, lambda: icp_fused(*small, **kw), 10).values()) / sweeps_small
+        plan = card_plan(count, n, cap, dev)
+        layout = f"{plan.row_groups} x {plan.slices} {'cluster' if plan.cluster else 'grid'}"
+        batched[f"icp_fused_b{count}"] = dict(ms=ms1, kernel_ms=k_ms, bound_ms=bound[0], iters=its.tolist(),
+                                              sweep_ms=k_ms / float(sweeps.max()), fixed_sweep_ms=fixed,
+                                              plan=layout)
         line = (f"[3] K1 icp_fused B={count} ({n_src} live src x {n_map} live of {cap} tgt each, tolerance "
-                f"{cfg.icp.tolerance}): device {ms1 * 1e3:.1f} us per launch (kernel {k_ms * 1e3:.1f} us), "
-                f"{ms1 * 1e3 / count:.1f} us per registration, {k_ms * 1e3 / float(sweeps.max()):.2f} us per "
-                f"lockstep sweep, iterations {its.tolist()[:8]}, bound {bound[0] * 1e3:.2f} us ({bound[1]})")
+                f"{cfg.icp.tolerance}; layout {layout}: {plan.row_groups} row groups x {plan.slices} slices, "
+                f"{count * plan.row_groups * plan.slices} blocks): device {ms1 * 1e3:.1f} us per launch (kernel "
+                f"{k_ms * 1e3:.1f} us), {ms1 * 1e3 / count:.1f} us per registration, "
+                f"{k_ms * 1e3 / float(sweeps.max()):.2f} us per sweep of the longest registration; against 256 "
+                f"targets {fixed * 1e3:.2f} us per sweep; iterations {its.tolist()[:8]}, bound {bound[0] * 1e3:.2f} us "
+                f"({bound[1]})")
+        # every layout the plan did not pick, where it fits, gives the picked one's bits
+        forced = []
+        for rg, sl, cl in K1_LAYOUTS:
+            if (rg, sl, cl) == plan[:3] or not plan_fits(count, n, cap, card(dev), rg, sl, cl):
+                continue
+            other = icp_fused(*a, **kw, row_groups=rg, slices=sl, cluster=cl)
+            _require(all(torch.equal(x, y) for x, y in zip(other, (pose, rmse, n_in, its))),
+                     f"K1 B={count}: layout {rg} x {sl} cluster {cl} differs from the picked {layout}")
+            t_ms = max(_device_profile(torch, lambda: icp_fused(*a, **kw, row_groups=rg, slices=sl, cluster=cl),
+                                       3).values())
+            forced.append(f"{rg} x {sl} {'cluster' if cl else 'grid'} {t_ms * 1e3:.1f} us")
+        _require(len(forced) > 0, f"K1 B={count}: no other layout fits")
+        line += f"; other layouts, same bits: {', '.join(forced)}"
         if count == 8:
             params, tgt_c, c = _prepare(a[2], a[3], a[4])
             plain_fn = lambda: icp_fused_plain(a[0], a[1], tgt_c, a[3], params, iters=kw["iters"],  # noqa: E731
@@ -830,30 +899,32 @@ def check_batched_kernels(cfg) -> tuple[dict, dict]:
     src8 = f32(rng.uniform(-5000, 5000, (8, n, 2)))
     for count in (8, 64):
         src, tgt, tv = (x.repeat(count // 8, *([1] * (x.dim() - 1))).contiguous() for x in (src8, tgt8, tv8))
-        d_k, i_k = nn_argmin(src, tgt, tv)
-        d_p, i_p = nn_argmin_plain(src, tgt, tv)
-        _require(torch.equal(i_k, i_p) and torch.equal(d_k, d_p), f"K3 B={count}: kernel differs from the plain version")
+        picked, layouts = k3_layouts(f"B={count}", src, tgt, tv)
         ms3 = _device_ms(torch, lambda: nn_argmin(src, tgt, tv), 100)
         plain3 = _device_ms(torch, lambda: nn_argmin_plain(src, tgt, tv), 20)
         lib3 = _device_ms(torch, lambda: torch.cdist(src, tgt).min(2), 100)
         b3 = _bound(6.0 * n * int(tv.sum()), count * (n * 8 + n * 9 + n * 8))
         batched[f"nn_argmin_b{count}"] = dict(ms=ms3, plain_ms=plain3, library_ms=lib3, bound_ms=b3[0])
-        print(f"[3] K3 nn_argmin B={count} {n}x{n} with ties: equal to the plain version; device {ms3 * 1e3:.2f} us, "
-              f"plain {plain3 * 1e3:.1f} us, cdist+min {lib3 * 1e3:.1f} us, bound {b3[0] * 1e3:.4f} us ({b3[1]})",
-              flush=True)
-    a = problems(1)
-    src1, tgt1, tv1 = a[0], a[2], a[3]
-    d_k, i_k = nn_argmin(src1, tgt1, tv1)
-    d_p, i_p = nn_argmin_plain(src1, tgt1, tv1)
-    _require(torch.equal(i_k, i_p) and torch.equal(d_k, d_p), "K3 512x24576: kernel differs from the plain version")
+        print(f"[3] K3 nn_argmin B={count} {n}x{n} with ties: equal to the plain version, every layout the same bits; "
+              f"layout {picked} device {ms3 * 1e3:.2f} us, plain {plain3 * 1e3:.1f} us, cdist+min {lib3 * 1e3:.1f} us, "
+              f"bound {b3[0] * 1e3:.4f} us ({b3[1]}); us per layout (lanes x cluster): {layouts}", flush=True)
+    # the rescue's shape: map points duplicated T/2 apart, so ties straddle the cluster's slices
+    half = map_points_along(segs, cap // 2, np.random.default_rng(11))
+    tgt1 = f32(np.concatenate([half, half])[None])
+    tv1 = torch.tensor(np.random.default_rng(12).random((1, cap)) < n_map / cap, device=dev)
+    src1 = problems(1)[0]
+    picked, layouts = k3_layouts(f"{n}x{cap}", src1, tgt1, tv1)
     ms3r = _device_ms(torch, lambda: nn_argmin(src1, tgt1, tv1), 50)
     plain3r = _device_ms(torch, lambda: nn_argmin_plain(src1, tgt1, tv1), 10)
     lib3r = _device_ms(torch, lambda: torch.cdist(src1, tgt1).min(2), 50)
-    b3r = _bound(6.0 * n * n_map, n * 8 + cap * 9 + n * 8)
+    nv = int(tv1.sum())
+    b3r = _bound(6.0 * n * nv, n * 8 + cap * 9 + n * 8)
     batched["nn_argmin_rescue"] = dict(ms=ms3r, plain_ms=plain3r, library_ms=lib3r, bound_ms=b3r[0])
-    print(f"[3] K3 nn_argmin {n}x{cap} (the rescue's shape): equal to the plain version; device {ms3r * 1e3:.2f} us, "
-          f"plain {plain3r * 1e3:.1f} us, cdist+min {lib3r * 1e3:.1f} us, bound {b3r[0] * 1e3:.3f} us ({b3r[1]})",
-          flush=True)
+    _require(ms3r < lib3r, f"K3 {n}x{cap}: {ms3r * 1e3:.2f} us, not below cdist+min's {lib3r * 1e3:.2f} us")
+    print(f"[3] K3 nn_argmin {n}x{cap} (the rescue's shape, {nv} valid, duplicated {cap // 2} apart): equal to the plain "
+          f"version, every layout the same bits; layout {picked} device {ms3r * 1e3:.2f} us, plain {plain3r * 1e3:.1f} us, "
+          f"cdist+min {lib3r * 1e3:.1f} us, bound {b3r[0] * 1e3:.3f} us ({b3r[1]}); us per layout (lanes x cluster): "
+          f"{layouts}", flush=True)
     return k4_row, batched
 
 
@@ -990,8 +1061,10 @@ def presets(offline_cfg, realtime_cfg) -> dict:
     sequences with garbage scans; the rescue runs on every scan its first
     pass rejects, and under ``realtime`` twelve garbage scans in a row
     trigger the reseed.  The rescue's runs are counted from K3's launches:
-    each run makes ``max_iterations + 1`` of them.  Then ``gicp()`` on one
-    pair, card against CPU.  Returns the launch counts, summed."""
+    each run makes ``max_iterations + 1`` of them.  Each preset's steps on
+    the good scans before the garbage are profiled too (device time, launches
+    and busy share a step).  Then ``gicp()`` on one pair, card against CPU.
+    Returns the launch counts, summed (over the checked runs)."""
     import torch
 
     import icp_slam_yolo_tpu_torch as port
@@ -1020,6 +1093,9 @@ def presets(offline_cfg, realtime_cfg) -> dict:
           f"{acc[~forced[1:]].mean():.3f}; launches {launches}", flush=True)
     for k in total:
         total[k] += launches[k]
+    # a step's device time and busy share on the good scans before the garbage (no rescue)
+    print(f"[6] offline, the first 19 steps profiled: "
+          f"{profile_window(torch, lambda: port.Slam(cfg).run(scans[:20]), 19)}", flush=True)
 
     # realtime: 12 garbage scans in a row (reseed_after_rejects is 10), fed one by one
     cfg = realtime_cfg
@@ -1053,6 +1129,14 @@ def presets(offline_cfg, realtime_cfg) -> dict:
           f"and the recovery {acc[~recovering[1:]].mean():.3f}; launches {launches}", flush=True)
     for k in total:
         total[k] += launches[k]
+
+    def feed(n):
+        fresh = port.Slam(cfg)
+        for scan in scans[:n]:
+            fresh.add_scan(scan)
+
+    print(f"[6] realtime, the first 24 steps profiled (fed one by one): {profile_window(torch, lambda: feed(25), 24)}",
+          flush=True)
 
     pair, _ = synthetic_sequence(2, seed=13)
     from icp_slam_yolo_tpu_torch.ops import geometry as geo
@@ -1583,7 +1667,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _lib.lib()
     print(f"[2] built kernels in {time.perf_counter() - t0:.1f} s", flush=True)
-    for source in _lib.FUSED_MULTIPLY_ADD:  # the conv kernels' resources, from `ptxas -v`
+    for source in _lib.SOURCES:  # every kernel's resources, from `ptxas -v`
         for kernel, regs, spill_st, spill_ld, smem in _lib.ptxas_summary(source):
             print(f"[2] {source} {_kernel_name(kernel)}: {regs} registers, {smem} bytes static shared memory, spills "
                   f"{spill_st} bytes stored / {spill_ld} loaded", flush=True)

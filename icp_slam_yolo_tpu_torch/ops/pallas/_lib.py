@@ -21,7 +21,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 SOURCES = ("nn.cu", "raster.cu", "icp.cu", "conv.cu", "c2f.cu")
-HEADERS = ("conv_common.cuh",)
+HEADERS = ("conv_common.cuh", "nn_common.cuh")
 # -fmad=false: products and sums round as the plain PyTorch versions' separate
 # operations do, so a kernel can be held to its plain version tightly
 NVCC_FLAGS = (
@@ -29,26 +29,28 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xcompiler", "-fPIC",
 )
 # the conv kernels sum in another order than any library does, so nothing is
-# gained by splitting their multiply-adds: they keep the compiler's fused ones;
-# their builds report registers, shared memory and spills (`ptxas -v`)
+# gained by splitting their multiply-adds: they keep the compiler's fused ones
 FUSED_MULTIPLY_ADD = ("conv.cu", "c2f.cu")
+# every build reports registers, shared memory and spills (`ptxas -v`)
 VERBOSE_PTXAS = ("-Xptxas", "-v")
 
 
 def _flags(name: str) -> tuple:
     if name in FUSED_MULTIPLY_ADD:
         return tuple(f for f in NVCC_FLAGS if f != "-fmad=false") + VERBOSE_PTXAS
-    return NVCC_FLAGS
+    return NVCC_FLAGS + VERBOSE_PTXAS
 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "slam_nn_argmin": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "slam_nn_argmin": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "slam_raster_update": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P, _P],
     "slam_raster_update_grid": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P, _P],
-    "slam_icp_fused": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _F, _F, _I, _P, _P, _P, _P, _P, _P],
+    "slam_icp_fused": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _F, _F, _I, _I, _I, _I] + [_P] * 8,
+    "slam_icp_blocks_per_sm": [_I, _P],
+    "slam_icp_clusters": [_I, _I, _P],
     "slam_conv_bias_act": [_P] * 4 + [_I] * 14 + [_P],
     "slam_c2f_smem_bytes": [_I] * 5,
     "slam_c2f_fused": [_P] * 10 + [_I] * 11 + [_P],
@@ -156,6 +158,22 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = lib().slam_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+_SM_COUNT = {}
+
+
+def sm_count(dev) -> int:
+    """SMs of the card a tensor is on (the H100's 132 for a CPU tensor, so
+    the CPU tests see the plans the card gets)."""
+    import torch
+
+    if dev.type != "cuda":
+        return 132
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SM_COUNT[idx]
 
 
 def stream_ptr(device) -> int:

@@ -181,7 +181,7 @@ def c2f_fused(x, w1, b1, wm1, bm1, wm2, bm2, w2, b2, shortcut: bool = True, tile
     for name, t, n in (("b1", b1, 2 * c), ("bm1", bm1, c), ("bm2", bm2, c), ("b2", b2, feat)):
         pallas.check_tensor(t, name, torch.float32, (n,), dev)
     bf16 = dt == torch.bfloat16
-    plan = c2f_plan(bsz, h, wd, cin, c, feat, bf16, conv_fused.sm_count(dev), tile, cluster, vec)
+    plan = c2f_plan(bsz, h, wd, cin, c, feat, bf16, _lib.sm_count(dev), tile, cluster, vec)
     if dev.type == "cpu":
         return c2f_fused_plain(x, w1, b1, wm1, bm1, wm2, bm2, w2, b2, shortcut)
     if dev.type != "cuda":

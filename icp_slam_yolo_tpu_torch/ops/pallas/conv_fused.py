@@ -151,20 +151,6 @@ def use_kernels(batch: int, h: int) -> bool:
     return True
 
 
-_SM_COUNT = {}
-
-
-def sm_count(dev) -> int:
-    """SMs of the card a tensor is on (the H100's 132 for a CPU tensor, so
-    the CPU tests see the plans the card gets)."""
-    if dev.type != "cuda":
-        return 132
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _SM_COUNT:
-        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SM_COUNT[idx]
-
-
 def conv_bias_act_plain(x, w, b, stride: int = 1, act: bool = True):
     """Plain version of K5-K7: ``x (B, H, W, Cin)``, ``w (k, k, Cin, Cout)``
     HWIO, ``b (Cout,)`` -> ``(B, Ho, Wo, Cout)`` in ``x.dtype``; padding
@@ -190,7 +176,7 @@ def _conv(name: str, x, w, b, stride: int, act: bool, vec: bool | None = None, s
     if stride == 2 and (h % 2 or wd % 2):
         raise ValueError(f"{name}: stride 2 needs even H and W, got {h} x {wd}")
     bf16 = dt == torch.bfloat16
-    plan = conv_plan(bsz, h // stride, wd // stride, cin, cout, k, bf16, sm_count(dev), vec, split, wgmma)
+    plan = conv_plan(bsz, h // stride, wd // stride, cin, cout, k, bf16, _lib.sm_count(dev), vec, split, wgmma)
     if dev.type == "cpu":
         return conv_bias_act_plain(x, w, b, stride, act)
     if dev.type != "cuda":

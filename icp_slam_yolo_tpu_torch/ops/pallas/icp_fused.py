@@ -3,20 +3,28 @@ independent registrations (the fleet's robot axis) in one launch.
 
 Counterpart of the JAX package's ``icp_fused_pallas`` and its batched core
 ``_fused_batched`` (``ops/pallas/icp_fused.py``).  The CUDA kernel is
-``csrc/icp.cu``: one cooperative launch whose blocks are shared out among the
-registrations, share each iteration's nearest-neighbour sweep, and end each
-registration on the device at its own convergence; its source says what
-bounds it and how it is laid out.  A registration's result does not depend on
-the others in its launch: the kernel gives the same bits for it alone.
+``csrc/icp.cu``: one launch in which each registration has its own blocks
+(`icp_plan` says how many and how they meet), its targets held in their shared
+memory for the whole launch, one barrier among them an iteration, and its own
+end at its convergence; its source says what bounds it and how it is laid
+out.  A registration's result does not depend on the plan or on the others in
+its launch: the kernel gives the same bits for it alone.
 
 Both versions work per registration in the frame recentred on the
 valid-target centroid (the moments are accumulated uncentred in f32, so this
-keeps them well conditioned) and carry the rotation as (cos, sin).  Output of
-both, before `_finish`: ``(B, 8)`` rows ``[tx, ty, cos, sin, rmse, n_inliers,
-n_iters, 0]`` with rmse ``1e30`` when no inlier survives.
+keeps them well conditioned; the centroid is summed in float64) and carry the
+rotation as (cos, sin).  The kernel recentres, and maps its result back,
+inside its one launch; the plain version takes the problem recentred by
+`_prepare` and returns ``(B, 8)`` rows ``[tx, ty, cos, sin, rmse,
+n_inliers, n_iters, 0]`` (rmse ``1e30`` when no inlier survives) for
+`_finish`.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -25,12 +33,123 @@ from icp_slam_yolo_tpu_torch.ops.pallas import _lib
 from icp_slam_yolo_tpu_torch.ops.pallas.nn_kernel import nn_argmin_plain
 
 _BIG = 1e30
-_TILE = 256  # targets per work item in csrc/icp.cu (partials are per tile)
+MIN_TARGETS = 64  # valid targets a block keeps at least, so a slice is worth its barrier arrival
+ROWS_A_PASS = 128  # live rows a block sweeps at once (csrc/icp.cu kRowsPass)
+MAX_ROW_GROUPS = 4
+MAX_CLUSTER = 16  # blocks of a thread-block cluster (16 is the card's non-portable size)
+CLUSTER_FROM = 16  # registrations from which each gets one cluster in place of a share of the grid
+CLUSTER = ((2, 8), (2, 4), (1, 4), (1, 2))  # (row runs, target runs) of a cluster, the first that fits
+KEY_BUFFERS = 3  # csrc/icp.cu rotates the per-row keys over three buffers
+BAR_WORDS = 32  # barrier words per registration in csrc/icp.cu
+
+
+class Card(NamedTuple):
+    """What the plan needs to know of a card for K1."""
+    sms: int
+    blocks_per_sm: Callable[[int], int]  # K1 blocks a multiprocessor holds with this much dynamic shared memory
+    clusters: Callable[[int, int], int]  # clusters of this many such blocks the card runs at once
+
+
+class IcpPlan(NamedTuple):
+    row_groups: int  # a registration's live rows split into this many runs
+    slices: int  # its valid targets split into this many runs
+    cluster: bool  # its row_groups x slices blocks are one thread-block cluster
+    smem: int  # dynamic shared memory a block takes (bytes)
+
+
+def smem_bytes(s: int, t: int, slices: int) -> int:
+    """Dynamic shared memory of a K1 block (``csrc/icp.cu`` `smem_bytes`):
+    the sources and live-row list (12 bytes a row) and the block's share of
+    the targets with their indices (12 bytes a target)."""
+    return 12 * (s + max(1, -(-t // slices)))
+
+
+def plan_fits(b: int, s: int, t: int, card: Card, row_groups: int, slices: int, cluster: bool) -> bool:
+    """Whether the layout launches: in the grid layout every block of the
+    ``b`` registrations must be resident at once (the barriers need it); in
+    the cluster layout one registration's blocks must fit as a cluster."""
+    smem = smem_bytes(s, t, slices)
+    if cluster:
+        return row_groups * slices <= MAX_CLUSTER and card.clusters(row_groups * slices, smem) > 0
+    per_sm = card.blocks_per_sm(smem)
+    return per_sm > 0 and b * row_groups * slices <= card.sms * per_sm
+
+
+def icp_plan(b: int, s: int, t: int, card: Card, *, row_groups: int | None = None,
+             slices: int | None = None, cluster: bool | None = None) -> IcpPlan:
+    """How ``b`` registrations of ``s`` source and ``t`` target slots share
+    the card.
+
+    Below `CLUSTER_FROM` registrations, the grid layout: the registrations
+    share about two blocks a multiprocessor (one, for a single one: more only
+    add barrier arrivals and key atomics), each registration's live rows
+    split into runs of at most `ROWS_A_PASS` where its blocks allow (one
+    sweep pass a block), its targets into runs of at least `MIN_TARGETS`; the
+    split is cut until every block is resident.  From `CLUSTER_FROM` on, each
+    registration is one cluster of `CLUSTER` blocks (rows in 2 runs, targets
+    in 8), and the clusters take the card in turn as registrations finish.
+    Raises when nothing fits.  ``row_groups``/``slices``/``cluster`` force a
+    layout (raising if it does not fit); every layout gives the same bits.
+    """
+    def plan(rg, sl, cl):
+        return IcpPlan(rg, sl, cl, smem_bytes(s, t, sl))
+
+    if row_groups is not None or slices is not None or cluster is not None:
+        rg, sl, cl = row_groups or 1, slices or 1, bool(cluster)
+        if not plan_fits(b, s, t, card, rg, sl, cl):
+            raise ValueError(f"icp_plan: {b} registrations x {rg} x {sl} blocks (cluster {cl}) do not fit on the card")
+        return plan(rg, sl, cl)
+    most_slices = max(1, -(-t // MIN_TARGETS))
+    if b >= CLUSTER_FROM:
+        for rg, sl in CLUSTER:
+            if plan_fits(b, s, t, card, rg, min(sl, most_slices), True):
+                return plan(rg, min(sl, most_slices), True)
+    goal = max(1, min(card.sms, 2 * card.sms // b))
+    for bpr in range(goal, 0, -1):
+        most_groups = max(1, min(bpr, MAX_ROW_GROUPS, -(-s // ROWS_A_PASS)))
+        for rg in (4, 2, 1):
+            if rg > most_groups:
+                continue
+            sl = min(bpr // rg, most_slices)
+            if plan_fits(b, s, t, card, rg, sl, False):
+                return plan(rg, sl, False)
+    raise ValueError(f"icp_plan: {b} registrations of {t} targets do not fit in the card's shared memory "
+                     "(each needs at least one resident block)")
+
+
+@functools.lru_cache(maxsize=None)
+def _card_blocks_per_sm(smem: int) -> int:
+    out = ctypes.c_int(0)
+    _lib.check(_lib.lib().slam_icp_blocks_per_sm(smem, ctypes.byref(out)), "icp_fused occupancy")
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def _card_clusters(blocks: int, smem: int) -> int:
+    out = ctypes.c_int(0)
+    _lib.check(_lib.lib().slam_icp_clusters(blocks, smem, ctypes.byref(out)), "icp_fused cluster occupancy")
+    return out.value
+
+
+def card(dev) -> Card:
+    """The card a CUDA tensor is on, as the plan sees it (the CUDA occupancy
+    calculator)."""
+    return Card(_lib.sm_count(dev), _card_blocks_per_sm, _card_clusters)
+
+
+_cached_plan = functools.lru_cache(maxsize=None)(icp_plan)
+
+
+def card_plan(b: int, s: int, t: int, dev, **layout) -> IcpPlan:
+    """`icp_plan` on the card of ``dev`` (cached: a step asks the same each
+    time); ``layout`` as `icp_plan` takes it."""
+    return _cached_plan(b, s, t, card(dev), **layout)
 
 
 def _prepare(tgt_xy, tgt_valid, init_pose):
     """Recentre each registration on its valid-target centroid: ``(params
-    (B, 4) [x, y, cos, sin], recentred targets (B, T, 2), centroids (B, 2))``."""
+    (B, 4) [x, y, cos, sin], recentred targets (B, T, 2), centroids (B, 2))``
+    (the kernel does the same inside its launch)."""
     # summed in float64: the rounded centroid, and with it the whole
     # registration, must not depend on how the reduction is split, which
     # changes with the number of registrations in the call
@@ -142,7 +261,8 @@ def icp_fused_plain(src_xy, src_valid, tgt_xy, tgt_valid, params, *, iters: int,
 
 
 def icp_fused(src_xy, src_valid, tgt_xy, tgt_valid, init_pose, *, iters: int = 50,
-              threshold_mm: float = 200.0, tolerance: float = 1e-5, anderson: bool = False):
+              threshold_mm: float = 200.0, tolerance: float = 1e-5, anderson: bool = False,
+              row_groups: int | None = None, slices: int | None = None, cluster: bool | None = None):
     """Gated point-to-point ICP of ``src`` onto ``tgt`` from ``init_pose``.
 
     ``(B, S, 2) f32, (B, S) bool, (B, T, 2) f32, (B, T) bool, (B, 3) f32`` ->
@@ -150,9 +270,10 @@ def icp_fused(src_xy, src_valid, tgt_xy, tgt_valid, init_pose, *, iters: int = 5
     rmse ``inf`` with no inlier; ``B`` registrations in ONE launch, each
     ending at its own convergence.  Degenerate inputs (too few points) are
     the caller's job.
-    Launches the CUDA kernel for CUDA tensors (and raises when ``B`` exceeds
-    the blocks the card holds resident); the plain version runs only for CPU
-    tensors.
+    Launches the CUDA kernel for CUDA tensors, in the layout `icp_plan`
+    picks unless ``row_groups``, ``slices`` or ``cluster`` force one (it
+    raises when the layout does not fit on the card); the plain version runs
+    only for CPU tensors.
     """
     dev = src_xy.device
     b, s, t = src_xy.shape[0], src_xy.shape[1], tgt_xy.shape[-2]
@@ -161,25 +282,28 @@ def icp_fused(src_xy, src_valid, tgt_xy, tgt_valid, init_pose, *, iters: int = 5
     pallas.check_tensor(tgt_xy, "tgt_xy", torch.float32, (b, t, 2), dev)
     pallas.check_tensor(tgt_valid, "tgt_valid", torch.bool, (b, t), dev)
     pallas.check_tensor(init_pose, "init_pose", torch.float32, (b, 3), dev)
-    params, tgt_c, c = _prepare(tgt_xy, tgt_valid, init_pose)
     thr2 = float(threshold_mm) ** 2
     if dev.type == "cpu":
+        params, tgt_c, c = _prepare(tgt_xy, tgt_valid, init_pose)
         out = icp_fused_plain(src_xy, src_valid, tgt_c, tgt_valid, params, iters=int(iters),
                               thr2=thr2, tolerance=float(tolerance), anderson=bool(anderson))
         return _finish(out, c)
     if dev.type != "cuda":
         raise ValueError(f"icp_fused: unsupported device {dev}")
-    n_slices = -(-t // _TILE)
-    part_d2 = torch.empty((b, n_slices, s), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((b, n_slices, s), dtype=torch.int32, device=dev)
-    row_m = torch.empty((b, s, 8), dtype=torch.float32, device=dev)
-    finishing = torch.empty(b, dtype=torch.int32, device=dev)
-    out = torch.empty((b, 8), dtype=torch.float32, device=dev)
+    plan = card_plan(b, s, t, dev, row_groups=row_groups, slices=slices, cluster=cluster)
+    keys = torch.empty((KEY_BUFFERS, b, s), dtype=torch.int64, device=dev)
+    bar = torch.empty((b, BAR_WORDS), dtype=torch.int32, device=dev)
+    centre = torch.empty((b, 4), dtype=torch.float32, device=dev)
+    pose = torch.empty((b, 3), dtype=torch.float32, device=dev)
+    rmse = torch.empty(b, dtype=torch.float32, device=dev)
+    n_in = torch.empty(b, dtype=torch.int32, device=dev)
+    n_iters = torch.empty(b, dtype=torch.int32, device=dev)
     err = _lib.lib().slam_icp_fused(
-        src_xy.data_ptr(), src_valid.data_ptr(), b, s, tgt_c.data_ptr(), tgt_valid.data_ptr(), t,
-        params.data_ptr(), int(iters), thr2, float(tolerance), int(bool(anderson)),
-        part_d2.data_ptr(), part_idx.data_ptr(), row_m.data_ptr(), finishing.data_ptr(), out.data_ptr(), _lib.stream_ptr(dev),
+        src_xy.data_ptr(), src_valid.data_ptr(), b, s, tgt_xy.data_ptr(), tgt_valid.data_ptr(), t,
+        init_pose.data_ptr(), int(iters), thr2, float(tolerance), int(bool(anderson)),
+        plan.row_groups, plan.slices, int(plan.cluster), keys.data_ptr(), bar.data_ptr(), centre.data_ptr(),
+        pose.data_ptr(), rmse.data_ptr(), n_in.data_ptr(), n_iters.data_ptr(), _lib.stream_ptr(dev),
     )
     _lib.check(err, "icp_fused")
     pallas.LAUNCHES["icp_fused"] += 1
-    return _finish(out, c)
+    return pose, rmse, n_in, n_iters

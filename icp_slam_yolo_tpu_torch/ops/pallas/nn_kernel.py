@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``nn_argmin_pallas``
 (``ops/pallas/nn_kernel.py``).  The CUDA kernel is ``csrc/nn.cu``; its source
-says what bounds it and how it is laid out.
+says what bounds it and how it is laid out.  `nn_plan` picks its layout from
+the shape; every layout gives the same bits.
 """
 
 from __future__ import annotations
@@ -13,6 +14,28 @@ from icp_slam_yolo_tpu_torch.ops import pallas
 from icp_slam_yolo_tpu_torch.ops.pallas import _lib
 
 _BIG = 1e30
+LANES = (4, 16)  # source lanes a warp: a block owns 4 * lanes source points
+CLUSTERS = (1, 2, 4, 8)
+MIN_SLICE = 2048  # targets a cluster rank keeps at least: below that a split only adds a merge
+
+
+def nn_plan(b: int, s: int, t: int, sms: int) -> tuple[int, int]:
+    """``(lanes, cluster)`` for ``b`` problems of ``s`` sources and ``t``
+    targets on a card with ``sms`` multiprocessors.
+
+    The large source tile (64 points a block) where it alone gives every
+    multiprocessor a block; otherwise the small one (16), and the targets
+    split over a cluster of up to 8 blocks while the grid is below one block
+    a multiprocessor and each block keeps at least `MIN_SLICE` targets.  So
+    the step's 512 x 512 (one problem or eight) is never split, and the
+    rescue's 512 x 24576 is split 8 ways.
+    """
+    if b * -(-s // 64) >= sms:
+        return 16, 1
+    blocks, cluster = b * -(-s // 16), 1
+    while cluster < CLUSTERS[-1] and blocks * cluster < sms and t // (2 * cluster) >= MIN_SLICE:
+        cluster *= 2
+    return 4, cluster
 
 
 def nn_argmin_plain(src_xy: torch.Tensor, tgt_xy: torch.Tensor, tgt_valid: torch.Tensor):
@@ -27,11 +50,13 @@ def nn_argmin_plain(src_xy: torch.Tensor, tgt_xy: torch.Tensor, tgt_valid: torch
     return torch.gather(d2, -1, idx[..., None])[..., 0], idx.to(torch.int32)
 
 
-def nn_argmin(src_xy: torch.Tensor, tgt_xy: torch.Tensor, tgt_valid: torch.Tensor):
+def nn_argmin(src_xy: torch.Tensor, tgt_xy: torch.Tensor, tgt_valid: torch.Tensor, *,
+              lanes: int | None = None, cluster: int | None = None):
     """``(B, S, 2) f32, (B, T, 2) f32, (B, T) bool -> ((B, S) f32 d², (B, S)
     int32)``: ``B`` independent problems in one launch.
 
-    Launches the CUDA kernel for CUDA tensors; the plain version runs only
+    Launches the CUDA kernel for CUDA tensors, in the layout `nn_plan` picks
+    unless ``lanes`` or ``cluster`` force one; the plain version runs only
     for CPU tensors.
     """
     dev = src_xy.device
@@ -43,10 +68,14 @@ def nn_argmin(src_xy: torch.Tensor, tgt_xy: torch.Tensor, tgt_valid: torch.Tenso
         return nn_argmin_plain(src_xy, tgt_xy, tgt_valid)
     if dev.type != "cuda":
         raise ValueError(f"nn_argmin: unsupported device {dev}")
+    plan_lanes, plan_cluster = nn_plan(b, s, t, _lib.sm_count(dev))
+    lanes, cluster = lanes or plan_lanes, cluster or plan_cluster
+    if lanes not in LANES or cluster not in CLUSTERS:
+        raise ValueError(f"nn_argmin: lanes {lanes} not in {LANES} or cluster {cluster} not in {CLUSTERS}")
     d2 = torch.empty((b, s), dtype=torch.float32, device=dev)
     idx = torch.empty((b, s), dtype=torch.int32, device=dev)
     err = _lib.lib().slam_nn_argmin(
-        src_xy.data_ptr(), tgt_xy.data_ptr(), tgt_valid.data_ptr(), b, s, t,
+        src_xy.data_ptr(), tgt_xy.data_ptr(), tgt_valid.data_ptr(), b, s, t, lanes, cluster,
         d2.data_ptr(), idx.data_ptr(), _lib.stream_ptr(dev),
     )
     _lib.check(err, "nn_argmin")
