@@ -16,9 +16,16 @@ non-zero; they run in the order 1-3, 7-9, 4-6, 10, see `main`):
      and every other K1 layout that fits forced and required to give the
      picked layout's bits; K3 at 512 x 512, B = 8, B = 64 and the rescue's
      512 x 24576 (targets duplicated T/2 apart, so ties straddle the
-     cluster's slices), every layout forced, each required bit-equal; then
-     again at small edge cases (ragged sizes, nothing valid, a window
-     clamped at the grid's corner);
+     cluster's slices), every layout forced, each required bit-equal; K2
+     and K4 each one device launch a call (one kernel event a call in their
+     profiles), both layouts `raster_plan` can take (512 or 1024 threads a
+     block) forced and
+     required to give the same bits, K2's bound printed for its window alone
+     and with the new grid it writes; then again at small edge cases (ragged
+     sizes, nothing valid, a window clamped at the grid's corner, K2 and K4
+     on a small window in both layouts and with 1100 rays a robot);
+  (every profiler window of phases 4-6 holds the raster kernels' event
+  counts equal to the wrappers' launch counts in the window;)
   4. the ``slice`` path: ``Slam(cfg).run(scans)`` at the full-width offline
      configuration without the GICP rescue over a seeded synthetic
      warehouse, with launch counters reset just before and read just after;
@@ -257,6 +264,54 @@ def _device_profile(torch, fn, reps: int) -> dict:
     return {e.key: e.self_device_time_total / e.count * -(-e.count // reps) / 1e3 for e in events}
 
 
+def _one_launch_ms(torch, fn, reps: int, what: str) -> float:
+    """Device time per call (ms) of a raster wrapper, which must be one device
+    launch: the profile of ``reps`` calls holds one kernel event a call and
+    nothing else (no fill, no second pass).  A trace that lost records is
+    taken once more."""
+    def calls():
+        for _ in range(reps):
+            fn()
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        events = _kernel_events(torch, _traced(torch, calls))
+        counts = {e.key[:60]: e.count for e in events}
+        if len(events) == 1 and "raster_kernel" in events[0].key and events[0].count == reps:
+            return events[0].self_device_time_total / reps / 1e3
+        print(f"    (profiler: {what}: events over {reps} calls {counts}; measuring again)", flush=True)
+    raise AssertionError(f"{what}: not one device launch a call: events over {reps} calls {counts}")
+
+
+RASTER_THREADS = (512, 1024)
+
+
+def raster_layouts(what: str, call, timed, reference, plan_args: tuple, reps: int) -> str:
+    """Every layout `raster_plan` can take at these shapes (threads a
+    block), forced: ``call(t)`` must give ``reference``'s bits;
+    ``timed(t)``, one launch, gives the device us of each.  Also holds the
+    plan's shared memory to the kernel's own count."""
+    import torch
+
+    from icp_slam_yolo_tpu_torch.ops.pallas import _lib, raster_fused as rf
+
+    times = []
+    for t in RASTER_THREADS:
+        try:
+            plan = rf.raster_plan(*plan_args, threads=t)
+        except ValueError:
+            continue
+        side_y, side_x = plan_args[3], plan_args[4]
+        _require(_lib.lib().slam_raster_smem_bytes(side_y, side_x, t) == plan.smem_bytes,
+                 f"{what}: raster_plan's shared memory differs from the kernel's at {t} threads")
+        _require(torch.equal(call(t), reference), f"{what}: {t} threads differ from the picked layout")
+        times.append(f"{t} threads ({plan.smem_bytes} bytes of shared memory) "
+                     f"{_one_launch_ms(torch, lambda: timed(t), reps, what) * 1e3:.2f} us")
+    _require(len(times) > 0, f"{what}: no layout fits")
+    return "; ".join(times)
+
+
 def _device_ms(torch, fn, reps: int) -> float:
     """Device time per call (ms), summed over the call's device events."""
     return sum(_device_profile(torch, fn, reps).values())
@@ -327,9 +382,17 @@ def check_quality(what: str, cfg, acc, rmse, poses, gt, state, forced_rejects=No
     return pos_err, ang_err
 
 
+RASTER_KERNELS = ("raster_update", "raster_update_grid")
+
+
 def profile_window(torch, fn, n_steps: int) -> str:
     """Run ``fn`` (``n_steps`` steps ending in a synchronise) under the
-    profiler and describe where the device time went."""
+    profiler and describe where the device time went.  The raster kernels'
+    device events must number the wrappers' launches in the window (one
+    device launch a call), so a lost profiler record shows."""
+    from icp_slam_yolo_tpu_torch.ops import pallas
+
+    before = dict(pallas.LAUNCHES)
     wall = []
 
     def timed():
@@ -341,6 +404,10 @@ def profile_window(torch, fn, n_steps: int) -> str:
     prof = _traced(torch, timed)
     wall = wall[0]
     avgs = sorted(_kernel_events(torch, prof), key=lambda e: -e.self_device_time_total)
+    raster_launches = sum(pallas.LAUNCHES[k] - before[k] for k in RASTER_KERNELS)
+    raster_events = sum(e.count for e in avgs if "raster_kernel" in e.key)
+    _require(raster_events == raster_launches,
+             f"profile window: {raster_events} raster kernel events for {raster_launches} raster launches")
     dev_us = sum(e.self_device_time_total for e in avgs)
     top = "; ".join(f"{e.key[:48]} {e.self_device_time_total / n_steps:.1f}" for e in avgs[:6])
     n_launch = sum(e.count for e in avgs)
@@ -349,7 +416,8 @@ def profile_window(torch, fn, n_steps: int) -> str:
     # sums when every count is a multiple of the steps)
     whole = sum(e.self_device_time_total / e.count * -(-e.count // n_steps) for e in avgs)
     short = sum(1 for e in avgs if e.count % n_steps)
-    return (f"device busy {dev_us / 1e6 / wall:.3f} of wall (profiler on), wall {wall / n_steps * 1e3:.2f} ms/step, "
+    return (f"raster events {raster_events} = raster launches {raster_launches}; "
+            f"device busy {dev_us / 1e6 / wall:.3f} of wall (profiler on), wall {wall / n_steps * 1e3:.2f} ms/step, "
             f"device {dev_us / n_steps:.1f} us/step, {n_launch / n_steps:.0f} device launches/step "
             f"({short} of {len(avgs)} kernel names with a count that is no multiple of the steps; with every name's "
             f"launches per step rounded up: {whole:.1f} us/step); top kernels us/step: {top}")
@@ -372,7 +440,13 @@ def check_kernels(cfg) -> dict:
     from icp_slam_yolo_tpu_torch.ops import geometry as geo
     from icp_slam_yolo_tpu_torch.ops.pallas.icp_fused import _finish, _prepare, icp_fused, icp_fused_plain
     from icp_slam_yolo_tpu_torch.ops.pallas.nn_kernel import nn_argmin, nn_argmin_plain
-    from icp_slam_yolo_tpu_torch.ops.pallas.raster_fused import raster_update, raster_update_plain
+    from icp_slam_yolo_tpu_torch.ops.pallas import _lib
+    from icp_slam_yolo_tpu_torch.ops.pallas.raster_fused import (
+        CLUSTER,
+        raster_plan,
+        raster_update,
+        raster_update_plain,
+    )
     from icp_slam_yolo_tpu_torch.ops.raster import window_dims, world_to_px
     from icp_slam_yolo_tpu_torch.ops.voxel import voxel_downsample
 
@@ -487,28 +561,30 @@ def check_kernels(cfg) -> dict:
     changed = int(((g_p - occ).abs() > 0).sum())
     _require(changed > 0 and float(g_k[0, h // 2, w // 2 + 50]) == 0.5,
              "K2: the wall did not shadow the cells behind it")
-    prof2 = _device_profile(torch, lambda: raster_update(*args2, accept, **kw2), 200)
-    ms2 = sum(prof2.values())
+    plan2 = raster_plan(1, h, w, side_y, side_x, n, kw2["k"])
+    ms2 = _one_launch_ms(torch, lambda: raster_update(*args2, accept, **kw2), 200, "K2")
+    k2_forced = lambda t: raster_update(*args2, accept, **kw2, threads=t)  # noqa: E731
+    layouts2 = raster_layouts("K2", k2_forced, k2_forced, g_k, (1, h, w, side_y, side_x, n, kw2["k"]), 100)
     plain2 = _device_ms(torch, lambda: raster_update_plain(*args2, accept, **kw2), 20)
-    # what the step paid before K2 took the accept flag: a clone of the grid
-    # for the kernel's output and a select over the grid on accept
-    other = occ + 0.0
-    clone_ms = _device_ms(torch, lambda: occ.clone(), 200)
-    select_ms = _device_ms(torch, lambda: torch.where(accept, occ, other), 200)
     n_rays = int((live & inwin).sum())
     visits = n_rays * (win + 1)
-    # the work the function needs: the window read and written once, the rays
-    # and the flag; the full-grid copy is the wrapper's own overhead
-    b2 = _bound(12.0 * visits + 20.0 * side_y * side_x, 2 * 4 * side_y * side_x + n * 9 + 16 + 1)
+    # the work the function needs: the window read and written once, the
+    # rays and the flag (the kernels line's bound, as the TPU kernel writes
+    # the window alone); and as its contract has it here, with the new
+    # grid's every other cell read and written once
+    b2w = _bound(12.0 * visits + 20.0 * side_y * side_x, 2 * 4 * side_y * side_x + n * 9 + 16 + 1)
+    b2 = _bound(12.0 * visits + 20.0 * side_y * side_x, 2 * 4 * h * w + n * 9 + 16 + 1)
     kernels["raster_update"] = dict(
         name="raster_update", route="cuda", source="icp_slam_yolo_tpu_torch/csrc/raster.cu",
         replaces="icp_slam_yolo_tpu/ops/pallas/raster_fused.py:352", max_abs_err=err2,
-        ms=ms2, plain_ms=plain2, bound_ms=b2[0], bound_by=b2[1], library_ms=None)
-    parts = ", ".join(f"{k[:40]} {v * 1e3:.2f}" for k, v in sorted(prof2.items(), key=lambda kv: -kv[1]))
-    print(f"[3] K2 raster_update {n_rays} rays, window {side_y}x{side_x} of {h}x{w}: max err "
-          f"{err2:.2g} (tol 1e-6); device {ms2 * 1e3:.2f} us ({parts}), plain {plain2 * 1e3:.1f} us, "
-          f"bound {b2[0] * 1e3:.3f} us; a full-grid clone {clone_ms * 1e3:.2f} us and select "
-          f"{select_ms * 1e3:.2f} us (what the step no longer runs)", flush=True)
+        ms=ms2, plain_ms=plain2, bound_ms=b2w[0], bound_by=b2w[1], library_ms=None)
+    print(f"[3] K2 raster_update {n_rays} rays, window {side_y}x{side_x} of {h}x{w}: max err {err2:.2g} (tol 1e-6); "
+          f"one launch a call, clusters of {CLUSTER} x {plan2.threads} threads ({plan2.copy_clusters} copying "
+          f"clusters of {_lib.sm_count(dev)} SMs, {plan2.smem_bytes} bytes of shared memory a block): device "
+          f"{ms2 * 1e3:.2f} us, plain {plain2 * 1e3:.1f} us; bound {b2w[0] * 1e3:.3f} us for the window alone, "
+          f"{b2[0] * 1e3:.3f} us with the new grid's other cells ({b2w[1]}, {b2[1]}); every layout, same bits: "
+          f"{layouts2}",
+          flush=True)
 
     return kernels
 
@@ -519,15 +595,19 @@ def check_edge_cases(cfg) -> int:
     target counts, no valid target, no live source row, Anderson(1), a
     single ray, no ray, a window clamped at the grid's corner, and a
     rejected scan (accept false) that must leave the grid as it was; K4 on
-    the same grid (833 x 1000, not tile-shaped) must give K2's values.
+    the same grid (833 x 1000, not tile-shaped) must give K2's values; K2
+    and K4 on a small window in both layouts, each the same bits, and with
+    1100 rays a robot (three groups of rays).
     Returns the number of cases."""
     import torch
 
     from icp_slam_yolo_tpu_torch.ops.pallas.icp_fused import _finish, _prepare, icp_fused, icp_fused_plain
     from icp_slam_yolo_tpu_torch.ops.pallas.nn_kernel import nn_argmin, nn_argmin_plain
     from icp_slam_yolo_tpu_torch.ops.pallas.raster_fused import (
+        raster_plan,
         raster_update,
         raster_update_grid,
+        raster_update_grid_plain,
         raster_update_plain,
     )
     from icp_slam_yolo_tpu_torch.ops.raster import window_dims
@@ -596,6 +676,50 @@ def check_edge_cases(cfg) -> int:
             _require(torch.equal(raster_update_grid(occ.clone(), meta, ey, ex, live, acc, **kw2), g_k),
                      f"K4 on the {h}x{w} grid differs from K2 ({n} rays, robot cell ({ry}, {rx}), accept {acc})")
             n_cases += 1
+    # both layouts on a small window: two robots on 100 x 122 grids (rows not 16-byte aligned: 4-byte
+    # copies), the second off the grid, 64 x 64 windows, 30 samples
+    hs, ws, side_s, win_s, n_s = 100, 122, 64, 26, 200
+    occ_s = f32(np.where(rng.random((2, hs, ws)) < 0.05, 0.9, rng.uniform(0.2, 0.6, (2, hs, ws))))
+    meta_s, eys, exs = [], [], []
+    for ry, rx in ((50, 60), (-2, 118)):
+        y0, x0 = min(max(ry - win_s, 0), hs - side_s), min(max(rx - win_s, 0), ws - side_s)
+        meta_s.append([y0, x0, ry - y0, rx - x0])
+        eys.append(rng.integers(max(ry - win_s, 0), min(ry + win_s, hs), n_s) - y0)
+        exs.append(rng.integers(max(rx - win_s, 0), min(rx + win_s, ws), n_s) - x0)
+    args_s = (torch.tensor(meta_s, dtype=torch.int32, device=dev),
+              torch.tensor(np.array(eys), dtype=torch.int32, device=dev),
+              torch.tensor(np.array(exs), dtype=torch.int32, device=dev), mask(rng.random((2, n_s)) < 0.9),
+              mask([True, True]))
+    kw_s = dict(kw2, side_y=side_s, side_x=side_s, k=30)
+    g2 = raster_update(occ_s, *args_s, **kw_s)
+    g4 = raster_update_grid(occ_s.clone(), *args_s, **kw_s)
+    err = float((g2 - raster_update_plain(occ_s, *args_s, **kw_s)).abs().max())
+    _require(err <= 1e-6 and torch.equal(g4, raster_update_grid_plain(occ_s.clone(), *args_s, **kw_s)),
+             f"K2/K4 on a {side_s}x{side_s} window: K2 error {err}, or K4 differs from its plain version")
+    layouts = []
+    for t in RASTER_THREADS:
+        try:
+            raster_plan(2, hs, ws, side_s, side_s, n_s, 30, threads=t)
+        except ValueError:
+            continue
+        _require(torch.equal(raster_update(occ_s, *args_s, **kw_s, threads=t), g2)
+                 and torch.equal(raster_update_grid(occ_s.clone(), *args_s, **kw_s, threads=t), g4),
+                 f"K2/K4 on a {side_s}x{side_s} window: {t} threads differ from the picked layout")
+        layouts.append(t)
+    _require(len(layouts) == len(RASTER_THREADS), f"K2/K4 on a {side_s}x{side_s} window: layouts that fit {layouts}")
+    n_cases += 1
+    # more rays than a block holds at a time (512): the rays go in three groups, in both thread counts
+    n_l = 1100
+    args_l = (args_s[0], torch.tensor(rng.integers(0, side_s, (2, n_l)), dtype=torch.int32, device=dev),
+              torch.tensor(rng.integers(0, side_s, (2, n_l)), dtype=torch.int32, device=dev),
+              mask(rng.random((2, n_l)) < 0.9), args_s[4])
+    for t in RASTER_THREADS:
+        g2 = raster_update(occ_s, *args_l, **kw_s, threads=t)
+        err = float((g2 - raster_update_plain(occ_s, *args_l, **kw_s)).abs().max())
+        _require(err <= 1e-6 and torch.equal(raster_update_grid(occ_s.clone(), *args_l, **kw_s, threads=t),
+                                             raster_update_grid_plain(occ_s.clone(), *args_l, **kw_s)),
+                 f"K2/K4 with {n_l} rays a robot, {t} threads: K2 error {err}, or K4 differs from its plain version")
+        n_cases += 1
     torch.cuda.synchronize()
     print(f"[3] edge cases: {n_cases} cases, every kernel equal to its plain version within the "
           f"tolerances above", flush=True)
@@ -722,8 +846,14 @@ def check_batched_kernels(cfg) -> tuple[dict, dict]:
         icp_fused_plain,
         plan_fits,
     )
+    from icp_slam_yolo_tpu_torch.ops.pallas import _lib
     from icp_slam_yolo_tpu_torch.ops.pallas.nn_kernel import nn_argmin, nn_argmin_plain
-    from icp_slam_yolo_tpu_torch.ops.pallas.raster_fused import raster_update_grid, raster_update_grid_plain
+    from icp_slam_yolo_tpu_torch.ops.pallas.raster_fused import (
+        CLUSTER,
+        raster_plan,
+        raster_update_grid,
+        raster_update_grid_plain,
+    )
     from icp_slam_yolo_tpu_torch.ops.raster import window_dims
 
     dev = torch.device("cuda")
@@ -771,8 +901,13 @@ def check_batched_kernels(cfg) -> tuple[dict, dict]:
         _require(torch.equal(g, raster_update_grid_plain(occ.clone(), meta, ey, ex, live, acc, **kw4)),
                  "K4: differs from the plain version without flags / with all flags false")
     work = occ.clone()
-    prof4 = _device_profile(torch, lambda: raster_update_grid(work, meta, ey, ex, live, accept, **kw4), 100)
-    ms4 = sum(prof4.values())
+    ms4 = _one_launch_ms(torch, lambda: raster_update_grid(work, meta, ey, ex, live, accept, **kw4), 100, "K4 B=8")
+    layouts4 = raster_layouts(
+        "K4 B=8", lambda t: raster_update_grid(occ.clone(), meta, ey, ex, live, accept, **kw4, threads=t),
+        lambda t: raster_update_grid(work, meta, ey, ex, live, accept, **kw4, threads=t), g_k,
+        (b, h, w, side_y, side_x, n, kw4["k"]), 50)
+    plan4 = raster_plan(b, h, w, side_y, side_x, n, kw4["k"], in_place=True,
+                        capacity=_lib.lib().slam_raster_max_clusters(side_y, side_x, 1024))
     work_p = occ.clone()
     plain4 = _device_ms(torch, lambda: raster_update_grid_plain(work_p, meta, ey, ex, live, accept, **kw4), 10)
     def k4_bound(live_, accept_):
@@ -785,24 +920,36 @@ def check_batched_kernels(cfg) -> tuple[dict, dict]:
                                     active * 2 * 4 * side_y * side_x + live_.shape[0] * (n * 9 + 16 + 1))
 
     n_rays, n_active, b4 = k4_bound(live, accept)
-    parts = ", ".join(f"{k[:40]} {v * 1e3:.2f}" for k, v in sorted(prof4.items(), key=lambda kv: -kv[1]))
     k4_row = dict(
         name="raster_update_grid", route="cuda", source="icp_slam_yolo_tpu_torch/csrc/raster.cu",
         replaces="icp_slam_yolo_tpu/ops/pallas/raster_fused.py:482", max_abs_err=err4,
         ms=ms4, plain_ms=plain4, bound_ms=b4[0], bound_by=b4[1], library_ms=None)
     print(f"[3] K4 raster_update_grid B={b}, {n_rays} rays of {n_active} robots with work, windows {side_y}x{side_x} "
-          f"of {h}x{w}: equal to the plain version, cells changed per robot {changed.tolist()}; device {ms4 * 1e3:.2f} us ({parts}), "
-          f"plain {plain4 * 1e3:.1f} us, bound {b4[0] * 1e3:.3f} us ({b4[1]})", flush=True)
+          f"of {h}x{w}: equal to the plain version, cells changed per robot {changed.tolist()}; one launch a call, "
+          f"a cluster of {CLUSTER} a robot x {plan4.threads} threads ({plan4.smem_bytes} bytes of shared memory a "
+          f"block; the card holds {_lib.lib().slam_raster_max_clusters(side_y, side_x, 1024)} clusters of {CLUSTER} x "
+          f"1024, {_lib.lib().slam_raster_max_clusters(side_y, side_x, 512)} of {CLUSTER} x 512 at once): device "
+          f"{ms4 * 1e3:.2f} us, plain {plain4 * 1e3:.1f} us, bound {b4[0] * 1e3:.3f} us ({b4[1]}); every layout, "
+          f"same bits: {layouts4}", flush=True)
     # the same 8 robots tiled to 64
     wide = [x.repeat(8, *([1] * (x.dim() - 1))) for x in (occ, meta, ey, ex, live, accept)]
-    _require(torch.equal(raster_update_grid(wide[0].clone(), *wide[1:], **kw4), g_k.repeat(8, 1, 1)),
-             "K4 B=64: lanes fed the same robot differ from the B=8 result")
+    g_w = raster_update_grid(wide[0].clone(), *wide[1:], **kw4)
+    _require(torch.equal(g_w, g_k.repeat(8, 1, 1)), "K4 B=64: lanes fed the same robot differ from the B=8 result")
+    _require(torch.equal(g_w, raster_update_grid_plain(wide[0].clone(), *wide[1:], **kw4)),
+             "K4 B=64: differs from the plain version")
     work_w = wide[0].clone()
-    ms4w = _device_ms(torch, lambda: raster_update_grid(work_w, *wide[1:], **kw4), 50)
+    ms4w = _one_launch_ms(torch, lambda: raster_update_grid(work_w, *wide[1:], **kw4), 50, "K4 B=64")
+    layouts4w = raster_layouts(
+        "K4 B=64", lambda t: raster_update_grid(wide[0].clone(), *wide[1:], **kw4, threads=t),
+        lambda t: raster_update_grid(work_w, *wide[1:], **kw4, threads=t), g_w,
+        (64, h, w, side_y, side_x, n, kw4["k"]), 20)
     _, n_active_w, b4w = k4_bound(wide[4], wide[5])
-    batched["raster_update_grid_b64"] = dict(ms=ms4w, bound_ms=b4w[0])
+    work_wp = wide[0].clone()
+    plain4w = _device_ms(torch, lambda: raster_update_grid_plain(work_wp, *wide[1:], **kw4), 3)
+    batched["raster_update_grid_b64"] = dict(ms=ms4w, plain_ms=plain4w, bound_ms=b4w[0])
     print(f"[3] K4 raster_update_grid B=64 (the 8 robots tiled, {n_active_w} with work): equal to the B=8 result "
-          f"lane by lane; device {ms4w * 1e3:.2f} us, bound {b4w[0] * 1e3:.2f} us ({b4w[1]})", flush=True)
+          f"lane by lane and to the plain version; device {ms4w * 1e3:.2f} us, plain {plain4w * 1e3:.1f} us, bound "
+          f"{b4w[0] * 1e3:.2f} us ({b4w[1]}); every layout, same bits: {layouts4w}", flush=True)
 
     # K1 batched: 8 distinct registrations on 24576-slot maps with 20k live
     # points, and the same 8 tiled to 64
@@ -888,7 +1035,12 @@ def check_batched_kernels(cfg) -> tuple[dict, dict]:
         if count == 64:
             _require(all(torch.equal(pose[r], pose[r % 8]) for r in range(count)),
                      "K1 B=64: lanes fed the same problem gave different poses")
-            line += "; the 8 lanes of each problem bit equal"
+            params, tgt_c, c = _prepare(a[2], a[3], a[4])
+            plain64 = _device_ms(torch, lambda: icp_fused_plain(
+                a[0], a[1], tgt_c, a[3], params, iters=kw["iters"], thr2=kw["threshold_mm"] ** 2,
+                tolerance=kw["tolerance"], anderson=False), 1)
+            batched["icp_fused_b64"]["plain_ms"] = plain64
+            line += f"; the 8 lanes of each problem bit equal; plain {plain64:.1f} ms"
         print(line, flush=True)
 
     # K3 batched with ties (B = 8, and the same tiled to 64), and at the rescue's 512 x 24576

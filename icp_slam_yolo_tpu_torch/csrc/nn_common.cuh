@@ -1,7 +1,8 @@
 // What K1 (icp.cu) and K3 (nn.cu) share: the nearest-neighbour scan over
 // targets staged in shared memory, the (d^2, index) order that merges
 // partial minima, the 64-bit key that lets atomicMin merge them, and the
-// distributed-shared-memory stores of a thread-block cluster.
+// distributed-shared-memory stores of a thread-block cluster (K2 and K4,
+// raster.cu, use the cluster helpers too).
 //
 // Both sources are built with -fmad=false: d^2 = dx*dx + dy*dy rounds as the
 // plain PyTorch version's separate multiplies and add do.

@@ -5,7 +5,9 @@ variant the default 833 x 1000 grid takes) and ``raster_update_grid_pallas``
 (K4, the full-grid variant with its grid aliased to its output, batched over
 the fleet's robot axis; both in ``ops/pallas/raster_fused.py``).  The CUDA kernels are in
 ``csrc/raster.cu``; the source says what bounds them and how they are laid
-out.
+out.  A call is one device launch: a thread-block cluster a robot, with the
+counts in the cluster's shared memory; `raster_plan` picks the layout from
+the shapes, and every layout gives the same bits.
 
 All versions take the FULL grids ``(B, H, W)`` plus ``meta (B, 4) = [y0, x0,
 rly, rlx]`` per robot (window origin in the grid, robot cell in the window)
@@ -14,11 +16,13 @@ reads them on the host.  Cells outside a robot's ``(side_y, side_x)`` window,
 and every cell of a robot whose flag is false, keep their values.  K2
 (`raster_update`) returns new grids; K4 (`raster_update_grid`) updates the
 caller's grids IN PLACE and returns the same tensor, as the TPU kernel does
-through its aliased output.  Both take grids of any shape.
+through its aliased output.  Both take grids of any shape whose window and
+samples a ray fit a layout (`raster_plan` raises otherwise, on any device).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -126,22 +130,119 @@ def _check(occ, meta, ey, ex, live, accept, side_y, side_x):
         raise ValueError(f"raster update: unsupported device {dev}")
 
 
-def _launch(entry: str, grids: tuple, occ, meta, ey, ex, live, accept, kw) -> None:
+MAX_SMEM = 232448  # shared memory a block may take on the card
+TWO_BLOCKS_SMEM = 115712  # shared memory a block may take for two to share a multiprocessor
+CLUSTER = 16  # blocks a robot's window takes (`kCluster` in csrc/raster.cu)
+H100_CLUSTERS = 7  # clusters of 1024-thread blocks an H100 holds at once (`slam_raster_max_clusters`)
+MAX_RAYS = 65535  # both counts of a cell share one uint32, 16 bits each
+MAX_PER_RAY = 32  # samples of a ray a block counts, at most: k <= 32 x CLUSTER
+
+
+def smem_bytes(side_y: int, side_x: int, threads: int) -> int:
+    """Shared memory a block of ``threads`` of ``csrc/raster.cu`` takes (its
+    `layout`): the count tables Ty (the rank's rows, ``side_x + 1`` words
+    apart), Tx (its columns) and Rx (the column counts of its rows,
+    received; each rank's part padded to 4 words modulo 32), the rank's rows
+    of the window (rows of ``side_x + 6`` floats rounded down to 4), where
+    each ray of a group of 512 stops, each ray's geometry (32 bytes) twice
+    (as it comes and sorted), the decay^n table of 512 floats, the rays by
+    kind and samples (800 bytes) and three barriers.  At 512 threads
+    (compact) no rows are staged, the geometry shares Rx's space and the
+    stops the decay^n table's."""
+    rows = -(-side_y // CLUSTER)
+    cols = (-(-side_x // CLUSTER) + 3) & ~3
+    rx = CLUSTER * (rows * cols + ((4 - rows * cols) & 31)) * 4
+    ty_tx = ((rows * (side_x + 1) * 4 + 15) & ~15) + CLUSTER * rows * cols * 4
+    if threads < 1024:
+        return ty_tx + max(rx, 512 * 32 * 2) + 512 * 4 + 800 + 24
+    return ty_tx + rx + rows * ((side_x + 6) & ~3) * 4 + 512 * 4 + 512 * 32 * 2 + 512 * 4 + 800 + 24
+
+
+class RasterPlan(NamedTuple):
+    """A launch layout of K2 or K4 (`raster_plan`)."""
+
+    threads: int        # a block's: 1024, or 512 with half the shared memory (two blocks a multiprocessor)
+    smem_bytes: int     # shared memory a block takes (`smem_bytes`)
+    copy_clusters: int  # K2: clusters after the B robots' that copy every cell outside the windows; K4: 0
+    copy_vec: int       # K2: cells a copied vector (4: 16-byte vectors; 1 where the row width or address forbids)
+    copy_chunk: int     # K2: vectors a copying block takes, one contiguous run
+
+
+@functools.lru_cache(maxsize=64)
+def raster_plan(b: int, h: int, w: int, side_y: int, side_x: int, n: int, k: int, *, in_place: bool = False,
+                sm: int = 132, aligned: bool = True, threads: int | None = None,
+                capacity: int = H100_CLUSTERS) -> RasterPlan:
+    """The launch layout of K2 (``in_place=False``) or K4 for ``b`` grids of
+    ``h x w``, a ``side_y x side_x`` window, ``n`` rays a robot and ``k``
+    samples a ray, as ``csrc/raster.cu`` computes it from the same numbers:
+    a cluster of `CLUSTER` blocks a robot, rank r taking the window rows and
+    columns r modulo `CLUSTER`.  ``threads`` forces 512 or 1024 threads a
+    block (the same bits); otherwise 1024 while the card holds the robots'
+    clusters at once (``capacity`` clusters of 1024-thread blocks), where
+    latency counts, and 512 beyond, where two blocks share a multiprocessor
+    and throughput counts (measured: `PERF.md`).  ``aligned``: both grids'
+    addresses are multiples of 16 bytes.  Raises ``ValueError`` where the
+    window's tables fit no block's shared memory (or not the forced
+    threads'), for ``k > MAX_PER_RAY x CLUSTER`` and for ``n > MAX_RAYS``."""
+    if n > MAX_RAYS:
+        raise ValueError(f"raster update: {n} rays a robot, at most {MAX_RAYS} (the counts are 16 bits)")
+    if b * h * w >= 2 ** 31 and not in_place:
+        raise ValueError(f"raster update: {b} x {h} x {w} cells, the copy indexes fewer than 2^31")
+    order = (512, 1024) if b > capacity else (1024, 512)
+    fits = [t for t in order if (threads is None or t == threads) and 0 < k <= MAX_PER_RAY * CLUSTER
+            and smem_bytes(side_y, side_x, t) <= (TWO_BLOCKS_SMEM if t < 1024 else MAX_SMEM)]
+    if not fits:
+        raise ValueError(f"raster update: a {side_y}x{side_x} window with {k} samples a ray fits no layout "
+                         f"(threads {threads}; {MAX_SMEM} bytes of shared memory a block, at most "
+                         f"{MAX_PER_RAY * CLUSTER} samples a ray)")
+    t, c = fits[0], CLUSTER
+    copy_clusters = copy_vec = copy_chunk = 0
+    if not in_place:
+        copy_vec = 4 if w % 4 == 0 and aligned else 1
+        vectors = b * h * w // copy_vec
+        # the card's multiprocessors beside the robots' clusters, at least a
+        # cluster a robot, and no cluster with less than a vector a thread
+        copy_clusters = max(1, min(max((sm - b * c) // c, b), -(-vectors // (c * t))))
+        copy_chunk = -(-vectors // (copy_clusters * c))
+    return RasterPlan(t, smem_bytes(side_y, side_x, t), copy_clusters, copy_vec, copy_chunk)
+
+
+def _launch(entry: str, grids: tuple, occ, meta, ey, ex, live, accept, kw, plan: RasterPlan) -> None:
     """Launch one of the two C entry points on ``grids`` (the data pointers
-    that lead its arguments) with a zeroed counts scratch."""
+    that lead its arguments) in the layout ``plan``: one device launch."""
     b, h, w = occ.shape
-    counts = torch.zeros((b, 2, kw["side_y"], kw["side_x"]), dtype=torch.int32, device=occ.device)
+    copy = (plan.copy_clusters, plan.copy_vec) if entry == "slam_raster_update" else ()
     err = getattr(_lib.lib(), entry)(
         *grids, b, h, w, meta.data_ptr(), ey.data_ptr(), ex.data_ptr(), live.data_ptr(),
         None if accept is None else accept.data_ptr(), ey.shape[1], kw["side_y"], kw["side_x"], int(kw["k"]),
         float(kw["block_threshold"]), float(kw["p_free_decay"]), float(kw["p_occ_inc"]),
-        counts.data_ptr(), _lib.stream_ptr(occ.device),
+        plan.threads, *copy, _lib.stream_ptr(occ.device),
     )
     _lib.check(err, entry)
 
 
+def _plan(occ, n: int, kw: dict, in_place: bool, out, threads) -> RasterPlan:
+    """`raster_plan` for these grids on the card they lie on (for CPU
+    tensors the H100's: a CPU call is refused where a card's would be)."""
+    b, h, w = occ.shape
+    aligned = occ.data_ptr() % 16 == 0 and (out is None or out.data_ptr() % 16 == 0)
+    return raster_plan(b, h, w, kw["side_y"], kw["side_x"], n, int(kw["k"]), in_place=in_place,
+                       sm=_lib.sm_count(occ.device), aligned=aligned, threads=threads,
+                       capacity=_capacity(occ.device, kw["side_y"], kw["side_x"]))
+
+
+@functools.lru_cache(maxsize=16)
+def _capacity(dev, side_y: int, side_x: int) -> int:
+    """Clusters of 1024-thread blocks the card holds at once at this window
+    (the H100's for a CPU tensor; 0 where none fits)."""
+    if dev.type != "cuda":
+        return H100_CLUSTERS
+    return max(0, _lib.lib().slam_raster_max_clusters(side_y, side_x, 1024))
+
+
 def raster_update(occ, meta, ey, ex, live, accept=None, *, side_y: int, side_x: int, k: int,
-                  p_occ_inc: float, p_free_decay: float, block_threshold: float):
+                  p_occ_inc: float, p_free_decay: float, block_threshold: float,
+                  threads: int | None = None):
     """K2: one scan's occupancy update per robot, into new grids.
 
     Args:
@@ -153,36 +254,42 @@ def raster_update(occ, meta, ey, ex, live, accept=None, *, side_y: int, side_x: 
         updated only where its flag is true (the SLAM step's accept flag,
         kept on the device so the step needs no select over the grid).
       k: samples per ray (``> window_px``).
+      threads: force the threads a block of `raster_plan` (512 or 1024;
+        both give the same bits).
 
-    Returns the updated grids.  Launches the CUDA kernel for CUDA tensors;
-    the plain version runs only for CPU tensors.
+    Returns the updated grids.  Launches the CUDA kernel for CUDA tensors
+    (one launch); the plain version runs only for CPU tensors.
     """
     kw = dict(side_y=side_y, side_x=side_x, k=k, p_occ_inc=p_occ_inc,
               p_free_decay=p_free_decay, block_threshold=block_threshold)
     _check(occ, meta, ey, ex, live, accept, side_y, side_x)
     if occ.device.type == "cpu":
+        _plan(occ, ey.shape[1], kw, False, None, threads)
         return raster_update_plain(occ, meta, ey, ex, live, accept, **kw)
     out = torch.empty_like(occ)  # the kernel writes every cell
-    _launch("slam_raster_update", (occ.data_ptr(), out.data_ptr()), occ, meta, ey, ex, live, accept, kw)
+    plan = _plan(occ, ey.shape[1], kw, False, out, threads)
+    _launch("slam_raster_update", (occ.data_ptr(), out.data_ptr()), occ, meta, ey, ex, live, accept, kw, plan)
     pallas.LAUNCHES["raster_update"] += 1
     return out
 
 
 def raster_update_grid(occ, meta, ey, ex, live, accept=None, *, side_y: int, side_x: int, k: int,
-                       p_occ_inc: float, p_free_decay: float, block_threshold: float):
+                       p_occ_inc: float, p_free_decay: float, block_threshold: float,
+                       threads: int | None = None):
     """K4: one scan's occupancy update per robot, IN PLACE.
 
     Arguments as `raster_update`.  The
     caller owns ``occ``: the windows are written into it and the same tensor
     is returned, so no cell outside a window moves through memory.  Launches
-    the CUDA kernel for CUDA tensors; the plain version runs only for CPU
-    tensors.
+    the CUDA kernel for CUDA tensors (one launch); the plain version runs
+    only for CPU tensors.
     """
     _check(occ, meta, ey, ex, live, accept, side_y, side_x)
     kw = dict(side_y=side_y, side_x=side_x, k=k, p_occ_inc=p_occ_inc,
               p_free_decay=p_free_decay, block_threshold=block_threshold)
+    plan = _plan(occ, ey.shape[1], kw, True, None, threads)
     if occ.device.type == "cpu":
         return raster_update_grid_plain(occ, meta, ey, ex, live, accept, **kw)
-    _launch("slam_raster_update_grid", (occ.data_ptr(),), occ, meta, ey, ex, live, accept, kw)
+    _launch("slam_raster_update_grid", (occ.data_ptr(),), occ, meta, ey, ex, live, accept, kw, plan)
     pallas.LAUNCHES["raster_update_grid"] += 1
     return occ

@@ -1,7 +1,7 @@
 """Wall time per step of the PyTorch port's replay on one CUDA card, with a
 probe of the host's own speed.
 
-    python3 scripts/torch_replay_timing.py LABEL [--fleet B]
+    python3 scripts/torch_replay_timing.py LABEL [--fleet B] [--device]
 
 Without ``--fleet``: replays 100 synthetic warehouse scans
 (``chip_smoke.synthetic_sequence``) at the full-width slice configuration
@@ -9,10 +9,14 @@ three times.  With ``--fleet B``: replays ``B`` streams x 40 scans
 (``chip_smoke.fleet_streams``, tiled when ``B > 8``) through
 ``fleet_run_sequence`` on the unchanged ``fleet`` preset three times.  Then
 times 20,000 one-element additions on the card (the host's cost of one eager
-op).  Prints one line: ``LABEL wall ms/step a b c | host us per add x``.  To
-compare two checkouts, run it from each in turn, alternating, in one shell on
-one machine: the host's speed drifts between processes, and the probe
-shows by how much.
+op).  Prints one line: ``LABEL wall ms/step a b c | host us per add x``.
+With ``--device``, then the same replay under the profiler: a second line
+with the checkout's ``chip_smoke.profile_window`` report (device us and
+launches a step).  To compare two checkouts, run it from each in turn,
+alternating, in one shell on one machine: the host's speed drifts between
+processes, and the probe shows by how much.  It imports the package and
+``chip_smoke`` from the working directory, so the script of one checkout
+runs another from the other's root.
 """
 
 import argparse
@@ -32,6 +36,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("label", nargs="?", default="run")
     ap.add_argument("--fleet", type=int, default=0, metavar="B", help="time fleet steps of B robots")
+    ap.add_argument("--device", action="store_true", help="also profile the replay: device us and launches a step")
     args = ap.parse_args()
     if args.fleet:
         cfg = port.FLEET_CONFIG
@@ -69,6 +74,8 @@ def main() -> None:
     torch.cuda.synchronize()
     add_us = (time.perf_counter() - t0) / 20000 * 1e6
     print(args.label, what, "wall ms/step", " ".join(f"{v:.3f}" for v in walls), "| host us per add", f"{add_us:.2f}")
+    if args.device:
+        print(args.label, what, "profiled:", chip_smoke.profile_window(torch, lambda: run(stack), n - 1), flush=True)
 
 
 if __name__ == "__main__":

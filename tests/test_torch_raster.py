@@ -155,3 +155,141 @@ def test_wrapper_checks_and_cpu_path():
     with pytest.raises(NotImplementedError):
         traster.update_occupancy(occ, torch.zeros((1, 2, 2)), live, torch.zeros((1, 2)), TMAP,
                                  dataclasses.replace(TOCC, backend="xla"))
+
+
+# ---- the launch layout of K2 and K4 (`raster_plan`), at every preset's shape
+
+def _preset_shapes():
+    """(name, grid h, w, window side_y, side_x, samples a ray) of every preset."""
+    from icp_slam_yolo_tpu_torch import config as tc
+
+    out = []
+    for name in sorted(tc.PRESETS):
+        cfg = tc.PRESETS[name]
+        h, w = cfg.map.height_px, cfg.map.width_px
+        out.append((name, h, w, *traster.window_dims(h, w, cfg.occupancy), cfg.occupancy.max_ray_px))
+    return out
+
+
+@pytest.mark.parametrize("b", [1, 8, 64])
+@pytest.mark.parametrize("in_place", [False, True])
+def test_raster_plan_fits_every_preset(b, in_place):
+    """At every preset's grid and window, for K2 and K4: the picked layout's
+    shared memory stays within a block's 227 KB (half of a multiprocessor's
+    228 KB at 512 threads, so that two blocks share it), the ranks' rows
+    (rank r of the cluster of C = 16: window rows r, r + C, ...) cover the
+    window once, the layout takes every sample of a ray (k <= 32 C), and the
+    blocks have 1024 threads while the robots' clusters fit the card at
+    once, 512 beyond."""
+    from icp_slam_yolo_tpu_torch.ops.pallas import raster_fused as rf
+
+    for name, h, w, side_y, side_x, k in _preset_shapes():
+        plan = rf.raster_plan(b, h, w, side_y, side_x, 512, k, in_place=in_place)
+        limit = rf.TWO_BLOCKS_SMEM if plan.threads == 512 else rf.MAX_SMEM
+        assert plan.smem_bytes == rf.smem_bytes(side_y, side_x, plan.threads) <= limit <= 232448, name
+        assert k <= rf.MAX_PER_RAY * rf.CLUSTER, name
+        assert plan.threads == (512 if b > rf.H100_CLUSTERS else 1024), name
+        rows = np.concatenate([np.arange(r, side_y, rf.CLUSTER) for r in range(rf.CLUSTER)])
+        np.testing.assert_array_equal(np.sort(rows), np.arange(side_y), err_msg=name)
+        assert (plan.copy_clusters > 0) == (not in_place), name
+
+
+def _copied_cells(plan, b, h, w, side_y, side_x, meta):
+    """How often K2's copying blocks write each cell, as ``copy_outside`` in
+    csrc/raster.cu does: block k takes vectors [k chunk, (k + 1) chunk) of
+    ``copy_vec`` cells and writes the cells of each that lie outside the
+    window of the vector's robot."""
+    from icp_slam_yolo_tpu_torch.ops.pallas import raster_fused as rf
+
+    vec, total = plan.copy_vec, b * h * w // plan.copy_vec
+    written = np.zeros(b * h * w, np.int32)
+    for blk in range(plan.copy_clusters * rf.CLUSTER):
+        q0, q1 = blk * plan.copy_chunk, min((blk + 1) * plan.copy_chunk, total)
+        if q0 >= q1:
+            continue
+        cells = np.arange(q0 * vec, q1 * vec)
+        rb, rest = cells // (h * w), cells % (h * w)
+        y, x = rest // w, rest % w
+        wy, wx = y - meta[rb, 0], x - meta[rb, 1]
+        inside = (wy >= 0) & (wy < side_y) & (wx >= 0) & (wx < side_x)
+        np.add.at(written, cells[~inside], 1)
+    return written
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_raster_copy_covers_the_outside_once(rng, b, aligned):
+    """K2's copying clusters, at every preset's grid and window: each cell
+    outside a robot's window is written exactly once, no window cell is
+    (the robots' clusters write those)."""
+    from icp_slam_yolo_tpu_torch.ops.pallas import raster_fused as rf
+
+    for name, h, w, side_y, side_x, k in _preset_shapes():
+        plan = rf.raster_plan(b, h, w, side_y, side_x, 512, k, aligned=aligned)
+        assert plan.copy_vec == (4 if aligned and w % 4 == 0 else 1)
+        meta = np.stack([rng.integers(0, h - side_y + 1, b), rng.integers(0, w - side_x + 1, b)], axis=1)
+        written = _copied_cells(plan, b, h, w, side_y, side_x, meta).reshape(b, h, w)
+        for r in range(b):
+            inside = np.zeros((h, w), bool)
+            inside[meta[r, 0]: meta[r, 0] + side_y, meta[r, 1]: meta[r, 1] + side_x] = True
+            assert (written[r][inside] == 0).all(), name
+            assert (written[r][~inside] == 1).all(), name
+
+
+def test_raster_copy_chunks_tile_the_grids_at_64_robots():
+    """At B = 64 the copying blocks' runs of vectors tile the grids with no
+    gap and no overlap (the per-cell check above runs at B = 1 and 8)."""
+    from icp_slam_yolo_tpu_torch.ops.pallas import raster_fused as rf
+
+    for name, h, w, side_y, side_x, k in _preset_shapes():
+        plan = rf.raster_plan(64, h, w, side_y, side_x, 512, k)
+        total = 64 * h * w // plan.copy_vec
+        blocks = plan.copy_clusters * rf.CLUSTER
+        assert w % plan.copy_vec == 0 and (blocks - 1) * plan.copy_chunk < total <= blocks * plan.copy_chunk, name
+
+
+def test_raster_plan_refuses_what_fits_no_layout():
+    """A window whose tables fit no block's shared memory, a ray of more
+    samples than 32 x 16, or forced threads whose layout does not fit: a
+    ValueError, never another kernel or the plain version."""
+    from icp_slam_yolo_tpu_torch.ops.pallas import raster_fused as rf
+
+    with pytest.raises(ValueError, match="fits no layout"):
+        rf.raster_plan(1, 2048, 2048, 1024, 1024, 512, 144)
+    with pytest.raises(ValueError, match="fits no layout"):
+        rf.raster_plan(1, 833, 1000, 384, 384, 512, 513)
+    with pytest.raises(ValueError, match="fits no layout"):  # 416 x 416 takes 140200 bytes at 512 threads
+        rf.raster_plan(64, 864, 1024, 416, 416, 512, 144, threads=512)
+    assert rf.raster_plan(64, 864, 1024, 416, 416, 512, 144).threads == 1024
+    assert rf.raster_plan(1, 100, 120, 64, 64, 200, 30, threads=512).threads == 512
+
+
+@pytest.mark.parametrize("window_px", [193, 256])
+def test_window_beyond_384_px_is_refused(window_px):
+    """A window of more than 384 cells a side (``window_px`` above 192:
+    `window_dims` makes it 512) fits no layout of the port's kernels, which
+    the JAX kernels take: ``update_occupancy`` raises, on the CPU as it
+    would on the card, rather than fall back."""
+    occ_cfg = dataclasses.replace(TOCC, window_px=window_px, max_ray_px=window_px + 4)
+    map_cfg = dataclasses.replace(TMAP, width_mm=18000.0, height_mm=18000.0)  # 600 x 600 cells
+    assert traster.window_dims(600, 600, occ_cfg) == (512, 512)
+    occ = torch.full((1, 600, 600), 0.5)
+    pts = torch.zeros((1, 8, 2))
+    with pytest.raises(ValueError, match="512x512 window with .* fits no layout"):
+        traster.update_occupancy(occ, pts, torch.ones((1, 8), dtype=torch.bool), torch.zeros((1, 2)), map_cfg,
+                                 occ_cfg)
+
+
+def test_wrapper_refuses_65536_rays():
+    """Both counts of a cell share one uint32, 16 bits each: a robot with
+    65536 rays is refused, on the CPU as on the card."""
+    occ = torch.full((1, 400, 400), 0.5)
+    meta = torch.tensor([[10, 10, 140, 140]], dtype=torch.int32)
+    n = 65536
+    ey = torch.full((1, n), 150, dtype=torch.int32)
+    ex = torch.full((1, n), 30, dtype=torch.int32)
+    live = torch.ones((1, n), dtype=torch.bool)
+    kw = dict(side_y=384, side_x=384, k=144, p_occ_inc=0.2, p_free_decay=0.9, block_threshold=0.65)
+    for fn in (raster_update, traster.raster_update_grid):
+        with pytest.raises(ValueError, match="65535"):
+            fn(occ.clone(), meta, ey, ex, live, **kw)
