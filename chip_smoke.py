@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases (each prints a line; any failed check raises, so the script exits
-non-zero; they run in the order 1-3, 7-9, 4-6, 10, see `main`):
+non-zero; they run in the order 1-3, 7-10, 4-6, 11, see `main`):
   1. require a CUDA device; print the card's name and power limit;
   2. build the CUDA kernels (``nvcc``, first use) and print the build time
      and each kernel's registers, shared memory and spills (``ptxas -v``);
@@ -23,7 +23,11 @@ non-zero; they run in the order 1-3, 7-9, 4-6, 10, see `main`):
      required to give the same bits, K2's bound printed for its window alone
      and with the new grid it writes; then again at small edge cases (ragged
      sizes, nothing valid, a window clamped at the grid's corner, K2 and K4
-     on a small window in both layouts and with 1100 rays a robot);
+     on a small window in both layouts and with 1100 rays a robot); then K2
+     (one robot, its window clamped at the grid's corner) and K4 (8 robots)
+     on a 640 x 640 window with rays of up to 620 samples, which they take
+     in three bands of rows, in both layouts, each the plain version's bits
+     and one kernel event a call, timed beside the presets' window;
   (every profiler window of phases 4-6 holds the raster kernels' event
   counts equal to the wrappers' launch counts in the window;)
   4. the ``slice`` path: ``Slam(cfg).run(scans)`` at the full-width offline
@@ -48,15 +52,27 @@ non-zero; they run in the order 1-3, 7-9, 4-6, 10, see `main`):
      plain version, and the library's ``F.conv2d`` + ``F.silu``); in
      bfloat16 also the variants the wrappers do not pick, forced (the other
      gather, the split or cluster on and off, every K8 tile and cluster that
-     fits), and two launches at one site giving the same bits;
+     fits), and two launches at one site giving the same bits; then every
+     K5-K7 launch of the v11 and v12 checkpoints' forwards (batch 1, 2, 8;
+     bfloat16 and float32) held against its plain version on its input;
   8. the detector path: ``detector_from_checkpoint`` on the trained v8 detect
      weights, bfloat16, 640 px, fused: ``__call__``, ``detect_pair`` and
      ``predict_batch`` at batch 8 on seeded synthetic frames, with launch
      counters (7 / 6 / 12 / 20 launches of K7 / K8 / K5 / K6 per forward);
      fused against unfused head outputs; float32 on the card against the
-     port on the CPU; a segment checkpoint through the fused path;
-  9. detector times: per forward at batch 1, 2, 8 and 32, fused and unfused;
-  10. one JSON line listing the kernels, then the card line, then the result
+     port on the CPU; a segment checkpoint through the fused path; then the
+     v12 detect and v11 obb checkpoints the same way (82 / 32 / 7 and 44 /
+     37 / 7 launches of K5 / K6 / K7 a forward, K8 none), each run between
+     a reset and a reading of the counters;
+  9. detector times: per forward at batch 1, 2, 8 and 32, fused and unfused,
+     for the v8, v12 and v11 checkpoints;
+  10. the fused SLAM + detect tick (`tick`; ``BASELINE.json`` configuration
+     4): ``SlamConfig(map_capacity=8192)``, the v12 detector in bfloat16,
+     seeded scans and stereo pairs, 61 ticks with launch counters (K1, K2,
+     K3, K5, K6, K7 each launched), the SLAM quality checks, ticks/s, a
+     profiler window over the tick and over each half alone, and 8 float32
+     ticks on the card against the same ticks on the CPU;
+  11. one JSON line listing the kernels, then the card line, then the result
      line ``{"ok": true, "device": {...}}`` last.
 
 The synthetic scan generator (`synthetic_sequence`) lives here so the CPU
@@ -266,20 +282,37 @@ def _device_profile(torch, fn, reps: int) -> dict:
 
 def _one_launch_ms(torch, fn, reps: int, what: str) -> float:
     """Device time per call (ms) of a raster wrapper, which must be one device
-    launch: the profile of ``reps`` calls holds one kernel event a call and
-    nothing else (no fill, no second pass).  A trace that lost records is
-    taken once more."""
-    def calls():
-        for _ in range(reps):
-            fn()
+    launch: the profile of ``reps`` calls holds the raster kernel's events
+    and nothing else (no fill, no second pass), one a call.  The tracer was
+    seen to drop one record of every trace for the rest of a run once it
+    starts doing so; a trace short of ``reps`` is then held against a trace
+    of ``2 reps`` calls, whose count must be larger by exactly ``reps`` (one
+    launch a call, whatever the tracer drops), and the time is the mean
+    over the records kept.  Otherwise the trace is taken once more."""
+    def trace(n):
+        def calls():
+            for _ in range(n):
+                fn()
+
+        events = _kernel_events(torch, _traced(torch, calls))
+        return events, {e.key[:60]: e.count for e in events}
+
+    def raster_only(events):
+        return len(events) == 1 and "raster_kernel" in events[0].key
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
-        events = _kernel_events(torch, _traced(torch, calls))
-        counts = {e.key[:60]: e.count for e in events}
-        if len(events) == 1 and "raster_kernel" in events[0].key and events[0].count == reps:
+    for _ in range(3):
+        events, counts = trace(reps)
+        if raster_only(events) and events[0].count == reps:
             return events[0].self_device_time_total / reps / 1e3
+        if raster_only(events) and events[0].count < reps:
+            more, counts2 = trace(2 * reps)
+            if raster_only(more) and more[0].key == events[0].key and more[0].count - events[0].count == reps:
+                print(f"    (profiler: {what}: {events[0].count} events over {reps} calls, {more[0].count} over "
+                      f"{2 * reps}: records lost, one launch a call)", flush=True)
+                return events[0].self_device_time_total / events[0].count / 1e3
+            counts = f"{counts}, over {2 * reps} calls {counts2}"
         print(f"    (profiler: {what}: events over {reps} calls {counts}; measuring again)", flush=True)
     raise AssertionError(f"{what}: not one device launch a call: events over {reps} calls {counts}")
 
@@ -303,7 +336,7 @@ def raster_layouts(what: str, call, timed, reference, plan_args: tuple, reps: in
         except ValueError:
             continue
         side_y, side_x = plan_args[3], plan_args[4]
-        _require(_lib.lib().slam_raster_smem_bytes(side_y, side_x, t) == plan.smem_bytes,
+        _require(_lib.lib().slam_raster_smem_bytes(side_y, side_x, t, plan.bands) == plan.smem_bytes,
                  f"{what}: raster_plan's shared memory differs from the kernel's at {t} threads")
         _require(torch.equal(call(t), reference), f"{what}: {t} threads differ from the picked layout")
         times.append(f"{t} threads ({plan.smem_bytes} bytes of shared memory) "
@@ -431,14 +464,68 @@ def slice_config():
     return port.OFFLINE_CONFIG.replace(icp=dataclasses.replace(port.OFFLINE_CONFIG.icp, rescue_estimator=""))
 
 
+def k1_registration(cfg, n_map: int, rng) -> tuple:
+    """One K1 registration (B = 1) at ``cfg``'s shapes: the first synthetic
+    scan, gated and downsampled into ``cfg.n_max`` source slots, against
+    ``n_map`` points along the warehouse's walls in ``cfg.map_capacity``
+    target slots, started 100 / -80 mm and 0.03 rad off the true pose.
+    Returns (the kernel's five inputs, its options, the true pose)."""
+    import torch
+
+    from icp_slam_yolo_tpu_torch.ops import geometry as geo
+    from icp_slam_yolo_tpu_torch.ops.voxel import voxel_downsample
+
+    dev = torch.device("cuda")
+    cap, n = cfg.map_capacity, cfg.n_max
+    map_np = np.zeros((cap, 2), np.float32)
+    map_np[:n_map] = map_points_along(warehouse_segments(10000.0, 6000.0), n_map, rng)
+    map_valid = torch.zeros(cap, dtype=torch.bool, device=dev)
+    map_valid[:n_map] = True
+    map_xy = torch.tensor(map_np, device=dev)
+    scans1, gt1 = synthetic_sequence(1, seed=1)
+    scan1 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    scan1[: scans1.shape[1]] = torch.tensor(scans1[0], device=dev)
+    xy, valid = geo.polar_to_cartesian(scan1, cfg.gate)
+    ds_xy, ds_valid = voxel_downsample(xy, valid, cfg.icp.voxel_size_mm)
+    truth = torch.tensor(gt1[0], dtype=torch.float32, device=dev)
+    init = truth + torch.tensor([100.0, -80.0, 0.03], device=dev)
+    kw = dict(iters=cfg.icp.max_iterations, threshold_mm=cfg.icp.threshold_mm, tolerance=cfg.icp.tolerance)
+    one = tuple(x[None].contiguous() for x in (ds_xy, ds_valid, map_xy, map_valid, init))
+    return one, kw, truth
+
+
+def k1_against_plain(what: str, one: tuple, kw: dict) -> tuple:
+    """``icp_fused`` against ``icp_fused_plain`` on the same registration:
+    poses within 1 mm / 2e-3 rad, rmse within 1 mm, iterations within 5.
+    Returns (the kernel's four outputs, (mm, rad, rmse mm, the plain
+    version's iterations), the plain version as a function)."""
+    import torch
+
+    from icp_slam_yolo_tpu_torch.ops.pallas.icp_fused import _finish, _prepare, icp_fused, icp_fused_plain
+
+    got = icp_fused(*one, **kw)
+    params, tgt_c, c = _prepare(*one[2:])
+    plain_fn = lambda: icp_fused_plain(one[0], one[1], tgt_c, one[3], params, iters=kw["iters"],  # noqa: E731
+                                       thr2=kw["threshold_mm"] ** 2, tolerance=kw["tolerance"], anderson=False)
+    pose_p, rmse_p, _, it_p = _finish(plain_fn(), c)
+    torch.cuda.synchronize()
+    pose_k, rmse_k, _, it_k = got
+    dpos = float((pose_k[:, :2] - pose_p[:, :2]).abs().max())
+    dang = float((pose_k[:, 2] - pose_p[:, 2]).abs().max())
+    drm = float((rmse_k - rmse_p).abs().max())
+    _require(dpos <= 1.0 and dang <= 2e-3 and drm <= 1.0,
+             f"{what}: kernel vs plain pose {dpos} mm / {dang} rad, rmse {drm} mm")
+    _require(abs(int(it_k) - int(it_p)) <= 5, f"{what}: iterations {int(it_k)} vs {int(it_p)}")
+    return got, (dpos, dang, drm, int(it_p)), plain_fn
+
+
 def check_kernels(cfg) -> dict:
     """Phase 3: each kernel against its plain version on the card, at the
     slice's shapes (one robot: a leading axis of 1), with times.  Returns the
     kernels' rows (no launches)."""
     import torch
 
-    from icp_slam_yolo_tpu_torch.ops import geometry as geo
-    from icp_slam_yolo_tpu_torch.ops.pallas.icp_fused import _finish, _prepare, icp_fused, icp_fused_plain
+    from icp_slam_yolo_tpu_torch.ops.pallas.icp_fused import icp_fused
     from icp_slam_yolo_tpu_torch.ops.pallas.nn_kernel import nn_argmin, nn_argmin_plain
     from icp_slam_yolo_tpu_torch.ops.pallas import _lib
     from icp_slam_yolo_tpu_torch.ops.pallas.raster_fused import (
@@ -448,7 +535,6 @@ def check_kernels(cfg) -> dict:
         raster_update_plain,
     )
     from icp_slam_yolo_tpu_torch.ops.raster import window_dims, world_to_px
-    from icp_slam_yolo_tpu_torch.ops.voxel import voxel_downsample
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -482,36 +568,10 @@ def check_kernels(cfg) -> dict:
           f"cdist+min {lib3 * 1e3:.2f} us; us per layout (lanes x cluster): {layouts3}", flush=True)
 
     # K1: the ICP loop on a 24576-slot map holding 20k live points
-    segs = warehouse_segments(10000.0, 6000.0)
-    cap = cfg.map_capacity
-    n_map = 20000
-    map_np = np.zeros((cap, 2), np.float32)
-    map_np[:n_map] = map_points_along(segs, n_map, rng)
-    map_valid = torch.zeros(cap, dtype=torch.bool, device=dev)
-    map_valid[:n_map] = True
-    map_xy = torch.tensor(map_np, device=dev)
-    scans1, gt1 = synthetic_sequence(1, seed=1)
-    scan1 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    scan1[: scans1.shape[1]] = torch.tensor(scans1[0], device=dev)
-    xy, valid = geo.polar_to_cartesian(scan1, cfg.gate)
-    ds_xy, ds_valid = voxel_downsample(xy, valid, cfg.icp.voxel_size_mm)
-    truth = torch.tensor(gt1[0], dtype=torch.float32, device=dev)
-    init = truth + torch.tensor([100.0, -80.0, 0.03], device=dev)
-    kw = dict(iters=cfg.icp.max_iterations, threshold_mm=cfg.icp.threshold_mm, tolerance=cfg.icp.tolerance)
-    one = tuple(x[None].contiguous() for x in (ds_xy, ds_valid, map_xy, map_valid, init))  # B = 1
-    pose_k, rmse_k, nin_k, it_k = icp_fused(*one, **kw)
-    params, tgt_c, c = _prepare(*one[2:])
-    plain_fn = lambda: icp_fused_plain(one[0], one[1], tgt_c, one[3], params, iters=kw["iters"],  # noqa: E731
-                                       thr2=kw["threshold_mm"] ** 2, tolerance=kw["tolerance"], anderson=False)
-    pose_p, rmse_p, _, it_p = _finish(plain_fn(), c)
-    torch.cuda.synchronize()
-    dpos = float((pose_k[:, :2] - pose_p[:, :2]).abs().max())
-    dang = float((pose_k[:, 2] - pose_p[:, 2]).abs().max())
-    drm = float((rmse_k - rmse_p).abs().max())
+    cap, n_map = cfg.map_capacity, 20000
+    one, kw, truth = k1_registration(cfg, n_map, rng)
+    (pose_k, rmse_k, _, it_k), (dpos, dang, drm, it_p), plain_fn = k1_against_plain("K1", one, kw)
     n_it = int(it_k)
-    _require(dpos <= 1.0 and dang <= 2e-3 and drm <= 1.0,
-             f"K1: kernel vs plain pose {dpos} mm / {dang} rad, rmse {drm} mm")
-    _require(abs(n_it - int(it_p)) <= 5, f"K1: iterations {n_it} vs {int(it_p)}")
     _require(float((pose_k[0, :2] - truth[:2]).norm()) < 30.0, "K1: did not recover the true pose")
     ms1 = _device_ms(torch, lambda: icp_fused(*one, **kw), 20)
     plain1 = _device_ms(torch, plain_fn, 3)
@@ -519,7 +579,7 @@ def check_kernels(cfg) -> dict:
     small = (*one[:2], one[2][:, :256].contiguous(), one[3][:, :256].contiguous(), one[4])
     it_small = int(icp_fused(*small, **kw)[3])
     sweep_small = _device_ms(torch, lambda: icp_fused(*small, **kw), 20) / (it_small + 1)
-    n_src = int(ds_valid.sum())
+    n_src = int(one[1].sum())
     b1 = _bound(7.0 * n_src * n_map * (n_it + 1), n * 9 + cap * 9 + 16 + 32)
     kernels["icp_fused"] = dict(
         name="icp_fused", route="cuda", source="icp_slam_yolo_tpu_torch/csrc/icp.cu",
@@ -527,7 +587,7 @@ def check_kernels(cfg) -> dict:
         ms=ms1, plain_ms=plain1, bound_ms=b1[0], bound_by=b1[1], library_ms=None)
     print(f"[3] K1 icp_fused {n_src} live src x {n_map} live of {cap} tgt: pose err {dpos:.2g} mm / "
           f"{dang:.2g} rad, rmse err {drm:.2g} mm (tol 1 mm / 2e-3 rad / 1 mm), iters {n_it} vs "
-          f"{int(it_p)}; device {ms1 * 1e3:.1f} us = {ms1 * 1e3 / (n_it + 1):.2f} us per sweep "
+          f"{it_p}; device {ms1 * 1e3:.1f} us = {ms1 * 1e3 / (n_it + 1):.2f} us per sweep "
           f"({n_it} iterations + the final sweep), plain {plain1:.2f} ms; against 256 targets "
           f"{sweep_small * 1e3:.2f} us per sweep", flush=True)
 
@@ -726,6 +786,129 @@ def check_edge_cases(cfg) -> int:
     return n_cases
 
 
+def check_large_window(cfg) -> None:
+    """Phase 3, continued: K2 and K4 on a window of more than 384 cells a
+    side with rays of more than 512 samples (``window_px`` 300: 640 x 640,
+    ``max_ray_px`` 620), which they take in bands of rows: K2 on one robot
+    whose window is clamped at the grid's corner (rays up to 639 cells), K4
+    on 8 robots, in both thread layouts, each the plain version's bits and
+    one kernel event a call, timed beside the presets' 384 x 384 window at
+    the same robots.  Then the band loop's other branches, each the plain
+    version's bits in both layouts: K4 with one robot's flag false, K2 with
+    its flag false and with no ray, and a 385 x 2432 window (400 x 2448
+    grids, rays up to 2431 samples) whose last band leaves 15 of the 16
+    ranks no row."""
+    import torch
+
+    from icp_slam_yolo_tpu_torch.ops.pallas.raster_fused import (
+        CLUSTER,
+        band_rows,
+        raster_plan,
+        raster_update,
+        raster_update_grid,
+        raster_update_grid_plain,
+        raster_update_plain,
+    )
+    from icp_slam_yolo_tpu_torch.ops.raster import window_dims
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    h, w = cfg.map.height_px, cfg.map.width_px
+    occ_np = np.where(rng.random((8, h, w)) < 0.002, 0.9, rng.uniform(0.2, 0.6, (8, h, w))).astype(np.float32)
+    occ_np[:, 300:700, 600:603] = 0.9  # a wall some rays stop at
+    lines = []
+    for label, occ_cfg in (("presets' window", cfg.occupancy),
+                           ("large window", dataclasses.replace(cfg.occupancy, window_px=300, max_ray_px=620))):
+        side_y, side_x = window_dims(h, w, occ_cfg)
+        win, k, n = occ_cfg.window_px, occ_cfg.max_ray_px, 512
+        meta, eys, exs = [], [], []
+        for r in range(8):
+            ry, rx = (h - 3, 4) if r == 0 else (int(rng.integers(0, h)), int(rng.integers(0, w)))
+            y0, x0 = min(max(ry - win, 0), h - side_y), min(max(rx - win, 0), w - side_x)
+            meta.append([y0, x0, ry - y0, rx - x0])
+            eys.append(rng.integers(0, side_y, n))
+            exs.append(rng.integers(0, side_x, n))
+        if label == "large window":  # robot 0's longest rays: to the window's far corners
+            eys[0][:3], exs[0][:3] = [0, 0, side_y - 1], [side_x - 1, side_x // 2, side_x - 1]
+        args = (torch.tensor(meta, dtype=torch.int32, device=dev),
+                torch.tensor(np.array(eys), dtype=torch.int32, device=dev),
+                torch.tensor(np.array(exs), dtype=torch.int32, device=dev),
+                torch.tensor(rng.random((8, n)) < 0.9, device=dev), torch.ones(8, dtype=torch.bool, device=dev))
+        kw = dict(side_y=side_y, side_x=side_x, k=k, p_occ_inc=occ_cfg.p_occ_inc,
+                  p_free_decay=occ_cfg.p_free_decay, block_threshold=occ_cfg.block_threshold)
+        occ8 = torch.tensor(occ_np, device=dev)
+        occ1, args1 = occ8[:1].contiguous(), tuple(a[:1].contiguous() for a in args)
+        want2 = raster_update_plain(occ1, *args1, **kw)
+        want4 = raster_update_grid_plain(occ8.clone(), *args, **kw)
+        times = []
+        for t in RASTER_THREADS:
+            plan2 = raster_plan(1, h, w, side_y, side_x, n, k, threads=t)
+            plan4 = raster_plan(8, h, w, side_y, side_x, n, k, in_place=True, threads=t)
+            _require(label != "large window" or (plan2.bands > 1 and plan4.bands > 1),
+                     f"K2/K4, {label}: one band ({plan2}, {plan4})")
+            _require(label == "large window" or (plan2.bands == 1 and plan4.bands == 1),
+                     f"K2/K4, {label}: more than one band ({plan2}, {plan4})")
+            _require(torch.equal(raster_update(occ1, *args1, **kw, threads=t), want2),
+                     f"K2, {label} {side_y}x{side_x}, k {k}, {t} threads: not the plain version's bits")
+            grid = occ8.clone()
+            _require(torch.equal(raster_update_grid(grid, *args, **kw, threads=t), want4),
+                     f"K4, {label} {side_y}x{side_x}, k {k}, {t} threads: not the plain version's bits")
+            ms2 = _one_launch_ms(torch, lambda: raster_update(occ1, *args1, **kw, threads=t), 100, f"K2 {label}")
+            ms4 = _one_launch_ms(torch, lambda: raster_update_grid(grid, *args, **kw, threads=t), 100,
+                                 f"K4 {label}")
+            times.append(f"{t} threads ({plan2.bands} band{'s' if plan2.bands > 1 else ''}, {plan2.smem_bytes} "
+                         f"bytes of shared memory a block): K2 {ms2 * 1e3:.2f} us, K4 B = 8 {ms4 * 1e3:.2f} us")
+        changed = int((want4 != occ8).sum())
+        _require(changed > 0, f"K2/K4, {label}: no cell changed")
+        lines.append(f"{label} {side_y}x{side_x}, k {k}, {n} rays a robot ({changed} cells of 8 grids changed): "
+                     + "; ".join(times))
+    print("[3] K2/K4, the plain version's bits, one launch a call: " + " | ".join(lines), flush=True)
+
+    # the band loop's other branches on the large window (the last `args`, `kw`, `occ8`)
+    off = args[4].clone()
+    off[3] = False
+    reject = torch.zeros(1, dtype=torch.bool, device=dev)
+    none = tuple(torch.zeros((1, 0), dtype=x.dtype, device=dev) for x in args[1:4])  # ey, ex, live: no ray
+    want_off = raster_update_grid_plain(occ8.clone(), *args[:4], off, **kw)
+    want_none = raster_update_plain(occ1, args1[0], *none, args1[4], **kw)
+    _require(torch.equal(want_off[3], occ8[3]) and not torch.equal(want_off, occ8),
+             "K4, large window, robot 3's flag false: the plain version's grids are not as meant")
+    # a 385 x 2432 window, two robots: the last band holds one row of rank 0 and none of the others
+    hw, ww, sy, sx, kk = 400, 2448, 385, 2432, 2500
+    occ_w = torch.tensor(np.where(rng.random((2, hw, ww)) < 0.002, 0.9, rng.uniform(0.2, 0.6, (2, hw, ww))),
+                         dtype=torch.float32, device=dev)
+    meta_w = torch.tensor([[7, 9, 200, 1200], [15, 16, sy - 3, 2]], dtype=torch.int32, device=dev)
+    ey_w = torch.tensor(rng.integers(0, sy, (2, n)), dtype=torch.int32, device=dev)
+    ex_w = torch.tensor(rng.integers(0, sx, (2, n)), dtype=torch.int32, device=dev)
+    ex_w[1, :4] = sx - 1  # robot 1's longest rays: across the whole window
+    args_w = (meta_w, ey_w, ex_w, torch.tensor(rng.random((2, n)) < 0.9, device=dev),
+              torch.ones(2, dtype=torch.bool, device=dev))
+    kw_w = dict(kw, side_y=sy, side_x=sx, k=kk)
+    want_w2 = raster_update_plain(occ_w[:1].contiguous(), *(a[:1].contiguous() for a in args_w), **kw_w)
+    want_w4 = raster_update_grid_plain(occ_w.clone(), *args_w, **kw_w)
+    plans = []
+    for t in RASTER_THREADS:
+        _require(torch.equal(raster_update_grid(occ8.clone(), *args[:4], off, **kw, threads=t), want_off),
+                 f"K4, large window, robot 3's flag false, {t} threads: not the plain version's bits")
+        _require(torch.equal(raster_update(occ1, *args1[:4], reject, **kw, threads=t), occ1),
+                 f"K2, large window, flag false, {t} threads: the grid changed")
+        _require(torch.equal(raster_update(occ1, args1[0], *none, args1[4], **kw, threads=t), want_none),
+                 f"K2, large window, no ray, {t} threads: not the plain version's bits")
+        plan = raster_plan(2, hw, ww, sy, sx, n, kk, in_place=True, threads=t)
+        rows = band_rows(sy, plan.bands)
+        _require(-(-(sy - (CLUSTER - 1)) // CLUSTER) <= (plan.bands - 1) * rows,
+                 f"K2/K4, {sy}x{sx} window, {t} threads: every rank has rows in the last band ({plan})")
+        _require(torch.equal(raster_update(occ_w[:1].contiguous(), *(a[:1].contiguous() for a in args_w), **kw_w,
+                                           threads=t), want_w2)
+                 and torch.equal(raster_update_grid(occ_w.clone(), *args_w, **kw_w, threads=t), want_w4),
+                 f"K2/K4, {sy}x{sx} window, k {kk}, {t} threads: not the plain version's bits")
+        plans.append(f"{t} threads {plan.bands} bands of {CLUSTER} x {rows} rows")
+    _require(not torch.equal(want_w4, occ_w), f"K4, {sy}x{sx} window: no cell changed")
+    print(f"[3] K2/K4 on the large window, the plain version's bits in both layouts: K4 with robot 3's flag false, "
+          f"K2 with its flag false, K2 with no ray; a {sy}x{sx} window of {hw}x{ww} grids, k {kk}, rays to "
+          f"{sx - 1} samples, 15 ranks without a row in the last band ({'; '.join(plans)})", flush=True)
+
+
 def replay(cfg, n_scans: int = 150, n_cpu: int = 8) -> tuple[dict, float]:
     """Phase 4: ``Slam(cfg).run`` on the card over a synthetic warehouse with
     the launch counters reset just before and read just after, checked
@@ -907,7 +1090,7 @@ def check_batched_kernels(cfg) -> tuple[dict, dict]:
         lambda t: raster_update_grid(work, meta, ey, ex, live, accept, **kw4, threads=t), g_k,
         (b, h, w, side_y, side_x, n, kw4["k"]), 50)
     plan4 = raster_plan(b, h, w, side_y, side_x, n, kw4["k"], in_place=True,
-                        capacity=_lib.lib().slam_raster_max_clusters(side_y, side_x, 1024))
+                        capacity=_lib.lib().slam_raster_max_clusters(side_y, side_x, 1024, 1))
     work_p = occ.clone()
     plain4 = _device_ms(torch, lambda: raster_update_grid_plain(work_p, meta, ey, ex, live, accept, **kw4), 10)
     def k4_bound(live_, accept_):
@@ -927,8 +1110,8 @@ def check_batched_kernels(cfg) -> tuple[dict, dict]:
     print(f"[3] K4 raster_update_grid B={b}, {n_rays} rays of {n_active} robots with work, windows {side_y}x{side_x} "
           f"of {h}x{w}: equal to the plain version, cells changed per robot {changed.tolist()}; one launch a call, "
           f"a cluster of {CLUSTER} a robot x {plan4.threads} threads ({plan4.smem_bytes} bytes of shared memory a "
-          f"block; the card holds {_lib.lib().slam_raster_max_clusters(side_y, side_x, 1024)} clusters of {CLUSTER} x "
-          f"1024, {_lib.lib().slam_raster_max_clusters(side_y, side_x, 512)} of {CLUSTER} x 512 at once): device "
+          f"block; the card holds {_lib.lib().slam_raster_max_clusters(side_y, side_x, 1024, 1)} clusters of {CLUSTER} x "
+          f"1024, {_lib.lib().slam_raster_max_clusters(side_y, side_x, 512, 1)} of {CLUSTER} x 512 at once): device "
           f"{ms4 * 1e3:.2f} us, plain {plain4 * 1e3:.1f} us, bound {b4[0] * 1e3:.3f} us ({b4[1]}); every layout, "
           f"same bits: {layouts4}", flush=True)
     # the same 8 robots tiled to 64
@@ -1617,10 +1800,62 @@ def synthetic_frame(seed: int, h: int = 480, w: int = 640) -> np.ndarray:
     return np.clip(img + rng.normal(0, 6, img.shape), 0, 255).astype(np.uint8)
 
 
+TICK_CHECKPOINT = "checkpoints/pallet_detect_v12_640.msgpack"
+TICK_DISPARITY_PX = 24
+
+
+def stereo_pair(seed: int, disparity: int = TICK_DISPARITY_PX) -> tuple[np.ndarray, np.ndarray]:
+    """A seeded stereo pair: `synthetic_frame` for the left eye and the same
+    frame shifted ``disparity`` pixels to the left for the right eye."""
+    left = synthetic_frame(seed)
+    return left, np.roll(left, -disparity, axis=1)
+
+
+def tick(slam, detector, landmarks, scan: np.ndarray, left: np.ndarray, right: np.ndarray):
+    """One tick of the fused SLAM + detect loop (``BASELINE.json``
+    configuration 4): the SLAM step on ``scan`` (``Slam.add_scan``), the
+    stereo pair's detect (``Detector.detect_pair``: one batch-2 forward,
+    decode, NMS), and the first detection of each eye fused into
+    ``landmarks`` at the new pose (`fusion.fuse_stereo_pair`).  Returns the
+    step's outputs and the fusion's (alignment, landmark index), or None
+    where an eye saw nothing."""
+    from icp_slam_yolo_tpu_torch.fusion import fuse_stereo_pair
+
+    step = slam.add_scan(scan)
+    out_left, out_right = detector.detect_pair(left, right)
+    return step, fuse_stereo_pair(out_left, out_right, slam.pose, landmarks)
+
+
 def _head_tensors(outs):
     if isinstance(outs, tuple):
         return [t for level in outs[0] for t in level] + [outs[1]]
     return [t for level in outs for t in level]
+
+
+def _card_against_cpu(d_card, d_cpu, conf: float) -> str:
+    """Two images' `Detections` of the card (kernels) and of the CPU (plain
+    versions), float32: the same candidates kept (but those at the
+    threshold), their boxes within 0.05 model pixels, scores within 2e-3 of
+    their value (they are ~4e-5 here), classes equal.  Returns a summary."""
+    score_tol, box_tol = 2e-3, 0.05
+    n_compared, worst_box, worst_score = 0, 0.0, 0.0
+    for i in range(2):
+        rows_card = {int(a): r for r, a in enumerate(d_card.anchor_idx[i].tolist()) if a >= 0}
+        rows_cpu = {int(a): r for r, a in enumerate(d_cpu.anchor_idx[i].tolist()) if a >= 0}
+        for mine, other, d_mine, d_other in ((rows_card, rows_cpu, d_card, d_cpu), (rows_cpu, rows_card, d_cpu, d_card)):
+            for anchor, r in mine.items():
+                if abs(float(d_mine.scores[i, r]) - conf) <= score_tol * conf:
+                    continue  # at the threshold: may fall on either side
+                _require(anchor in other, f"float32 card vs cpu: anchor {anchor} of image {i} kept on one side only")
+                q = other[anchor]
+                worst_box = max(worst_box, float((d_mine.boxes[i, r].cpu() - d_other.boxes[i, q].cpu()).abs().max()))
+                worst_score = max(worst_score, abs(float(d_mine.scores[i, r]) / float(d_other.scores[i, q]) - 1.0))
+                _require(int(d_mine.classes[i, r]) == int(d_other.classes[i, q]), "float32 card vs cpu: classes differ")
+                n_compared += 1
+    _require(n_compared > 0 and worst_box <= box_tol and worst_score <= score_tol,
+             f"float32 card vs cpu: boxes differ by {worst_box} px, scores by {worst_score}")
+    return (f"{n_compared // 2} kept candidates on both sides, boxes within {worst_box:.3g} px (tolerance {box_tol}), "
+            f"scores within {worst_score:.3g} of their value (tolerance {score_tol}), classes equal")
 
 
 def detector_path() -> dict:
@@ -1722,26 +1957,8 @@ def detector_path() -> dict:
     d_cpu = cpu.predict_batch(batch8[:2])
     cpu_s = time.perf_counter() - t0
     d_card = full.predict_batch(batch8[:2])
-    score_tol, box_tol = 2e-3, 0.05  # scores: relative (they are ~4e-5 here); boxes: model pixels
-    n_compared, worst_box, worst_score = 0, 0.0, 0.0
-    for i in range(2):
-        rows_card = {int(a): r for r, a in enumerate(d_card.anchor_idx[i].tolist()) if a >= 0}
-        rows_cpu = {int(a): r for r, a in enumerate(d_cpu.anchor_idx[i].tolist()) if a >= 0}
-        for mine, other, d_mine, d_other in ((rows_card, rows_cpu, d_card, d_cpu), (rows_cpu, rows_card, d_cpu, d_card)):
-            for anchor, r in mine.items():
-                if abs(float(d_mine.scores[i, r]) - conf) <= score_tol * conf:
-                    continue  # at the threshold: may fall on either side
-                _require(anchor in other, f"float32 card vs cpu: anchor {anchor} of image {i} kept on one side only")
-                q = other[anchor]
-                worst_box = max(worst_box, float((d_mine.boxes[i, r].cpu() - d_other.boxes[i, q].cpu()).abs().max()))
-                worst_score = max(worst_score, abs(float(d_mine.scores[i, r]) / float(d_other.scores[i, q]) - 1.0))
-                _require(int(d_mine.classes[i, r]) == int(d_other.classes[i, q]), "float32 card vs cpu: classes differ")
-                n_compared += 1
-    _require(n_compared > 0 and worst_box <= box_tol and worst_score <= score_tol,
-             f"float32 card vs cpu: boxes differ by {worst_box} px, scores by {worst_score}")
     print(f"[8] float32, the card (kernels) against the port on the CPU (plain versions, {cpu_s:.1f} s for 2 frames): "
-          f"{n_compared // 2} kept candidates on both sides, boxes within {worst_box:.3g} px (tolerance {box_tol}), scores "
-          f"within {worst_score:.3g} of their value (tolerance {score_tol}), classes equal", flush=True)
+          + _card_against_cpu(d_card, d_cpu, conf), flush=True)
 
     # -- another task: the segment checkpoint once through the fused path
     seg = port.detector_from_checkpoint(SEGMENT_CHECKPOINT, conf_threshold=conf, pallas_convs=True)
@@ -1757,17 +1974,19 @@ def detector_path() -> dict:
     return launches
 
 
-def detector_times() -> None:
-    """Phase 9: a forward (``predict_batch`` on a batch already on the card:
-    model, top-K decode, NMS) at batch 1, 2, 8 and 32, fused (K5-K8) and
-    unfused (``F.conv2d`` + ``F.silu``), bfloat16: wall per forward in turns
-    (fused, unfused, unfused, fused), then a profiler window each."""
+def detector_times(path: str = DETECT_CHECKPOINT) -> None:
+    """Phase 9: a forward of ``path``'s detector (``predict_batch`` on a
+    batch already on the card: model, top-K decode, NMS) at batch 1, 2, 8
+    and 32, fused (K5-K8) and unfused (``F.conv2d`` + ``F.silu``), bfloat16:
+    wall per forward in turns (fused, unfused, unfused, fused) over 20
+    forwards (8 at batch 32), then a profiler window each."""
     import torch
 
     import icp_slam_yolo_tpu_torch as port
 
-    dets = {"fused": port.detector_from_checkpoint(DETECT_CHECKPOINT, conf_threshold=1e-6, pallas_convs=True),
-            "unfused": port.detector_from_checkpoint(DETECT_CHECKPOINT, conf_threshold=1e-6, pallas_convs=False)}
+    dets = {"fused": port.detector_from_checkpoint(path, conf_threshold=1e-6, pallas_convs=True),
+            "unfused": port.detector_from_checkpoint(path, conf_threshold=1e-6, pallas_convs=False)}
+    tag = "" if path == DETECT_CHECKPOINT else f" {path.split('/')[-1].split('.')[0]}"
     one = np.concatenate([dets["fused"].preprocess(synthetic_frame(60 + i))[0] for i in range(8)])
     for bsz in (1, 2, 8, 32):
         images = torch.from_numpy(np.tile(one, (4, 1, 1, 1))[:bsz]).cuda()
@@ -1782,7 +2001,7 @@ def detector_times() -> None:
                 det.predict_batch(images)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) / n * 1e3)
-        print(f"[9] forward at batch {bsz}, bfloat16, wall ms per forward in turns: fused {walls[0]:.3f}, unfused "
+        print(f"[9]{tag} forward at batch {bsz}, bfloat16, wall ms per forward in turns: fused {walls[0]:.3f}, unfused "
               f"{walls[1]:.3f}, unfused {walls[2]:.3f}, fused {walls[3]:.3f}", flush=True)
         for which in ("fused", "unfused"):
             det = dets[which]
@@ -1791,7 +2010,282 @@ def detector_times() -> None:
                 for _ in range(n):
                     det.predict_batch(images)
 
-            print(f"[9] batch {bsz} {which}, profiled {n} forwards: " + profile_window(torch, window, n), flush=True)
+            print(f"[9]{tag} batch {bsz} {which}, profiled {n} forwards: " + profile_window(torch, window, n), flush=True)
+
+
+# The v11 and v12 checkpoints, and the launches of K5-K8 in one forward of each
+FAMILY_CHECKPOINTS = {
+    "checkpoints/pallet_detect_v12_640.msgpack": {"conv3x3s2_silu": 7, "c2f_fused": 0, "conv1x1_silu": 82,
+                                                  "conv3x3_silu": 32},
+    "checkpoints/pallet_obb_v11_640.msgpack": {"conv3x3s2_silu": 7, "c2f_fused": 0, "conv1x1_silu": 44,
+                                               "conv3x3_silu": 37},
+}
+
+
+def check_family_sites() -> dict:
+    """Phase 7, continued: K5-K7 at every conv site of the v11 and v12
+    checkpoints' forwards on the card (640 px; batch 1, 2 and 8; bfloat16
+    and float32), each launch held against its plain version on the same
+    input (`_tolerance`, 2 bfloat16 steps).  Returns each kernel's largest
+    error."""
+    import torch
+
+    import icp_slam_yolo_tpu_torch as port
+    from icp_slam_yolo_tpu_torch.ops.pallas import conv_fused as conv
+
+    worst = dict.fromkeys(("conv1x1_silu", "conv3x3_silu", "conv3x3s2_silu"), 0.0)
+    shapes, n_checks = set(), 0
+    real = {name: getattr(conv, name) for name in worst}
+
+    def holding(name):
+        def call(x, w, b, act=True, **kw):
+            nonlocal n_checks
+            got = real[name](x, w, b, act=act, **kw) if name == "conv1x1_silu" else real[name](x, w, b, **kw)
+            hwio = w[None, None] if name == "conv1x1_silu" else w
+            want = conv.conv_bias_act_plain(x, hwio, b, 2 if name == "conv3x3s2_silu" else 1, act)
+            err = float((got.float() - want.float()).abs().max())
+            tol = _tolerance(str(x.dtype).split(".")[-1], 2, float(want.float().abs().max()))
+            _require(got.shape == want.shape and err <= tol,
+                     f"{name} {tuple(x.shape)} {x.dtype} -> {hwio.shape[-1]} act={act}: error {err} (tolerance {tol})")
+            worst[name] = max(worst[name], err)
+            shapes.add((name, tuple(x.shape), hwio.shape[-1], act))
+            n_checks += 1
+            return got
+        return call
+
+    frames = [synthetic_frame(s) for s in range(70, 78)]
+    for name in worst:
+        setattr(conv, name, holding(name))
+    try:
+        for path in FAMILY_CHECKPOINTS:
+            for dt in (torch.bfloat16, torch.float32):
+                det = port.detector_from_checkpoint(path, conf_threshold=1e-6, pallas_convs=True, compute_dtype=dt)
+                det(frames[0])
+                det.detect_pair(frames[1], frames[2])
+                det.predict_batch(np.concatenate([det.preprocess(f)[0] for f in frames]))
+    finally:
+        for name, fn in real.items():
+            setattr(conv, name, fn)
+    torch.cuda.synchronize()
+    print(f"[7] v11/v12 checkpoints' conv sites on the card (batch 1, 2, 8; bfloat16 and float32): {n_checks} launches "
+          f"at {len(shapes)} distinct shapes, each within 2 bfloat16 steps (float32: 3e-4) of its plain version; "
+          f"largest errors {worst}", flush=True)
+    return worst
+
+
+def family_paths() -> list[dict]:
+    """Phase 8, continued: the v11 and v12 checkpoints through the fused path
+    on the card, bfloat16, 640 px: ``__call__``, ``detect_pair`` and
+    ``predict_batch(8)``, each checkpoint's run between a reset and a
+    reading of the launch counters (K5 / K6 / K7 launches a forward as the
+    JAX routing gives them, K8 none); fused against unfused head outputs;
+    float32 on the card against the port on the CPU.  Returns each run's
+    launch counts."""
+    import torch
+
+    import icp_slam_yolo_tpu_torch as port
+    from icp_slam_yolo_tpu_torch.ops import pallas
+
+    conf = 1e-6
+    frames = [synthetic_frame(s) for s in range(80, 90)]
+    runs = []
+    for path, expected in FAMILY_CHECKPOINTS.items():
+        det = port.detector_from_checkpoint(path, conf_threshold=conf, pallas_convs=True)
+        det(frames[0])  # warm-up
+        torch.cuda.synchronize()
+        batch8 = np.concatenate([det.preprocess(f)[0] for f in frames[:8]])
+        per_forward = []
+
+        def counted(fn):
+            before = dict(pallas.LAUNCHES)
+            out = fn()
+            per_forward.append({k: pallas.LAUNCHES[k] - before[k] for k in expected})
+            return out
+
+        pallas.reset_launches()
+        t0 = time.perf_counter()
+        singles = [counted(lambda f=f: det(f)) for f in frames[:2]]
+        pair = counted(lambda: det.detect_pair(frames[0], frames[1]))
+        dets8 = counted(lambda: det.predict_batch(batch8))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        runs.append(dict(pallas.LAUNCHES))
+        for counts in per_forward:
+            _require(counts == expected, f"{path}: launches per forward {counts}, expected {expected}")
+        extra = {"detect": None, "obb": "angles"}[det.task]
+        for o in singles + list(pair):
+            _require(o["boxes"].shape == (len(o["scores"]), 4) and np.isfinite(o["boxes"]).all()
+                     and (o["scores"] >= conf).all() and (extra is None or o[extra].shape == (len(o["scores"]),)),
+                     f"{path}: malformed detections")
+        _require(sum(len(o["boxes"]) for o in singles) > 0, f"{path}: no candidate above the threshold")
+        _require(tuple(dets8.boxes.shape) == (8, det.max_detections, 4) and bool(torch.isfinite(dets8.boxes).all()),
+                 f"{path}: predict_batch(8) malformed")
+        for got, want in zip(pair, singles):
+            _require(len(got["boxes"]) == len(want["boxes"]) and np.allclose(got["boxes"], want["boxes"], atol=1e-3)
+                     and np.allclose(got["scores"], want["scores"], atol=1e-5), f"{path}: detect_pair differs from two calls")
+        unfused = port.detector_from_checkpoint(path, conf_threshold=conf, pallas_convs=False)
+        full = port.detector_from_checkpoint(path, conf_threshold=conf, pallas_convs=True, compute_dtype=torch.float32)
+        images = torch.from_numpy(batch8[:2]).cuda()
+        with torch.no_grad():
+            heads = [_head_tensors(d.model(images)) for d in (det, unfused, full)]
+        worst_fu, worst_f, worst_u, mag = 0.0, 0.0, 0.0, 0.0
+        for a, b, c in zip(*heads):
+            worst_fu = max(worst_fu, float((a.float() - b.float()).abs().max()))
+            worst_f = max(worst_f, float((a.float() - c).abs().max()))
+            worst_u = max(worst_u, float((b.float() - c).abs().max()))
+            mag = max(mag, float(c.abs().max()))
+        tol = 0.04 * mag  # as for v8 (phase 8)
+        _require(worst_fu <= tol and worst_f <= max(2.0 * worst_u, tol / 2), f"{path}: fused and unfused head outputs differ")
+        cpu = port.detector_from_checkpoint(path, conf_threshold=conf, pallas_convs=True, compute_dtype=torch.float32,
+                                            device="cpu")
+        cmp = _card_against_cpu(full.predict_batch(batch8[:2]), cpu.predict_batch(batch8[:2]), conf)
+        print(f"[8] {path} (family {det.model.family}, task {det.task}), fused, bfloat16: __call__ x2, detect_pair, "
+              f"predict_batch(8) in {secs * 1e3:.1f} ms, launches per forward {per_forward[0]} at batch 1, 2 and 8; "
+              f"head outputs, batch 2: fused vs unfused {worst_fu:.4g} (tolerance {tol:.4g}), against float32 fused "
+              f"{worst_f:.4g}, unfused {worst_u:.4g}; float32 card vs CPU: {cmp}", flush=True)
+    return runs
+
+
+TICK_N = 60
+
+
+def check_tick_registration(cfg) -> str:
+    """Phase 10, first: K1 at the tick's shapes (B = 1, ``cfg.n_max`` source
+    slots, a ``cfg.map_capacity``-slot map holding 8000 points) against its
+    plain version on the same inputs (1 mm / 2e-3 rad / 1 mm), and every
+    other layout that fits forced and held to the picked one's bits.  The
+    plan picks its layout from these shapes, so this is the layout the
+    tick's registrations launch."""
+    import torch
+
+    from icp_slam_yolo_tpu_torch.ops.pallas.icp_fused import card, card_plan, icp_fused, plan_fits
+
+    dev = torch.device("cuda")
+    n, cap = cfg.n_max, cfg.map_capacity
+    n_map = min(8000, cap)
+    one, kw, _ = k1_registration(cfg, n_map, np.random.default_rng(3))
+    got, (dpos, dang, drm, it_p), _ = k1_against_plain("K1 at the tick's shapes", one, kw)
+    plan = card_plan(1, n, cap, dev)
+    layout = f"{plan.row_groups} x {plan.slices} {'cluster' if plan.cluster else 'grid'}"
+    forced = []
+    for rg, sl, cl in K1_LAYOUTS:
+        if (rg, sl, cl) == plan[:3] or not plan_fits(1, n, cap, card(dev), rg, sl, cl):
+            continue
+        other = icp_fused(*one, **kw, row_groups=rg, slices=sl, cluster=cl)
+        _require(all(torch.equal(x, y) for x, y in zip(other, got)),
+                 f"K1 at the tick's shapes: layout {rg} x {sl} cluster {cl} differs from the picked {layout}")
+        forced.append(f"{rg} x {sl} {'cluster' if cl else 'grid'}")
+    _require(len(forced) > 0, "K1 at the tick's shapes: no other layout fits")
+    return (f"K1 at the tick's shapes ({int(one[1].sum())} live src of {n} x {n_map} live of {cap} tgt, layout "
+            f"{layout}): pose err {dpos:.2g} mm / {dang:.2g} rad, rmse err {drm:.2g} mm (tol 1 mm / 2e-3 rad / 1 mm), "
+            f"iters {int(got[3])} vs {it_p}; other layouts, same bits: {', '.join(forced)}")
+
+
+def tick_path() -> dict:
+    """Phase 10: the fused SLAM + detect tick (``BASELINE.json``
+    configuration 4) on the card: ``SlamConfig(map_capacity=8192)``, seeded
+    synthetic scans, the trained v12 detector in bfloat16 on the fused path,
+    seeded stereo pairs.  ``TICK_N`` ticks between a reset and a reading of
+    the launch counters (every kernel of the path launched), the SLAM
+    quality checks, ticks/s, and a profiler window over the tick and over
+    each half alone (device us, launches and the busy share); then 8 ticks
+    in float32 on the card against the same ticks on the CPU (landmarks
+    within 1e-3 of their value, poses within 2 mm / 2e-3 rad).  First K1 at
+    the tick's shapes against its plain version (`check_tick_registration`)."""
+    import torch
+
+    import icp_slam_yolo_tpu_torch as port
+    from icp_slam_yolo_tpu_torch.fusion import LandmarkMap
+    from icp_slam_yolo_tpu_torch.ops import pallas
+
+    cfg = port.SlamConfig(map_capacity=8192)
+    print(f"[10] {check_tick_registration(cfg)}", flush=True)
+    scans, gt = padded_sequence(TICK_N + 1, 21, cfg.n_max)
+    pairs = [stereo_pair(100 + k) for k in range(TICK_N + 1)]
+    det = port.detector_from_checkpoint(TICK_CHECKPOINT, conf_threshold=1e-6, pallas_convs=True)
+    warm = port.Slam(cfg)
+    for k in range(3):  # warm-up: CUDA context, allocator, the detector's first batch-2 forward
+        tick(warm, det, LandmarkMap(), scans[k], *pairs[k])
+    torch.cuda.synchronize()
+
+    pallas.reset_launches()
+    slam, landmarks = port.Slam(cfg), LandmarkMap()
+    t0 = time.perf_counter()
+    results = [tick(slam, det, landmarks, scans[k], *pairs[k]) for k in range(TICK_N + 1)]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(pallas.LAUNCHES)
+    for name in ("icp_fused", "raster_update", "nn_argmin", "conv1x1_silu", "conv3x3_silu", "conv3x3s2_silu"):
+        _require(launches[name] > 0, f"the tick never launched {name}")
+    _require(launches["c2f_fused"] == 0, "the v12 tick launched the C2f kernel")
+    steps = [step for step, _ in results[1:]]  # the first scan starts the map
+    acc = np.array([st["accepted"] for st in steps])
+    rmse = np.array([st["rmse"] for st in steps])
+    poses = np.array([st["pose"] for st in steps])
+    pos_err, ang_err = check_quality("tick", cfg, acc, rmse, poses, gt, slam.state)
+    n_fused = sum(f is not None for _, f in results)
+    _require(n_fused > 0 and all(np.isfinite(lm.xy_mm).all() for lm in landmarks.landmarks),
+             "tick: no finite landmark")
+    print(f"[10] fused tick (SlamConfig(map_capacity=8192), {TICK_CHECKPOINT} bfloat16 fused, 640 px stereo pairs, "
+          f"score threshold 1e-6): {TICK_N + 1} ticks {(TICK_N + 1) / secs:.2f} ticks/s ({secs / (TICK_N + 1) * 1e3:.2f} "
+          f"ms a tick, host reads included); accepted {acc.mean():.4f}, trajectory error max {pos_err.max():.1f} mm / "
+          f"{ang_err.max():.4f} rad; {n_fused} pairs fused into {len(landmarks.landmarks)} landmarks; launches "
+          f"{launches}", flush=True)
+
+    # where the device time goes: the tick, and each half alone, over n ticks of a fresh engine
+    n = 20
+    for what in ("tick", "slam only", "detect only"):
+        s2, lm2 = port.Slam(cfg), LandmarkMap()
+        s2.add_scan(scans[0])
+        torch.cuda.synchronize()
+        if what == "tick":
+            def window():
+                for k in range(1, n + 1):
+                    tick(s2, det, lm2, scans[k], *pairs[k])
+        elif what == "slam only":
+            def window():
+                for k in range(1, n + 1):
+                    s2.add_scan(scans[k])
+        else:
+            from icp_slam_yolo_tpu_torch.fusion import fuse_stereo_pair
+
+            def window():
+                for k in range(1, n + 1):
+                    fuse_stereo_pair(*det.detect_pair(*pairs[k]), s2.pose, lm2)
+        t0 = time.perf_counter()
+        window()
+        torch.cuda.synchronize()
+        rate = n / (time.perf_counter() - t0)
+        s2, lm2 = port.Slam(cfg), LandmarkMap()  # the profiled window from the same start
+        s2.add_scan(scans[0])
+        torch.cuda.synchronize()
+        print(f"[10] {what}: {rate:.2f} a second without the profiler; profiled {n}: "
+              + profile_window(torch, window, n), flush=True)
+
+    # float32: the card's ticks against the same ticks on the CPU
+    n_cmp = 8
+    ends = {}
+    for device in ("cuda", "cpu"):
+        d32 = port.detector_from_checkpoint(TICK_CHECKPOINT, conf_threshold=1e-6, pallas_convs=True,
+                                            compute_dtype=torch.float32, device=device)
+        s3, lm3 = port.Slam(cfg, device=device), LandmarkMap()
+        t0 = time.perf_counter()
+        out = [tick(s3, d32, lm3, scans[k], *pairs[k]) for k in range(n_cmp)]
+        ends[device] = (np.array([step["pose"] for step, _ in out]), lm3, time.perf_counter() - t0)
+    (pc, lc, _), (pp, lp, cpu_s) = ends["cuda"], ends["cpu"]
+    dpose = np.abs(pc - pp)
+    _require(dpose[:, :2].max() <= 2.0 and dpose[:, 2].max() <= 2e-3, f"tick, card vs cpu: poses differ by {dpose.max(0)}")
+    _require(len(lc.landmarks) == len(lp.landmarks) > 0, "tick, card vs cpu: other landmarks")
+    worst = 0.0
+    for a, b in zip(lc.landmarks, lp.landmarks):
+        scale = max(1.0, float(np.abs(b.xy_mm).max()))
+        worst = max(worst, float(np.abs(np.subtract(a.xy_mm, b.xy_mm)).max()) / scale, abs(a.yaw_rad - b.yaw_rad))
+        _require((a.class_id, a.n_obs) == (b.class_id, b.n_obs), "tick, card vs cpu: landmark observations differ")
+    _require(worst <= 1e-3, f"tick, card vs cpu: landmarks differ by {worst} of their value")
+    print(f"[10] float32, {n_cmp} ticks on the card against the port on the CPU ({cpu_s:.1f} s there): poses within "
+          f"{dpose[:, :2].max():.3g} mm / {dpose[:, 2].max():.3g} rad (tolerance 2 mm / 2e-3 rad), {len(lc.landmarks)} "
+          f"landmarks within {worst:.3g} of their value (tolerance 1e-3), observations equal", flush=True)
+    return launches
 
 
 def main(argv=None) -> int:
@@ -1800,9 +2294,9 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", choices=("all", "slam", "detector"), default="all",
+    parser.add_argument("--phases", choices=("all", "slam", "detector", "tick"), default="all",
                         help="run every phase (the default: the only run that ends in the result line), or only "
-                             "the SLAM and fleet phases 3-6, or only the detector phases 7-9")
+                             "the SLAM and fleet phases 3-6, only the detector phases 7-9, or only the tick (10)")
     phases = parser.parse_args(argv).phases
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1836,11 +2330,19 @@ def main(argv=None) -> int:
         kernels = check_kernels(cfg)
         kernels["raster_update_grid"], batched = check_batched_kernels(port.FLEET_CONFIG)
         check_edge_cases(cfg)
+        check_large_window(cfg)
         print(json.dumps({"batched": batched}))
     if phases in ("all", "detector"):
         kernels.update(check_detector_kernels())
+        for name, err in check_family_sites().items():
+            kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
         paths.append(detector_path())
+        paths += family_paths()
         detector_times()
+        for path in FAMILY_CHECKPOINTS:
+            detector_times(path)
+    if phases in ("all", "tick"):
+        paths.append(tick_path())
     if phases in ("all", "slam"):
         paths += [replay(cfg)[0], fleet(port.FLEET_CONFIG), presets(port.OFFLINE_CONFIG, port.REALTIME_CONFIG)]
 

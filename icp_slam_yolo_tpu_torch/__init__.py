@@ -6,12 +6,15 @@ semantics, the GICP rescue, the outlier filter, the reseed), written over a
 robot axis, and the fleet path above it (`parallel/fleet`), with four
 hand-written CUDA kernels for Hopper (``csrc/*.cu``): the fused ICP loop, the
 two occupancy raster updates and the nearest-neighbour argmin, each taking
-all robots in one launch.  It also holds the v8 pallet detector
-(`models/detect.Detector`, `detector_from_checkpoint`) with four more: the
-fused conv + bias + SiLU kernels (1x1, 3x3, 3x3 stride 2) and the whole-C2f
-kernel.  Each kernel has a plain PyTorch version beside it; a wrapper
-launches the kernel for a CUDA tensor and runs the plain version only for a
-CPU tensor.
+all robots in one launch.  It also holds the pallet detector
+(`models/detect.Detector`, `detector_from_checkpoint`; the v8, v11 and v12
+families) with four more: the fused conv + bias + SiLU kernels (1x1, 3x3,
+3x3 stride 2) and the whole-C2f kernel (v8's blocks).  Each kernel has a
+plain PyTorch version beside it; a wrapper launches the kernel for a CUDA
+tensor and runs the plain version only for a CPU tensor.  The stereo and
+pose geometry (`perception`) and the landmark map (`fusion`) close the
+fused SLAM + detect loop: a scan step, a stereo pair's detect, and the
+detection projected at the new pose (`fusion.fuse_stereo_pair`).
 
 Entry points (`Slam`, `run_sequence`, `fleet_run_sequence`, `register`,
 `gicp`, `Detector`, `detector_from_checkpoint`) take ``device=None``, which means the card; without one they raise
@@ -38,7 +41,9 @@ from icp_slam_yolo_tpu_torch.config import (  # noqa: E402
     SlamConfig,
 )
 from icp_slam_yolo_tpu_torch.core.registration import gicp, icp, icp_masked, register  # noqa: E402
+from icp_slam_yolo_tpu_torch.fusion import Landmark, LandmarkMap, fuse_stereo_pair, project_detection  # noqa: E402
 from icp_slam_yolo_tpu_torch.models.detect import Detector, detector_from_checkpoint  # noqa: E402
+from icp_slam_yolo_tpu_torch.perception.stereo import pallet_alignment  # noqa: E402
 from icp_slam_yolo_tpu_torch.parallel.fleet import (  # noqa: E402
     fleet_init,
     fleet_run_sequence,
@@ -59,7 +64,8 @@ from icp_slam_yolo_tpu_torch.slam.pipeline import (  # noqa: E402
 __all__ = [
     "FLEET_CONFIG", "OFFLINE_CONFIG", "PRESETS", "REALTIME_CONFIG",
     "GateConfig", "IcpConfig", "MapConfig", "OccupancyConfig", "SlamConfig",
-    "Detector", "detector_from_checkpoint",
+    "Detector", "detector_from_checkpoint", "Landmark", "LandmarkMap", "fuse_stereo_pair", "pallet_alignment",
+    "project_detection",
     "Slam", "SlamState", "StepOutput", "fleet_init", "fleet_run_sequence", "fleet_run_sharded",
     "gicp", "icp", "icp_masked", "init_state", "make_batched_step", "make_fleet_step",
     "make_step", "register", "run_sequence", "update_map",

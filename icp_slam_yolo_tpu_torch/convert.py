@@ -63,10 +63,14 @@ def detector_params_from_numpy(params: dict, batch_stats: dict, model) -> dict:
     ``s.conv.weight`` (OIHW), ``s/Conv_0/bias`` -> ``s.conv.bias`` when
     folded, else ``s/BatchNorm_0/{scale,bias}`` -> ``s.bn.{weight,bias}`` and
     the batch statistics ``mean``, ``var`` -> ``s.bn.running_{mean,var}``; a
-    plain 1x1 conv scope gives ``kernel`` and ``bias``.  Raises on a leaf of
-    the tree that no module consumed and on a module parameter that no leaf
-    filled."""
-    from icp_slam_yolo_tpu_torch.models.yolo import Conv1x1, ConvBnAct
+    plain conv scope gives ``kernel`` and, where the conv has one, ``bias``
+    (a 1x1, or the attention's depthwise 3x3, whose ``(3, 3, 1, c)`` kernel
+    becomes ``(c, 1, 3, 3)`` by the same permutation); a bare BatchNorm
+    scope (in a PSABlock or an ABlock: it does not fold) gives ``scale``,
+    ``bias`` and the statistics ``mean``, ``var``; an A2C2f with a residual
+    scale gives ``gamma``.  Raises on a leaf of the tree that no module
+    consumed and on a module parameter that no leaf filled."""
+    from icp_slam_yolo_tpu_torch.models.yolo import A2C2f, BatchNorm, Conv1x1, ConvBnAct, DepthwiseConv3x3
 
     flat = {**_flatten(params, ("params",)), **_flatten(batch_stats, ("batch_stats",))}
     used, state = set(), {}
@@ -78,19 +82,28 @@ def detector_params_from_numpy(params: dict, batch_stats: dict, model) -> dict:
         return torch.from_numpy(np.array(flat[path], dtype=np.float32))
 
     for name, mod in model.named_modules():
-        scope = tuple(name.split("."))
+        scope = tuple(name.split(".")) if name else ()  # () for the model itself (a block converted alone)
+        pre = f"{name}." if name else ""
         if isinstance(mod, ConvBnAct):
-            state[f"{name}.conv.weight"] = take("params", *scope, "Conv_0", "kernel").permute(3, 2, 0, 1).contiguous()
+            state[f"{pre}conv.weight"] = take("params", *scope, "Conv_0", "kernel").permute(3, 2, 0, 1).contiguous()
             if mod.folded:
-                state[f"{name}.conv.bias"] = take("params", *scope, "Conv_0", "bias")
+                state[f"{pre}conv.bias"] = take("params", *scope, "Conv_0", "bias")
             else:
-                state[f"{name}.bn.weight"] = take("params", *scope, "BatchNorm_0", "scale")
-                state[f"{name}.bn.bias"] = take("params", *scope, "BatchNorm_0", "bias")
-                state[f"{name}.bn.running_mean"] = take("batch_stats", *scope, "BatchNorm_0", "mean")
-                state[f"{name}.bn.running_var"] = take("batch_stats", *scope, "BatchNorm_0", "var")
-        elif isinstance(mod, Conv1x1):
-            state[f"{name}.conv.weight"] = take("params", *scope, "kernel").permute(3, 2, 0, 1).contiguous()
-            state[f"{name}.conv.bias"] = take("params", *scope, "bias")
+                state[f"{pre}bn.weight"] = take("params", *scope, "BatchNorm_0", "scale")
+                state[f"{pre}bn.bias"] = take("params", *scope, "BatchNorm_0", "bias")
+                state[f"{pre}bn.running_mean"] = take("batch_stats", *scope, "BatchNorm_0", "mean")
+                state[f"{pre}bn.running_var"] = take("batch_stats", *scope, "BatchNorm_0", "var")
+        elif isinstance(mod, (Conv1x1, DepthwiseConv3x3)):
+            state[f"{pre}conv.weight"] = take("params", *scope, "kernel").permute(3, 2, 0, 1).contiguous()
+            if mod.conv.bias is not None:
+                state[f"{pre}conv.bias"] = take("params", *scope, "bias")
+        elif isinstance(mod, BatchNorm):
+            state[f"{pre}weight"] = take("params", *scope, "scale")
+            state[f"{pre}bias"] = take("params", *scope, "bias")
+            state[f"{pre}running_mean"] = take("batch_stats", *scope, "mean")
+            state[f"{pre}running_var"] = take("batch_stats", *scope, "var")
+        elif isinstance(mod, A2C2f) and mod.gamma is not None:
+            state[f"{pre}gamma"] = take("params", *scope, "gamma")
     unused = sorted("/".join(p) for p in set(flat) - used)
     if unused:
         raise ValueError(f"{len(unused)} leaves of the flax tree were not consumed, e.g. {unused[:4]}")

@@ -31,8 +31,11 @@
 // columns), both counts of a cell packed in one uint32 (free in the low
 // half, endpoint in the high half: a Bresenham line visits a cell once, so
 // each count is at most N < 65536 and the tables' sums do not carry).  A
-// block holds 1/C of the window's counts, so the window's side is bounded
-// (384 at 1024 threads, see `smem_bytes`), and so is K (32 C).
+// block holds 1/C of a band's counts: a window whose tables fit no block's
+// shared memory is taken in bands of rows (below), one band at the presets'
+// window (384 x 384 at 1024 threads, see `smem_bytes`).  A rank counts at
+// most kMaxPerRay samples of a ray an item; a ray of more than C kMaxPerRay
+// samples gives an item every C kMaxPerRay samples more (`count`).
 // Remote loads and atomics across the cluster were measured slow, and so
 // were cluster barriers that order memory (a device-wide fence): data moves
 // between the ranks by asynchronous stores and bulk copies (`st.async`,
@@ -56,6 +59,18 @@
 //     scan-start read of its robot's window is done; the windows of
 //     different robots lie in different grids.  A last cluster barrier
 //     keeps every block running until the copies out of it have landed.
+// Bands: where the tables of the whole window fit no block, the window's
+// rows are taken in `bands` bands of C `rows` rows, in the same launch.  The
+// walk runs once, in the first band, over every ray; each rank keeps the
+// stops it received in `stops` (device memory, its own part) and reads them
+// back in the later bands.  Each band counts only the samples whose row lies
+// in it, sends its Tx, updates its rows and ends on a cluster barrier, so a
+// band's copies never meet the next band's tables.  Every scan-start read of
+// the window (the walk's) ends before the first band writes, as above; a
+// band's staged rows are rows no earlier band wrote.  The kernel has two
+// forms: the general one (`kWide`) and one for a single band whose items
+// are single samples (K <= C kMaxPerRay), with the bands' loop and the
+// items' later samples compiled out; the presets' windows take the second.
 // A block has 1024 threads while a batch's clusters fit the card at once
 // (the latency counts), 512 beyond (the throughput counts): then its shared
 // memory is halved (the layout's `compact`), so that two blocks share a
@@ -89,7 +104,7 @@ static_assert(kCluster == 1 << kLog2C, "kLog2C is log2(kCluster)");
 constexpr int kRayGroup = 512;  // rays whose geometry and stops a block holds at a time (<= a block's threads)
 constexpr int kPowTable = 512;  // decay^n for n below it (the robot's cell alone may reach N = 512)
 constexpr int kWalk = 5;        // chunks of 32 samples whose lookups a walking warp issues together
-constexpr int kMaxPerRay = 32;  // samples of a ray a rank counts, at most (K <= 32 kCluster)
+constexpr int kMaxPerRay = 32;  // items of a ray a rank counts: sample m of an item, and m + kMaxPerRay j
 constexpr int kCols = 3;        // window columns a lane updates at a time (3 x 32: a 384-wide row in 4)
 constexpr int kCopyUnroll = 4;  // vectors a copying thread loads before it stores
 constexpr int kMaxSmem = 232448;
@@ -103,14 +118,16 @@ struct Args {
   const int* ex;
   const uint8_t* live;    // (B, N)
   const uint8_t* accept;  // (B,) or null for "always"
+  int* stops;             // (B, kCluster, N): the stops each rank received, kept for the later bands; null for one band
   int B, H, W, N, side_y, side_x, K;
   float block_threshold, decay, inc;
-  int rows;        // window rows a rank owns: ceil(side_y / kCluster)
+  int bands;       // bands of kCluster x rows window rows
+  int rows;        // window rows a rank owns in a band: ceil(ceil(side_y / kCluster) / bands)
   int cols;        // window columns a rank owns, rounded up to 4: the 16-byte rows of Tx
   int ty_pitch;    // words a row of Ty takes: side_x + 1 (rows 32 banks apart would share a bank)
   int rx_stride;   // words a rank's part of Rx takes: rows x cols, padded to 4 modulo 32 (the same)
   int pitch;       // floats a staged row takes: side_x + 6 rounded down to 4 (room for a 16-byte aligned copy)
-  int per_ray;     // samples of a ray a rank counts, at most: ceil(K / kCluster) <= kMaxPerRay
+  int per_ray;     // items of a ray a rank counts, at most: min(ceil(K / kCluster), kMaxPerRay)
   int bulk;        // staged rows come by bulk copies (16-byte aligned rows), else by 4-byte copies
   int copy_vec;    // K2's copy: cells a vector (4 or 1)
   int copy_chunk;  // K2's copy: vectors a copying block takes, a contiguous run
@@ -303,14 +320,23 @@ __device__ void copy_outside(const Args& a, int blk) {
   }
 }
 
-// The counts of the rank's samples of one kind of ray: the rays sorted by
-// their number of samples here, most first (`sgeo`, `sdir`), `off[m]` the
-// first item of sample m: items off[m] + p, p < (rays with more than m
-// samples), are sample m of ray p.  Every item is a sample up to its ray's
-// last counted one.
-template <int kThreads>
+// The counts of the rank's samples of one kind of ray in the band of rows
+// [y0, y1) (y0 a multiple of C): the rays sorted by their number of items
+// here, most first (`sgeo`, `sdir`), `off[m]` the first item m: items
+// off[m] + p, p < (rays with more than m items), are item m of ray p, its
+// samples m, m + kMaxPerRay, ... of the rank, up to its ray's last counted
+// one.  The first is always a sample; without kWide it is the only one.
+// A ray's items here, its samples from `d`'s first to `last`: at most S
+// (without kWide, K <= C S and so is every ray's count).
+template <bool kWide>
+__device__ __forceinline__ int items_of(int last, int d, int S) {
+  const int n = last >= d >> 8 ? ((last - (d >> 8)) >> kLog2C) + 1 : 0;
+  return kWide ? min(n, S) : n;
+}
+
+template <int kThreads, bool kWide>
 __device__ __forceinline__ void count(const Args& a, const int4* sgeo, const int4* sdir, const int* off, int rly,
-                                      int rlx, uint32_t* ty, uint32_t* tx) {
+                                      int rlx, int y0, int y1, uint32_t* ty, uint32_t* tx) {
   constexpr int C = kCluster, kLog2 = kLog2C;
   const int items = off[a.per_ray];
   int m = 0;
@@ -319,15 +345,19 @@ __device__ __forceinline__ void count(const Args& a, const int4* sgeo, const int
     const int p = q - off[m];
     const int4 d = sdir[p];
     const Ray ray(sgeo[p], d);
-    const int i = (d.y >> 8) + C * m;
-    int ly, lx;
-    ray.cell(i, rly, rlx, ly, lx);
-    if (ly >= 0 && ly < a.side_y && lx >= 0 && lx < a.side_x) {
-      // Ty (this rank's rows) for a y-driven ray, Tx (its columns) for an x-driven one
-      uint32_t* c = ray.x_driven ? tx + (((ly & (C - 1)) * a.rows + (ly >> kLog2)) * a.cols + (lx >> kLog2))
-                                 : ty + (ly >> kLog2) * a.ty_pitch + lx;
-      atomicAdd(c, i < ray.ell ? 1u : 1u << 16);  // i == ell: the endpoint of a ray nothing stopped
-    }
+    int i = (d.y >> 8) + C * m;
+    do {
+      int ly, lx;
+      ray.cell(i, rly, rlx, ly, lx);
+      if (ly >= y0 && ly < y1 && lx >= 0 && lx < a.side_x) {
+        // Ty (this rank's rows) for a y-driven ray, Tx (its columns) for an x-driven one
+        ly -= y0;
+        uint32_t* c = ray.x_driven ? tx + (((ly & (C - 1)) * a.rows + (ly >> kLog2)) * a.cols + (lx >> kLog2))
+                                   : ty + (ly >> kLog2) * a.ty_pitch + lx;
+        atomicAdd(c, i < ray.ell ? 1u : 1u << 16);  // i == ell: the endpoint of a ray nothing stopped
+      }
+      i += C * kMaxPerRay;
+    } while (kWide && i <= ray.last);
   }
 }
 
@@ -335,8 +365,10 @@ __device__ __forceinline__ void count(const Args& a, const int4* sgeo, const int
 // shared memory, Tx sent while the y-driven rays are counted.  kThreads 512
 // (COMPACT): half the shared memory, so two blocks share a multiprocessor;
 // the rays' geometry lives in Rx until Tx arrives, the old values come from
-// device memory.
-template <bool IN_PLACE, int kThreads>
+// device memory.  kWide: the window in more than one band, or rays of
+// more than C kMaxPerRay samples; without it, one band of one sample an
+// item, the bands' loop and the items' later samples compiled out.
+template <bool IN_PLACE, int kThreads, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1024 / kThreads) raster_kernel(const Args a) {
   constexpr int C = kCluster, kLog2 = kLog2C;
   constexpr int kWarps = kThreads / 32;
@@ -364,10 +396,10 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads) raster_kernel(const
   const int sx = a.side_x, rows = a.rows, cols = a.cols;
   const float* occ_win = a.occ + (rb * a.H + y0) * a.W + x0;
   float* out_win = a.out + (rb * a.H + y0) * a.W + x0;
-  const int my_rows = (a.side_y - rank + C - 1) >> kLog2;  // this rank's rows: ly = rank + C t
+  const int all_rows = (a.side_y - rank + C - 1) >> kLog2;  // this rank's rows: ly = rank + C t
   if (a.accept != nullptr && !a.accept[rb]) {  // uniform over the cluster: no barrier is reached
     if (!IN_PLACE)
-      for (int t = warp; t < my_rows; t += kWarps) {
+      for (int t = warp; t < all_rows; t += kWarps) {
         const size_t g = static_cast<size_t>(rank + C * t) * a.W;
         for (int lx = lane; lx < sx; lx += 32) out_win[g + lx] = occ_win[g + lx];
       }
@@ -384,222 +416,253 @@ __global__ void __launch_bounds__(kThreads, 1024 / kThreads) raster_kernel(const
   float* pow_s = reinterpret_cast<float*>(smem + L.pow);
   int4* sgeo = reinterpret_cast<int4*>(smem + L.sgeo);
   int4* sdir = reinterpret_cast<int4*>(smem + L.sdir);
-  // rays by kind (x-driven, y-driven) and samples here; then with more than m samples; then items before m
+  // rays by kind (x-driven, y-driven) and items here; then with more than m items; then items before m
   int* hist = reinterpret_cast<int*>(smem + L.hist);
   int* gt = hist + 2 * (kMaxPerRay + 1);
   int* off = gt + 2 * (kMaxPerRay + 1);
+  int* kept = !kWide || a.stops == nullptr ? nullptr : a.stops + (rb * C + rank) * a.N;  // this rank's stops, bands > 1
   const uint32_t bar_old = smem_addr(smem + L.bars), bar_tx = bar_old + 8, bar_stop = bar_old + 16;
 
   // the barriers
   const int shift = a.bulk ? (x0 & 3) : 0;  // a staged row starts at the 16-byte boundary at or before x0
+  const uint32_t row_bytes = ((shift + sx + 3) & ~3) * 4;  // a staged row by bulk copy
   if (threadIdx.x == 0) {
     mbar_init(bar_old);
     mbar_init(bar_tx);
     mbar_init(bar_stop);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     mbar_expect(bar_tx, C * rows * cols * 4);  // C chunks of rows x cols counts
+    if (!kCompact && a.bulk) mbar_expect(bar_old, row_bytes * min(rows, all_rows));
   }
   slam_nn::cluster_arrive_relaxed();  // waited for before the first store into another block
-  const uint32_t row_bytes = ((shift + sx + 3) & ~3) * 4;  // a staged row by bulk copy
-  if (!kCompact && a.bulk && threadIdx.x == 0) mbar_expect(bar_old, row_bytes * my_rows);
-  if (!kCompact && !a.bulk) {
-    for (int t = warp; t < my_rows; t += kWarps)
-      for (int lx = lane; lx < sx; lx += 32)
-        cp_async4(smem_addr(old + t * a.pitch + lx), occ_win + static_cast<size_t>(rank + C * t) * a.W + lx);
-  }
   const float thr = a.block_threshold;
-  for (int g0 = 0, group = 0; g0 < a.N; g0 += kRayGroup, ++group) {
-    const int gn = min(kRayGroup, a.N - g0);
-    const bool last_group = g0 + kRayGroup >= a.N;
-    if (threadIdx.x == 0) mbar_expect(bar_stop, gn * 4);  // a stop a ray, from its walker
-    if (threadIdx.x < 2 * (kMaxPerRay + 1)) hist[threadIdx.x] = 0;
-
-    // a warp walks each ray to its first blocked body sample, and tells every rank
-    if (g0 == 0) slam_nn::cluster_wait();  // every rank running, its barriers ready
-    for (int j = rank * kWarps + warp; j < gn; j += C * kWarps) {
-      const Ray ray(rly, rlx, ey[g0 + j], ex[g0 + j], a.K, live[g0 + j]);
-      int s = kNone;
-      for (int base = 0; base <= ray.last && s == kNone; base += 32 * kWalk) {
-        const int chunks = min(kWalk, (ray.last - base) / 32 + 1);  // the chunks with samples
-        float p[kWalk];
-        bool body[kWalk];
-#pragma unroll
-        for (int u = 0; u < kWalk; ++u) {
-          if (u < chunks) {
-            const int i = base + 32 * u + lane;
-            int ly, lx;
-            ray.cell(i, rly, rlx, ly, lx);
-            body[u] = i <= ray.last && i < ray.ell && ly >= 0 && ly < a.side_y && lx >= 0 && lx < sx;
-            // every lane loads, at a clamped address, and the value is masked by `body`
-            p[u] = __ldg(occ_win + min(max(ly, 0), a.side_y - 1) * a.W + min(max(lx, 0), sx - 1));
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kWalk; ++u) {
-          if (u < chunks) {
-            const unsigned blocked = __ballot_sync(0xffffffffu, body[u] && p[u] >= thr);
-            if (blocked && s == kNone) s = base + 32 * u + __ffs(blocked) - 1;
-          }
-        }
-      }
-      if (lane < C) st_to_rank(smem_addr(stop + j), s, bar_stop, lane);
-    }
-
-    // while the stops come: zeroed tables; each ray's geometry (kThreads >= kRayGroup)
-    if (g0 == 0) {
-      uint4* z = reinterpret_cast<uint4*>(smem + L.ty);  // Ty and Tx are adjacent, 16-byte aligned
-      const int n4 = (L.rx - L.ty) / 16;
-      for (int c = threadIdx.x; c < n4; c += kThreads) z[c] = make_uint4(0, 0, 0, 0);
-    }
-    if (threadIdx.x < gn) {
-      if (g0 > 0) {
-        ray_ey = ey[g0 + threadIdx.x];
-        ray_ex = ex[g0 + threadIdx.x];
-        ray_live = live[g0 + threadIdx.x];
-      }
-      const Ray ray(rly, rlx, ray_ey, ray_ex, a.K, ray_live);
-      // the rank's samples: those whose driving coordinate is rank modulo C
-      const int i0 = (ray.x_driven ? (rank - rlx) * ray.sx : (rank - rly) * ray.sy) & (C - 1);
-      geo[threadIdx.x] = make_int4(ray.dmaj, ray.dmin, ray.ell, ray.last);
-      dir[threadIdx.x] = make_int4(0, (ray.sy < 0) | (ray.sx < 0) << 1 | ray.x_driven << 2 | i0 << 8,
-                                   __float_as_int(ray.rcp), 0);
-    }
-    // every stop of the group here; every walker's lookups, done before it
-    // sent its stop, read the scan-start window (K4 writes it in phase 4)
-    mbar_wait(bar_stop, group & 1);
-    __syncthreads();
-    if (!kCompact && a.bulk && g0 == 0 && lane == 0)  // the barrier ready: a warp a staged row
+  const int bands = kWide ? a.bands : 1;
+  for (int band = 0; band < bands; ++band) {
+    // this rank's rows of the band: ly = rank + C (t0 + t), t < my_rows; the band's rows [band_y0, band_y1)
+    const int t0 = band * rows, my_rows = max(0, min(rows, all_rows - t0));
+    const int band_y0 = C * t0, band_y1 = kWide ? min(band_y0 + C * rows, a.side_y) : a.side_y;
+    const float* occ_band = occ_win + static_cast<size_t>(rank + C * t0) * a.W;
+    float* out_band = out_win + static_cast<size_t>(rank + C * t0) * a.W;
+    if (!kCompact && !a.bulk) {
       for (int t = warp; t < my_rows; t += kWarps)
-        bulk_load(smem_addr(old + t * a.pitch), occ_win + static_cast<size_t>(rank + C * t) * a.W - shift, row_bytes,
+        for (int lx = lane; lx < sx; lx += 32)
+          cp_async4(smem_addr(old + t * a.pitch + lx), occ_band + static_cast<size_t>(C * t) * a.W + lx);
+    }
+    if (!kCompact && a.bulk && band > 0 && lane == 0)  // the barrier armed at the last band's end
+      for (int t = warp; t < my_rows; t += kWarps)
+        bulk_load(smem_addr(old + t * a.pitch), occ_band + static_cast<size_t>(C * t) * a.W - shift, row_bytes,
                   bar_old);
+    for (int g0 = 0, group = 0; g0 < a.N; g0 += kRayGroup, ++group) {
+      const int gn = min(kRayGroup, a.N - g0);
+      const bool last_group = g0 + kRayGroup >= a.N;
+      if (band == 0 && threadIdx.x == 0) mbar_expect(bar_stop, gn * 4);  // a stop a ray, from its walker
+      if (threadIdx.x < 2 * (kMaxPerRay + 1)) hist[threadIdx.x] = 0;
 
-    // the counts of each of the rank's samples before its ray's stop, the
-    // x-driven rays' first, so that Tx leaves while the rest are counted.
-    // Each ray's last counted sample, and its samples here: n
-    const int S = a.per_ray;
-    for (int j = threadIdx.x; j < gn; j += kThreads) {
-      const int s = stop[j], last = s == kNone ? geo[j].w : min(geo[j].w, s - 1), d = dir[j].y;
-      geo[j].w = last;
-      atomicAdd(hist + (d & 4 ? 0 : kMaxPerRay + 1) + (last >= d >> 8 ? ((last - (d >> 8)) >> kLog2) + 1 : 0), 1);
-    }
-    __syncthreads();
-    if (warp < 2) {  // warp 0 the x-driven rays, warp 1 the others; lane l stands for m = l (S <= 32)
-      const int* h = hist + warp * (kMaxPerRay + 1);
-      int more = lane < S ? h[lane + 1] : 0;  // rays with more than m samples: a suffix sum
-      for (int d = 1; d < 32; d <<= 1) {
-        const int v = __shfl_down_sync(0xffffffffu, more, d);
-        more += lane + d < 32 ? v : 0;
+      // a warp walks each ray to its first blocked body sample, and tells every rank
+      if (band == 0 && g0 == 0) slam_nn::cluster_wait();  // every rank running, its barriers ready
+      for (int j = rank * kWarps + warp; band == 0 && j < gn; j += C * kWarps) {
+        const Ray ray(rly, rlx, ey[g0 + j], ex[g0 + j], a.K, live[g0 + j]);
+        int s = kNone;
+        for (int base = 0; base <= ray.last && s == kNone; base += 32 * kWalk) {
+          const int chunks = min(kWalk, (ray.last - base) / 32 + 1);  // the chunks with samples
+          float p[kWalk];
+          bool body[kWalk];
+#pragma unroll
+          for (int u = 0; u < kWalk; ++u) {
+            if (u < chunks) {
+              const int i = base + 32 * u + lane;
+              int ly, lx;
+              ray.cell(i, rly, rlx, ly, lx);
+              body[u] = i <= ray.last && i < ray.ell && ly >= 0 && ly < a.side_y && lx >= 0 && lx < sx;
+              // every lane loads, at a clamped address, and the value is masked by `body`
+              p[u] = __ldg(occ_win + min(max(ly, 0), a.side_y - 1) * a.W + min(max(lx, 0), sx - 1));
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kWalk; ++u) {
+            if (u < chunks) {
+              const unsigned blocked = __ballot_sync(0xffffffffu, body[u] && p[u] >= thr);
+              if (blocked && s == kNone) s = base + 32 * u + __ffs(blocked) - 1;
+            }
+          }
+        }
+        if (lane < C) st_to_rank(smem_addr(stop + j), s, bar_stop, lane);
       }
-      int before = more;  // items before sample m: a prefix sum of `more`
-      for (int d = 1; d < 32; d <<= 1) {
-        const int v = __shfl_up_sync(0xffffffffu, before, d);
-        before += lane >= d ? v : 0;
+
+      // while the stops come: zeroed tables; each ray's geometry (kThreads >= kRayGroup)
+      if (g0 == 0) {
+        uint4* z = reinterpret_cast<uint4*>(smem + L.ty);  // Ty and Tx are adjacent, 16-byte aligned
+        const int n4 = (L.rx - L.ty) / 16;
+        for (int c = threadIdx.x; c < n4; c += kThreads) z[c] = make_uint4(0, 0, 0, 0);
       }
-      gt[warp * (kMaxPerRay + 1) + lane] = lane < S ? more : 0;
-      off[warp * (kMaxPerRay + 1) + lane] = before - more;
-      if (lane == 31) off[warp * (kMaxPerRay + 1) + S] = before;
-    }
-    __syncthreads();
-    const int nx = gt[0];  // the x-driven rays with a sample here come first
-    for (int j = threadIdx.x; j < gn; j += kThreads) {  // the rays sorted by samples here, most first
-      const int last = geo[j].w, d = dir[j].y, kind = d & 4 ? 0 : 1;
-      const int n = last >= d >> 8 ? ((last - (d >> 8)) >> kLog2) + 1 : 0;
-      if (n > 0) {
-        const int pos = (kind ? nx : 0) + (n < S ? gt[kind * (kMaxPerRay + 1) + n] : 0) +
-                        atomicSub(hist + kind * (kMaxPerRay + 1) + n, 1) - 1;
-        sgeo[pos] = geo[j];
-        sdir[pos] = dir[j];
+      if (threadIdx.x < gn) {
+        if (g0 > 0 || band > 0) {
+          ray_ey = ey[g0 + threadIdx.x];
+          ray_ex = ex[g0 + threadIdx.x];
+          ray_live = live[g0 + threadIdx.x];
+        }
+        const Ray ray(rly, rlx, ray_ey, ray_ex, a.K, ray_live);
+        // the rank's samples: those whose driving coordinate is rank modulo C
+        const int i0 = (ray.x_driven ? (rank - rlx) * ray.sx : (rank - rly) * ray.sy) & (C - 1);
+        geo[threadIdx.x] = make_int4(ray.dmaj, ray.dmin, ray.ell, ray.last);
+        dir[threadIdx.x] = make_int4(0, (ray.sy < 0) | (ray.sx < 0) << 1 | ray.x_driven << 2 | i0 << 8,
+                                     __float_as_int(ray.rcp), 0);
+      }
+      // every stop of the group here; every walker's lookups, done before it
+      // sent its stop, read the scan-start window (K4 writes it in phase 4)
+      if (band == 0) mbar_wait(bar_stop, group & 1);
+      __syncthreads();
+      if (!kCompact && a.bulk && band == 0 && g0 == 0 && lane == 0)  // the barrier ready: a warp a staged row
+        for (int t = warp; t < my_rows; t += kWarps)
+          bulk_load(smem_addr(old + t * a.pitch), occ_band + static_cast<size_t>(C * t) * a.W - shift, row_bytes,
+                    bar_old);
+
+      // the counts of each of the rank's samples before its ray's stop, the
+      // x-driven rays' first, so that Tx leaves while the rest are counted.
+      // Each ray's last counted sample, and its items here: n
+      const int S = a.per_ray;
+      for (int j = threadIdx.x; j < gn; j += kThreads) {
+        int s;
+        if (band == 0) {
+          s = stop[j];
+          if (kept != nullptr) kept[g0 + j] = s;  // read back by this thread in the later bands
+        } else {
+          s = kept[g0 + j];
+        }
+        const int last = s == kNone ? geo[j].w : min(geo[j].w, s - 1), d = dir[j].y;
+        geo[j].w = last;
+        atomicAdd(hist + (d & 4 ? 0 : kMaxPerRay + 1) + items_of<kWide>(last, d, S), 1);
+      }
+      __syncthreads();
+      if (warp < 2) {  // warp 0 the x-driven rays, warp 1 the others; lane l stands for m = l (S <= 32)
+        const int* h = hist + warp * (kMaxPerRay + 1);
+        int more = lane < S ? h[lane + 1] : 0;  // rays with more than m items: a suffix sum
+        for (int d = 1; d < 32; d <<= 1) {
+          const int v = __shfl_down_sync(0xffffffffu, more, d);
+          more += lane + d < 32 ? v : 0;
+        }
+        int before = more;  // items before item m: a prefix sum of `more`
+        for (int d = 1; d < 32; d <<= 1) {
+          const int v = __shfl_up_sync(0xffffffffu, before, d);
+          before += lane >= d ? v : 0;
+        }
+        gt[warp * (kMaxPerRay + 1) + lane] = lane < S ? more : 0;
+        off[warp * (kMaxPerRay + 1) + lane] = before - more;
+        if (lane == 31) off[warp * (kMaxPerRay + 1) + S] = before;
+      }
+      __syncthreads();
+      const int nx = gt[0];  // the x-driven rays with a sample here come first
+      for (int j = threadIdx.x; j < gn; j += kThreads) {  // the rays sorted by items here, most first
+        const int last = geo[j].w, d = dir[j].y, kind = d & 4 ? 0 : 1;
+        const int n = items_of<kWide>(last, d, S);
+        if (n > 0) {
+          const int pos = (kind ? nx : 0) + (n < S ? gt[kind * (kMaxPerRay + 1) + n] : 0) +
+                          atomicSub(hist + kind * (kMaxPerRay + 1) + n, 1) - 1;
+          sgeo[pos] = geo[j];
+          sdir[pos] = dir[j];
+        }
+      }
+      __syncthreads();
+      count<kThreads, kWide>(a, sgeo, sdir, off, rly, rlx, band_y0, band_y1, ty, tx);
+      if (!kCompact && last_group) {  // every rank its part of Tx: the column counts in its rows
+        fence_to_bulk();
+        __syncthreads();
+        if (warp < C && lane == 0)  // a warp a receiving rank
+          bulk_to_rank(smem_addr(rx + rank * a.rx_stride), smem_addr(tx + warp * rows * cols), rows * cols * 4,
+                       bar_tx, warp);
+      }
+      count<kThreads, kWide>(a, sgeo + nx, sdir + nx, off + kMaxPerRay + 1, rly, rlx, band_y0, band_y1, ty, tx);
+      if (!last_group) {
+        __syncthreads();  // the group's geometry free for the next
+        if (band == 0) cluster_meet();  // every rank done with the stops before the next group's arrive
       }
     }
-    __syncthreads();
-    count<kThreads>(a, sgeo, sdir, off, rly, rlx, ty, tx);
-    if (!kCompact && last_group) {  // every rank its part of Tx: the column counts in its rows
+    if (kCompact && a.N > 0) {  // every rank its part of Tx, once every rank is done with the geometry in Rx
       fence_to_bulk();
       __syncthreads();
-      if (warp < C && lane == 0)  // a warp a receiving rank
+      cluster_meet();
+      if (warp < C && lane == 0)
         bulk_to_rank(smem_addr(rx + rank * a.rx_stride), smem_addr(tx + warp * rows * cols), rows * cols * 4, bar_tx,
                      warp);
     }
-    count<kThreads>(a, sgeo + nx, sdir + nx, off + kMaxPerRay + 1, rly, rlx, ty, tx);
-    if (!last_group) {
-      __syncthreads();  // the group's geometry free for the next
-      cluster_meet();  // every rank done with the stops before the next group's arrive
+    if (a.N == 0) {  // no group: the rows staged and Tx (all zero) sent all the same
+      if (band == 0) slam_nn::cluster_wait();  // every rank running, its barriers ready
+      uint4* z = reinterpret_cast<uint4*>(smem + L.ty);
+      for (int c = threadIdx.x; c < (L.rx - L.ty) / 16; c += kThreads) z[c] = make_uint4(0, 0, 0, 0);
+      fence_to_bulk();
+      __syncthreads();
+      if (!kCompact && a.bulk && band == 0 && lane == 0)
+        for (int t = warp; t < my_rows; t += kWarps)
+          bulk_load(smem_addr(old + t * a.pitch), occ_band + static_cast<size_t>(C * t) * a.W - shift, row_bytes,
+                    bar_old);
+      if (warp < C && lane == 0)
+        bulk_to_rank(smem_addr(rx + rank * a.rx_stride), smem_addr(tx + warp * rows * cols), rows * cols * 4, bar_tx,
+                     warp);
     }
-  }
-  if (kCompact && a.N > 0) {  // every rank its part of Tx, once every rank is done with the geometry in Rx
-    fence_to_bulk();
-    __syncthreads();
-    cluster_meet();
-    if (warp < C && lane == 0)
-      bulk_to_rank(smem_addr(rx + rank * a.rx_stride), smem_addr(tx + warp * rows * cols), rows * cols * 4, bar_tx,
-                   warp);
-  }
-  if (a.N == 0) {  // no group: the rows staged and Tx (all zero) sent all the same
-    slam_nn::cluster_wait();  // every rank running, its barriers ready
-    uint4* z = reinterpret_cast<uint4*>(smem + L.ty);
-    for (int c = threadIdx.x; c < (L.rx - L.ty) / 16; c += kThreads) z[c] = make_uint4(0, 0, 0, 0);
-    fence_to_bulk();
-    __syncthreads();
-    if (!kCompact && a.bulk && lane == 0)
-      for (int t = warp; t < my_rows; t += kWarps)
-        bulk_load(smem_addr(old + t * a.pitch), occ_win + static_cast<size_t>(rank + C * t) * a.W - shift, row_bytes,
-                  bar_old);
-    if (warp < C && lane == 0)
-      bulk_to_rank(smem_addr(rx + rank * a.rx_stride), smem_addr(tx + warp * rows * cols), rows * cols * 4, bar_tx,
-                   warp);
-  }
-  // the decay^n table while Tx is on its way
-  for (int n = threadIdx.x; n < kPowTable; n += kThreads) pow_s[n] = powf(a.decay, static_cast<float>(n));
-  if (!kCompact && a.bulk) mbar_wait(bar_old, 0);
-  if (!kCompact && !a.bulk) asm volatile("cp.async.wait_all;\n" ::: "memory");
-  mbar_wait(bar_tx, 0);
-  __syncthreads();  // every count, staged cell and table entry in place
+    // the decay^n table while Tx is on its way (kept for the later bands: nothing else writes its space then)
+    if (band == 0)
+      for (int n = threadIdx.x; n < kPowTable; n += kThreads) pow_s[n] = powf(a.decay, static_cast<float>(n));
+    if (!kCompact && a.bulk) mbar_wait(bar_old, band & 1);
+    if (!kCompact && !a.bulk) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    mbar_wait(bar_tx, band & 1);
+    __syncthreads();  // every count, staged cell and table entry in place
 
-  // the update of this rank's rows: Ty plus the Tx entries from the column's owner; a warp
-  // takes 32 kCols columns of a row at a time.  Column lx = lane + 32 v: its Tx owner is
-  // lane mod C, its entry there (lx >> log2 C) = (lane >> log2 C) + (32 v >> log2 C)
-  const float decay = a.decay, inc = a.inc;
-  const int seg = 32 * kCols, segs = (sx + seg - 1) / seg;
-  const uint32_t* rx_lane = rx + (lane & (C - 1)) * a.rx_stride + (lane >> kLog2);
-  // (row, segment) of unit w + kWarps k, stepped without a division
-  const int dt = kWarps / segs, ds = kWarps - dt * segs;
-  for (int t = warp / segs, sg = warp % segs; t < my_rows;) {
-    const int lx0 = sg * seg;
-    const uint32_t* tyr = ty + t * a.ty_pitch + lx0 + lane;
-    const uint32_t* rxr = rx_lane + t * cols + (lx0 >> kLog2);
-    float* outr = out_win + static_cast<size_t>(rank + C * t) * a.W + lx0 + lane;
-    // the old values: staged, or (compact) the grid's own, read before this block writes the row
-    const float* oldr = kCompact ? (IN_PLACE ? outr : occ_win + static_cast<size_t>(rank + C * t) * a.W + lx0 + lane)
-                                 : old + t * a.pitch + shift + lx0 + lane;
+    // the update of this rank's rows: Ty plus the Tx entries from the column's owner; a warp
+    // takes 32 kCols columns of a row at a time.  Column lx = lane + 32 v: its Tx owner is
+    // lane mod C, its entry there (lx >> log2 C) = (lane >> log2 C) + (32 v >> log2 C)
+    const float decay = a.decay, inc = a.inc;
+    const int seg = 32 * kCols, segs = (sx + seg - 1) / seg;
+    const uint32_t* rx_lane = rx + (lane & (C - 1)) * a.rx_stride + (lane >> kLog2);
+    // (row, segment) of unit w + kWarps k, stepped without a division
+    const int dt = kWarps / segs, ds = kWarps - dt * segs;
+    for (int t = warp / segs, sg = warp % segs; t < my_rows;) {
+      const int lx0 = sg * seg;
+      const uint32_t* tyr = ty + t * a.ty_pitch + lx0 + lane;
+      const uint32_t* rxr = rx_lane + t * cols + (lx0 >> kLog2);
+      float* outr = out_band + static_cast<size_t>(C * t) * a.W + lx0 + lane;
+      // the old values: staged, or (compact) the grid's own, read before this block writes the row
+      const float* oldr = kCompact ? (IN_PLACE ? outr : occ_band + static_cast<size_t>(C * t) * a.W + lx0 + lane)
+                                   : old + t * a.pitch + shift + lx0 + lane;
 #pragma unroll
-    for (int u = 0; u < kCols; ++u) {
-      if (lx0 + lane + 32 * u < sx) {
-        const uint32_t n = tyr[32 * u] + rxr[(32 * u) >> kLog2];
-        if (!IN_PLACE || n != 0) outr[32 * u] = updated(oldr[32 * u], n, pow_s, decay, inc);
+      for (int u = 0; u < kCols; ++u) {
+        if (lx0 + lane + 32 * u < sx) {
+          const uint32_t n = tyr[32 * u] + rxr[(32 * u) >> kLog2];
+          if (!IN_PLACE || n != 0) outr[32 * u] = updated(oldr[32 * u], n, pow_s, decay, inc);
+        }
+      }
+      t += dt;
+      sg += ds;
+      if (sg >= segs) {
+        sg -= segs;
+        ++t;
       }
     }
-    t += dt;
-    sg += ds;
-    if (sg >= segs) {
-      sg -= segs;
-      ++t;
+    if (band + 1 < bands && threadIdx.x == 0) {  // the next band's phases, armed before any copy can come
+      mbar_expect(bar_tx, C * rows * cols * 4);
+      if (!kCompact && a.bulk) mbar_expect(bar_old, row_bytes * max(0, min(rows, all_rows - t0 - rows)));
     }
+    cluster_meet();  // every bulk copy out of this block has landed
   }
-  cluster_meet();  // every bulk copy out of this block has landed
 }
 
-// Shared memory a block of `threads` takes at these sizes.
-int smem_bytes(int side_y, int side_x, int threads) {
-  const int rows = (side_y + kCluster - 1) / kCluster, cols = ((side_x + kCluster - 1) / kCluster + 3) & ~3;
-  return layout(rows, cols, side_x, (side_x + 6) & ~3, threads < 1024).total;
+// Window rows a rank owns in each of `bands` bands.
+int band_rows(int side_y, int bands) {
+  const int rows = (side_y + kCluster - 1) / kCluster;
+  return (rows + bands - 1) / bands;
+}
+
+// Shared memory a block of `threads` takes at these sizes, in `bands` bands.
+int smem_bytes(int side_y, int side_x, int threads, int bands) {
+  const int cols = ((side_x + kCluster - 1) / kCluster + 3) & ~3;
+  return layout(band_rows(side_y, bands), cols, side_x, (side_x + 6) & ~3, threads < 1024).total;
 }
 
 // The launch configuration of `blocks` blocks (a multiple of kCluster) of
 // the kernel's threads, its attributes set at its first use.
-template <bool IN_PLACE, int kThreads>
+template <bool IN_PLACE, int kThreads, bool kWide>
 cudaError_t configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* cluster, int blocks, int smem) {
   static const cudaError_t attr = [] {
-    auto kern = raster_kernel<IN_PLACE, kThreads>;
+    auto kern = raster_kernel<IN_PLACE, kThreads, kWide>;
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (e == cudaSuccess) e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
     return e != cudaSuccess ? e : cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -617,35 +680,44 @@ cudaError_t configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* cluster, int
   return attr;
 }
 
-template <bool IN_PLACE, int kThreads>
+template <bool IN_PLACE, int kThreads, bool kWide>
 cudaError_t launch_t(const Args& a, int copy_clusters, cudaStream_t s) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute cluster[1];
-  cudaError_t err = configure<IN_PLACE, kThreads>(cfg, cluster, (a.B + copy_clusters) * kCluster,
-                                                  layout(a.rows, a.cols, a.side_x, a.pitch, kThreads < 1024).total);
+  const int smem = layout(a.rows, a.cols, a.side_x, a.pitch, kThreads < 1024).total;
+  cudaError_t err = configure<IN_PLACE, kThreads, kWide>(cfg, cluster, (a.B + copy_clusters) * kCluster, smem);
   if (err != cudaSuccess) return err;
   cfg.stream = s;
-  err = cudaLaunchKernelEx(&cfg, raster_kernel<IN_PLACE, kThreads>, a);
+  err = cudaLaunchKernelEx(&cfg, raster_kernel<IN_PLACE, kThreads, kWide>, a);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// Whether the kernel needs its general form: more than one band, or rays of
+// more than kCluster kMaxPerRay samples.
+bool wide(int bands, int K) { return bands > 1 || K > kCluster * kMaxPerRay; }
+
 template <bool IN_PLACE>
 cudaError_t launch(const Args& a, int threads, int copy_clusters, cudaStream_t s) {
-  return threads == 512 ? launch_t<IN_PLACE, 512>(a, copy_clusters, s) : launch_t<IN_PLACE, 1024>(a, copy_clusters, s);
+  if (wide(a.bands, a.K))
+    return threads == 512 ? launch_t<IN_PLACE, 512, true>(a, copy_clusters, s)
+                          : launch_t<IN_PLACE, 1024, true>(a, copy_clusters, s);
+  return threads == 512 ? launch_t<IN_PLACE, 512, false>(a, copy_clusters, s)
+                        : launch_t<IN_PLACE, 1024, false>(a, copy_clusters, s);
 }
 
 // Fill the layout and check it; 0 or a CUDA error code.
-int prepare(Args& a, int threads, int copy_clusters, int copy_vec) {
-  if ((threads != 512 && threads != 1024) || a.N >= 65536 || a.K <= 0 || a.K > kMaxPerRay * kCluster ||
-      a.side_y <= 0 || a.side_x <= 0 || a.side_y > a.H || a.side_x > a.W ||
-      smem_bytes(a.side_y, a.side_x, threads) > kMaxSmem)
+int prepare(Args& a, int threads, int bands, int copy_clusters, int copy_vec) {
+  if ((threads != 512 && threads != 1024) || a.N >= 65536 || a.K <= 0 || a.side_y <= 0 || a.side_x <= 0 ||
+      a.side_y > a.H || a.side_x > a.W || bands <= 0 || smem_bytes(a.side_y, a.side_x, threads, bands) > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
-  a.rows = (a.side_y + kCluster - 1) / kCluster;
+  a.rows = band_rows(a.side_y, bands);
+  a.bands = ((a.side_y + kCluster - 1) / kCluster + a.rows - 1) / a.rows;  // no band without rows
+  if ((a.bands > 1) != (a.stops != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   a.cols = ((a.side_x + kCluster - 1) / kCluster + 3) & ~3;
   a.pitch = (a.side_x + 6) & ~3;
   a.ty_pitch = a.side_x + 1;
   a.rx_stride = rx_stride(a.rows, a.cols);
-  a.per_ray = (a.K + kCluster - 1) / kCluster;
+  a.per_ray = min((a.K + kCluster - 1) / kCluster, kMaxPerRay);
   a.bulk = a.W % 4 == 0 && reinterpret_cast<uintptr_t>(a.occ) % 16 == 0;
   a.copy_vec = copy_vec;
   a.copy_chunk = 0;
@@ -662,44 +734,47 @@ int prepare(Args& a, int threads, int copy_clusters, int copy_vec) {
 }  // namespace
 
 // The clusters of 16 blocks of `threads` (512 or 1024) the card holds at
-// once at this window (cudaOccupancyMaxActiveClusters), or minus a CUDA
-// error code.
-extern "C" int slam_raster_max_clusters(int side_y, int side_x, int threads) {
-  if ((threads != 512 && threads != 1024) || smem_bytes(side_y, side_x, threads) > kMaxSmem)
+// once at this window in `bands` bands (cudaOccupancyMaxActiveClusters), or
+// minus a CUDA error code.
+extern "C" int slam_raster_max_clusters(int side_y, int side_x, int threads, int bands) {
+  if ((threads != 512 && threads != 1024) || bands <= 0 || smem_bytes(side_y, side_x, threads, bands) > kMaxSmem)
     return -static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute cluster[1];
-  const int smem = smem_bytes(side_y, side_x, threads);
+  const int smem = smem_bytes(side_y, side_x, threads, bands);
   int n = 0;
-  cudaError_t err = threads == 512 ? configure<true, 512>(cfg, cluster, kCluster, smem)
-                                   : configure<true, 1024>(cfg, cluster, kCluster, smem);
+  // both forms of the kernel have the same launch bounds: the one-band form stands for both
+  cudaError_t err = threads == 512 ? configure<true, 512, false>(cfg, cluster, kCluster, smem)
+                                   : configure<true, 1024, false>(cfg, cluster, kCluster, smem);
   if (err == cudaSuccess)
-    err = threads == 512 ? cudaOccupancyMaxActiveClusters(&n, raster_kernel<true, 512>, &cfg)
-                         : cudaOccupancyMaxActiveClusters(&n, raster_kernel<true, 1024>, &cfg);
+    err = threads == 512 ? cudaOccupancyMaxActiveClusters(&n, raster_kernel<true, 512, false>, &cfg)
+                         : cudaOccupancyMaxActiveClusters(&n, raster_kernel<true, 1024, false>, &cfg);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
-// Shared memory a block of `threads` (512 or 1024) takes
+// Shared memory a block of `threads` (512 or 1024) takes in `bands` bands
 // (`raster_fused.smem_bytes` computes the same).
-extern "C" int slam_raster_smem_bytes(int side_y, int side_x, int threads) {
-  return smem_bytes(side_y, side_x, threads);
+extern "C" int slam_raster_smem_bytes(int side_y, int side_x, int threads, int bands) {
+  return bands > 0 ? smem_bytes(side_y, side_x, threads, bands) : -static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K2.  accept: (B,) device bools, or null for "always"; a robot's window is
 // updated only where its flag is set.  Writes every cell of `out`: the
 // robots' clusters their windows, `copy_clusters` more clusters the rest.
-// Layout (`threads` 512 or 1024 a block; `copy_clusters`; `copy_vec` 4 or
-// 1): `raster_fused.raster_plan`.
+// Layout (`threads` 512 or 1024 a block; `bands`; `copy_clusters`;
+// `copy_vec` 4 or 1): `raster_fused.raster_plan`.  stops: (B, 16, N) int32
+// of device memory where the window takes more than one band, else null.
 extern "C" int slam_raster_update(const void* occ, void* out, int B, int H, int W, const void* meta,
-                                  const void* ey, const void* ex, const void* live, const void* accept, int N,
-                                  int side_y, int side_x, int K, float block_threshold, float decay, float inc,
-                                  int threads, int copy_clusters, int copy_vec, void* stream) {
+                                  const void* ey, const void* ex, const void* live, const void* accept, void* stops,
+                                  int N, int side_y, int side_x, int K, float block_threshold, float decay, float inc,
+                                  int threads, int bands, int copy_clusters, int copy_vec, void* stream) {
   if (B <= 0) return 0;
   if (copy_clusters <= 0) return static_cast<int>(cudaErrorInvalidValue);
   Args a = {static_cast<const float*>(occ), static_cast<float*>(out), static_cast<const int*>(meta),
             static_cast<const int*>(ey), static_cast<const int*>(ex), static_cast<const uint8_t*>(live),
-            static_cast<const uint8_t*>(accept), B, H, W, N, side_y, side_x, K, block_threshold, decay, inc};
-  const int e = prepare(a, threads, copy_clusters, copy_vec);
+            static_cast<const uint8_t*>(accept), static_cast<int*>(stops), B, H, W, N, side_y, side_x, K,
+            block_threshold, decay, inc};
+  const int e = prepare(a, threads, bands, copy_clusters, copy_vec);
   if (e != 0) return e;
   return static_cast<int>(launch<false>(a, threads, copy_clusters, static_cast<cudaStream_t>(stream)));
 }
@@ -707,14 +782,15 @@ extern "C" int slam_raster_update(const void* occ, void* out, int B, int H, int 
 // K4.  As K2, but `occ` (B, H, W) is updated in place and only window cells
 // that some ray touched are written.
 extern "C" int slam_raster_update_grid(void* occ, int B, int H, int W, const void* meta, const void* ey,
-                                       const void* ex, const void* live, const void* accept, int N, int side_y,
-                                       int side_x, int K, float block_threshold, float decay, float inc,
-                                       int threads, void* stream) {
+                                       const void* ex, const void* live, const void* accept, void* stops, int N,
+                                       int side_y, int side_x, int K, float block_threshold, float decay, float inc,
+                                       int threads, int bands, void* stream) {
   if (B <= 0 || N <= 0) return 0;  // no ray: no cell changes
   Args a = {static_cast<const float*>(occ), static_cast<float*>(occ), static_cast<const int*>(meta),
             static_cast<const int*>(ey), static_cast<const int*>(ex), static_cast<const uint8_t*>(live),
-            static_cast<const uint8_t*>(accept), B, H, W, N, side_y, side_x, K, block_threshold, decay, inc};
-  const int e = prepare(a, threads, 0, 1);
+            static_cast<const uint8_t*>(accept), static_cast<int*>(stops), B, H, W, N, side_y, side_x, K,
+            block_threshold, decay, inc};
+  const int e = prepare(a, threads, bands, 0, 1);
   if (e != 0) return e;
   return static_cast<int>(launch<true>(a, threads, 0, static_cast<cudaStream_t>(stream)));
 }

@@ -57,10 +57,11 @@ class Detector:
 
     ``params``: a flax tree (``{"params": ..., "batch_stats": ...}`` of numpy
     arrays) or None for seeded random weights.  ``fold_bn`` folds the
-    BatchNorm affines into the convs at load; ``pallas_convs`` (needs
-    ``fold_bn``) runs every conv site in the hand-written kernels, one
-    launch per ConvBnAct or 1x1 head conv and one per C2f block with a single
-    bottleneck; False runs ``F.conv2d``."""
+    BatchNorm affines into the convs at load (a PSABlock's or ABlock's bare
+    BatchNorm stays); ``pallas_convs`` (needs ``fold_bn``) runs every conv
+    site in the hand-written kernels, one launch per ConvBnAct or plain 1x1
+    conv and one per v8 C2f block with a single bottleneck; False runs
+    ``F.conv2d``.  ``family``: v8, v11 or v12."""
 
     def __init__(self, num_classes: int = 1, variant: str = "n", task: str = "detect", family: str = "v8",
                  img_size: int = 640, conf_threshold: float = 0.5, iou_threshold: float = 0.45,

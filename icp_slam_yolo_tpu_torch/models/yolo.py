@@ -1,5 +1,5 @@
-"""The v8-family YOLO detector in PyTorch: the counterpart of the JAX
-package's ``models/yolo.py`` for ``family="v8"`` (variants n/s/m; tasks
+"""The YOLO detector in PyTorch: the counterpart of the JAX package's
+``models/yolo.py`` (families v8, v11 and v12; variants n/s/m; tasks
 detect, obb, segment, pose).
 
 Inference only.  Activations are NHWC (``(B, H, W, C)`` contiguous) at every
@@ -14,10 +14,13 @@ Parameters stay float32; ``dtype`` is the working type a module computes in
 
 Two conv paths, chosen by the caller through ``fused`` and never silently:
   * ``fused=True`` (needs ``folded``): every folded ``ConvBnAct`` with
-    (kernel, stride) in {(1, 1), (3, 1), (3, 2)} and every plain 1x1 head
-    conv is one hand-written kernel (K5-K7, `ops/pallas/conv_fused`), and a
-    ``C2f`` with one bottleneck is one kernel as a whole (K8,
-    `ops/pallas/c2f_fused`);
+    (kernel, stride) in {(1, 1), (3, 1), (3, 2)} and every plain 1x1 conv
+    (the heads' outputs, the attention's projections, the 1x1 before a bare
+    BatchNorm; no bias: a zero one) is one hand-written kernel (K5-K7,
+    `ops/pallas/conv_fused`), and a v8 ``C2f`` with one bottleneck is one
+    kernel as a whole (K8, `ops/pallas/c2f_fused`), as the JAX package's
+    interceptors route them; the attention's depthwise 3x3 and its two
+    products stay library calls, as they stay XLA's there;
   * ``fused=False``: ``F.conv2d`` + ``F.silu``, the counterpart of the JAX
     package's unfused path through XLA's conv emitter.
 """
@@ -107,20 +110,57 @@ class ConvBnAct(_Cached):
 
 
 class Conv1x1(_Cached):
-    """A plain biased 1x1 conv without activation (the heads' outputs)."""
+    """A plain 1x1 conv without activation: the heads' outputs (biased), the
+    attention's projections and the 1x1 before a bare BatchNorm (no bias;
+    the fused path gives K5 a zero one, as the JAX dispatch does)."""
 
-    def __init__(self, cin: int, features: int, dtype=torch.float32, fused: bool = False):
+    def __init__(self, cin: int, features: int, dtype=torch.float32, fused: bool = False, bias: bool = True):
         super().__init__()
         self.dtype, self.fused = dtype, fused
-        self.conv = nn.Conv2d(cin, features, 1)
+        self.conv = nn.Conv2d(cin, features, 1, bias=bias)
+
+    def _bias(self, dt):
+        b = self.conv.bias
+        return torch.zeros(self.conv.out_channels, dtype=dt, device=self.conv.weight.device) if b is None \
+            else b.detach().to(dt)
 
     def forward(self, x):
         dt = self.dtype
         if self.fused and conv_kernels.use_kernels(x.shape[0], x.shape[1]):
-            w, b = self._cached("fused", lambda: (_hwio(self.conv, dt)[0, 0].contiguous(), self.conv.bias.detach().to(dt)))
+            w, b = self._cached("fused", lambda: (_hwio(self.conv, dt)[0, 0].contiguous(), self._bias(dt)))
             return conv_kernels.conv1x1_silu(x.to(dt).contiguous(), w, b, act=False)
-        w, b = self._cached("plain", lambda: (self.conv.weight.detach().to(dt), self.conv.bias.detach().to(dt)))
+        w, b = self._cached("plain", lambda: (
+            self.conv.weight.detach().to(dt), None if self.conv.bias is None else self.conv.bias.detach().to(dt)))
         return F.conv2d(x.to(dt).permute(0, 3, 1, 2), w, b).permute(0, 2, 3, 1)
+
+
+class DepthwiseConv3x3(_Cached):
+    """A 3x3 depthwise conv without bias or activation (the attention's
+    positional term on V): ``F.conv2d`` with ``groups=c`` on every path."""
+
+    def __init__(self, c: int, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.conv = nn.Conv2d(c, c, 3, 1, 1, groups=c, bias=False)
+
+    def forward(self, x):
+        w = self._cached("plain", lambda: self.conv.weight.detach().to(self.dtype))
+        return F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), w, None, 1, 1, 1, w.shape[0]).permute(0, 2, 3, 1)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """A bare BatchNorm at inference (running statistics) on NHWC, computed
+    as flax computes it: in float32, ``(x - mean) * (rsqrt(var + eps) *
+    scale) + bias``, then cast to the working type.  It stays in the folded
+    model: only a ConvBnAct's BatchNorm folds."""
+
+    def __init__(self, features: int, dtype=torch.float32):
+        super().__init__(features, eps=BN_EPS, momentum=0.03)
+        self.dtype = dtype
+
+    def forward(self, x):
+        mul = torch.rsqrt(self.running_var.float() + BN_EPS) * self.weight.float()
+        return ((x.float() - self.running_mean.float()) * mul + self.bias.float()).to(self.dtype)
 
 
 class Bottleneck(nn.Module):
@@ -176,6 +216,183 @@ class C2f(_Cached):
         for i in range(self.n):
             parts.append(getattr(self, f"Bottleneck_{i}")(parts[-1]))
         return self.ConvBnAct_1(torch.cat(parts, dim=-1))
+
+
+class C3k(nn.Module):
+    """CSP block with 3 convs and ``n`` hidden-width bottlenecks (the inner
+    module of C3k2 with ``c3k=True`` and of A2C2f with ``a2=False``)."""
+
+    def __init__(self, cin: int, features: int, n: int = 2, e: float = 0.5, **kw):
+        super().__init__()
+        self.n = n
+        c = max(8, int(features * e))
+        self.ConvBnAct_0 = ConvBnAct(cin, c, 1, **kw)
+        self.ConvBnAct_1 = ConvBnAct(cin, c, 1, **kw)
+        for i in range(n):
+            self.add_module(f"Bottleneck_{i}", Bottleneck(c, c, True, **kw))
+        self.ConvBnAct_2 = ConvBnAct(2 * c, features, 1, **kw)
+
+    def forward(self, x):
+        a, b = self.ConvBnAct_0(x), self.ConvBnAct_1(x)
+        for i in range(self.n):
+            a = getattr(self, f"Bottleneck_{i}")(a)
+        return self.ConvBnAct_2(torch.cat([a, b], dim=-1))
+
+
+class C3k2(nn.Module):
+    """The v11/v12 CSP block: the C2f wiring with plain bottlenecks (shortcut
+    on) or C3k inner modules.  No whole-block kernel takes it: its convs run
+    one by one (the JAX package's C2f kernel matches only a C2f)."""
+
+    def __init__(self, cin: int, features: int, n: int = 1, c3k: bool = False, e: float = 0.5, **kw):
+        super().__init__()
+        self.n, self.c3k = n, c3k
+        self.c = c = max(8, int(features * e))
+        self.ConvBnAct_0 = ConvBnAct(cin, 2 * c, 1, **kw)
+        for i in range(n):
+            if c3k:
+                self.add_module(f"C3k_{i}", C3k(c, c, 2, **kw))
+            else:
+                self.add_module(f"Bottleneck_{i}", Bottleneck(c, c, True, **kw))
+        self.ConvBnAct_1 = ConvBnAct((2 + n) * c, features, 1, **kw)
+
+    def forward(self, x):
+        c = self.c
+        y = self.ConvBnAct_0(x)
+        parts = [y[..., :c], y[..., c:]]
+        for i in range(self.n):
+            parts.append(getattr(self, f"{'C3k' if self.c3k else 'Bottleneck'}_{i}")(parts[-1]))
+        return self.ConvBnAct_1(torch.cat(parts, dim=-1))
+
+
+class Attention2d(nn.Module):
+    """Multi-head self-attention over an NHWC map in ``area`` horizontal bands
+    of the row-major flattened map (``area`` falls back to 1 where it does
+    not divide ``h * w``).  A head's query and key take ``kd = max(hd // 2,
+    8)`` channels of the value's ``hd``; a 3x3 depthwise conv on V adds the
+    positional term.  The logits (scaled by ``kd ** -0.5``) and the softmax
+    are float32; the probabilities are cast to V's type and the second
+    product sums in float32, as the JAX package's two ``einsum``s with
+    ``preferred_element_type=float32``.  Children as flax names them:
+    ``Conv_0`` q, ``Conv_1`` k, ``Conv_2`` v, ``Conv_3`` the positional
+    conv, ``Conv_4`` the output projection."""
+
+    def __init__(self, c: int, num_heads: int, area: int = 1, dtype=torch.float32, fused: bool = False):
+        super().__init__()
+        self.c, self.nh, self.area, self.dtype = c, num_heads, area, dtype
+        self.hd = c // num_heads
+        self.kd = max(self.hd // 2, 8)
+        kw = dict(dtype=dtype, fused=fused, bias=False)
+        self.Conv_0 = Conv1x1(c, num_heads * self.kd, **kw)
+        self.Conv_1 = Conv1x1(c, num_heads * self.kd, **kw)
+        self.Conv_2 = Conv1x1(c, c, **kw)
+        self.Conv_3 = DepthwiseConv3x3(c, dtype)
+        self.Conv_4 = Conv1x1(c, c, **kw)
+
+    def forward(self, x):
+        b, h, w, c = x.shape
+        nh, hd, kd = self.nh, self.hd, self.kd
+        q, k, v = self.Conv_0(x), self.Conv_1(x), self.Conv_2(x)
+        pe = self.Conv_3(v)
+        n = h * w
+        area = self.area if n % self.area == 0 else 1
+        t = n // area
+
+        def split(z, d):  # (B, H, W, nh * d) -> (B * area * nh, T, d)
+            return z.reshape(b, area, t, nh, d).permute(0, 1, 3, 2, 4).reshape(b * area * nh, t, d)
+
+        qs, ks, vs = split(q, kd), split(k, kd), split(v, hd)
+        logits = torch.matmul(qs.float(), ks.float().transpose(1, 2)) * (kd ** -0.5)
+        attn = torch.softmax(logits, dim=-1).to(vs.dtype)
+        out = torch.matmul(attn.float(), vs.float()).to(self.dtype)
+        out = out.reshape(b, area, nh, t, hd).permute(0, 1, 3, 2, 4).reshape(b, h, w, c)
+        return self.Conv_4(out + pe)
+
+
+class _AttentionBlock(nn.Module):
+    """Attention, then a conv FFN (a ConvBnAct to ``mid`` channels, a plain
+    1x1 back, a bare BatchNorm), both residual."""
+
+    def __init__(self, features: int, num_heads: int, area: int, mid: int, dtype=torch.float32,
+                 folded: bool = False, fused: bool = False):
+        super().__init__()
+        self.Attention2d_0 = Attention2d(features, num_heads, area, dtype=dtype, fused=fused)
+        self.ConvBnAct_0 = ConvBnAct(features, mid, 1, dtype=dtype, folded=folded, fused=fused)
+        self.Conv_0 = Conv1x1(mid, features, dtype=dtype, fused=fused, bias=False)
+        self.BatchNorm_0 = BatchNorm(features, dtype)
+
+    def forward(self, x):
+        x = x + self.Attention2d_0(x)
+        return x + self.BatchNorm_0(self.Conv_0(self.ConvBnAct_0(x)))
+
+
+class PSABlock(_AttentionBlock):
+    """v11's position-sensitive attention block: a head per 64 channels, a
+    2x wide FFN."""
+
+    def __init__(self, features: int, **kw):
+        super().__init__(features, max(features // 64, 1), 1, features * 2, **kw)
+
+
+class C2PSA(nn.Module):
+    """The CSP-wrapped PSA stack after SPPF (v11's backbone tail)."""
+
+    def __init__(self, cin: int, features: int, n: int = 1, **kw):
+        super().__init__()
+        self.n = n
+        self.c = c = features // 2
+        self.ConvBnAct_0 = ConvBnAct(cin, 2 * c, 1, **kw)
+        for i in range(n):
+            self.add_module(f"PSABlock_{i}", PSABlock(c, **kw))
+        self.ConvBnAct_1 = ConvBnAct(2 * c, features, 1, **kw)
+
+    def forward(self, x):
+        c = self.c
+        y = self.ConvBnAct_0(x)
+        a, rest = y[..., :c], y[..., c:]
+        for i in range(self.n):
+            a = getattr(self, f"PSABlock_{i}")(a)
+        return self.ConvBnAct_1(torch.cat([a, rest], dim=-1))
+
+
+class ABlock(_AttentionBlock):
+    """v12's area-attention block: a head per 32 channels, a 1.2x wide FFN."""
+
+    def __init__(self, features: int, area: int = 1, **kw):
+        super().__init__(features, max(features // 32, 1), area, max(8, int(features * 1.2)), **kw)
+
+
+class A2C2f(nn.Module):
+    """v12's R-ELAN block: the C2f wiring whose inner modules are pairs of
+    area-attention blocks (``a2=True``) or C3k blocks, with a learned
+    residual scale ``gamma`` where ``a2`` is set and the input is
+    ``features`` wide."""
+
+    def __init__(self, cin: int, features: int, n: int = 1, a2: bool = True, area: int = 1, e: float = 0.5, **kw):
+        super().__init__()
+        self.n, self.a2 = n, a2
+        c = max(8, int(features * e))
+        self.ConvBnAct_0 = ConvBnAct(cin, c, 1, **kw)
+        for i in range(n):
+            if a2:
+                self.add_module(f"ABlock_{2 * i}", ABlock(c, area, **kw))
+                self.add_module(f"ABlock_{2 * i + 1}", ABlock(c, area, **kw))
+            else:
+                self.add_module(f"C3k_{i}", C3k(c, c, 2, **kw))
+        self.ConvBnAct_1 = ConvBnAct((1 + n) * c, features, 1, **kw)
+        self.gamma = nn.Parameter(torch.full((features,), 0.01)) if a2 and cin == features else None
+
+    def forward(self, x):
+        parts = [self.ConvBnAct_0(x)]
+        for i in range(self.n):
+            z = parts[-1]
+            if self.a2:
+                z = getattr(self, f"ABlock_{2 * i + 1}")(getattr(self, f"ABlock_{2 * i}")(z))
+            else:
+                z = getattr(self, f"C3k_{i}")(z)
+            parts.append(z)
+        out = self.ConvBnAct_1(torch.cat(parts, dim=-1))
+        return out if self.gamma is None else x + self.gamma.to(out.dtype) * out
 
 
 def _max_pool5(x):
@@ -311,50 +528,77 @@ class Proto(nn.Module):
         return self.Conv_0(self.ConvBnAct_1(_upsample2(self.ConvBnAct_0(p3))))
 
 
-_V8_SCALES = {"n": (0.33, 0.25), "s": (0.33, 0.5), "m": (0.67, 0.75)}
+SCALES = {  # (depth, width) per family and variant
+    "v8": {"n": (0.33, 0.25), "s": (0.33, 0.5), "m": (0.67, 0.75)},
+    "v11": {"n": (0.5, 0.25), "s": (0.5, 0.5), "m": (0.5, 1.0)},
+    "v12": {"n": (0.5, 0.25), "s": (0.5, 0.5), "m": (0.5, 1.0)},
+}
 
 
 class YOLO(nn.Module):
-    """YOLO detector, ``family="v8"``: CSP backbone with C2f blocks + SPPF,
-    PAN-FPN neck.  ``variant``: n/s/m; ``task``: detect | obb | segment |
-    pose.  ``fold_bn``: the inference form with BN folded into the convs;
-    ``fused``: run the convs in the hand-written kernels (needs ``fold_bn``).
+    """YOLO detector.  ``family``: ``"v8"`` (CSP backbone with C2f blocks +
+    SPPF), ``"v11"`` (C3k2 blocks, SPPF + C2PSA) or ``"v12"`` (C3k2, then
+    A2C2f area-attention stages: area 4 at stride 16, global at stride 32,
+    and an A2C2f neck); all with a PAN-FPN neck.  ``variant``: n/s/m;
+    ``task``: detect | obb | segment | pose.  ``fold_bn``: the inference form
+    with BN folded into the convs; ``fused``: run the convs in the
+    hand-written kernels (needs ``fold_bn``).
     """
 
     def __init__(self, num_classes: int = 1, variant: str = "n", task: str = "detect", family: str = "v8",
                  reg_max: int = 16, n_kpt: int = 4, compute_dtype=torch.float32, fold_bn: bool = False,
                  fused: bool = False):
         super().__init__()
-        if family in ("v11", "v12"):
-            raise NotImplementedError(
-                f"family {family!r} is not ported yet (ROADMAP.md, open items 1, item 4: the v11 and v12 families)")
-        if family != "v8":
+        if family not in SCALES:
             raise ValueError(f"unknown family: {family}")
         if fused and not fold_bn:
             raise ValueError("fused=True needs fold_bn=True: the kernels take BN-folded convs")
         self.num_classes, self.variant, self.task, self.family = num_classes, variant, task, family
         self.reg_max, self.n_kpt, self.compute_dtype, self.fold_bn, self.fused = reg_max, n_kpt, compute_dtype, fold_bn, fused
-        depth, width = _V8_SCALES[variant]
+        depth, width = SCALES[family][variant]
         ch = [_make_divisible(c * width) for c in (64, 128, 256, 512, 1024)]
         self.ch = ch
         kw = dict(dtype=compute_dtype, folded=fold_bn, fused=fused)
-        n1, n2 = max(round(3 * depth), 1), max(round(6 * depth), 1)
         self.stem = ConvBnAct(3, ch[0], 3, 2, **kw)
         self.down2 = ConvBnAct(ch[0], ch[1], 3, 2, **kw)
-        self.c2f_2 = C2f(ch[1], ch[1], n1, True, **kw)
-        self.down3 = ConvBnAct(ch[1], ch[2], 3, 2, **kw)
-        self.c2f_3 = C2f(ch[2], ch[2], n2, True, **kw)
-        self.down4 = ConvBnAct(ch[2], ch[3], 3, 2, **kw)
-        self.c2f_4 = C2f(ch[3], ch[3], n2, True, **kw)
-        self.down5 = ConvBnAct(ch[3], ch[4], 3, 2, **kw)
-        self.c2f_5 = C2f(ch[4], ch[4], n1, True, **kw)
-        self.sppf = SPPF(ch[4], ch[4], **kw)
-        self.neck_p4 = C2f(ch[4] + ch[3], ch[3], n1, False, **kw)
-        self.neck_p3 = C2f(ch[3] + ch[2], ch[2], n1, False, **kw)
+        if family == "v8":
+            n1, n2 = max(round(3 * depth), 1), max(round(6 * depth), 1)
+            self.c2f_2 = C2f(ch[1], ch[1], n1, True, **kw)
+            self.down3 = ConvBnAct(ch[1], ch[2], 3, 2, **kw)
+            self.c2f_3 = C2f(ch[2], ch[2], n2, True, **kw)
+            self.down4 = ConvBnAct(ch[2], ch[3], 3, 2, **kw)
+            self.c2f_4 = C2f(ch[3], ch[3], n2, True, **kw)
+            self.down5 = ConvBnAct(ch[3], ch[4], 3, 2, **kw)
+            self.c2f_5 = C2f(ch[4], ch[4], n1, True, **kw)
+            self.sppf = SPPF(ch[4], ch[4], **kw)
+            self.neck_p4 = C2f(ch[4] + ch[3], ch[3], n1, False, **kw)
+            self.neck_p3 = C2f(ch[3] + ch[2], ch[2], n1, False, **kw)
+            self.pan_p4 = C2f(ch[2] + ch[3], ch[3], n1, False, **kw)
+            self.pan_p5 = C2f(ch[3] + ch[4], ch[4], n1, False, **kw)
+        else:  # v11 and v12: P3 is ch[3] wide
+            n = max(round(2 * depth), 1)
+            self.b2 = C3k2(ch[1], ch[2], n, False, 0.25, **kw)
+            self.down3 = ConvBnAct(ch[2], ch[2], 3, 2, **kw)
+            self.b3 = C3k2(ch[2], ch[3], n, False, 0.25, **kw)
+            self.down4 = ConvBnAct(ch[3], ch[3], 3, 2, **kw)
+            self.down5 = ConvBnAct(ch[3], ch[4], 3, 2, **kw)
+            if family == "v11":
+                self.b4 = C3k2(ch[3], ch[3], n, True, **kw)
+                self.b5 = C3k2(ch[4], ch[4], n, True, **kw)
+                self.sppf = SPPF(ch[4], ch[4], **kw)
+                self.psa = C2PSA(ch[4], ch[4], n, **kw)
+                self.neck_p4 = C3k2(ch[4] + ch[3], ch[3], n, False, **kw)
+                self.neck_p3 = C3k2(ch[3] + ch[3], ch[2], n, False, **kw)
+                self.pan_p4 = C3k2(ch[2] + ch[3], ch[3], n, False, **kw)
+            else:
+                self.b4 = A2C2f(ch[3], ch[3], 2 * n, True, 4, **kw)
+                self.b5 = A2C2f(ch[4], ch[4], 2 * n, True, 1, **kw)
+                self.neck_p4 = A2C2f(ch[4] + ch[3], ch[3], n, False, **kw)
+                self.neck_p3 = A2C2f(ch[3] + ch[3], ch[2], n, False, **kw)
+                self.pan_p4 = A2C2f(ch[2] + ch[3], ch[3], n, False, **kw)
+            self.pan_p5 = C3k2(ch[3] + ch[4], ch[4], n, True, **kw)
         self.pan_d3 = ConvBnAct(ch[2], ch[2], 3, 2, **kw)
-        self.pan_p4 = C2f(ch[2] + ch[3], ch[3], n1, False, **kw)
         self.pan_d4 = ConvBnAct(ch[3], ch[3], 3, 2, **kw)
-        self.pan_p5 = C2f(ch[3] + ch[4], ch[4], n1, False, **kw)
         feats = ch[2:]
         if task == "obb":
             self.head = OBBHead(feats, num_classes, reg_max, **kw)
@@ -374,16 +618,24 @@ class YOLO(nn.Module):
                 m._memo = {}
         return out
 
+    def _backbone(self, x):
+        """The (P3, P4, P5) pyramid (strides 8/16/32)."""
+        x = self.down2(self.stem(x))
+        if self.family == "v8":
+            p3 = self.c2f_3(self.down3(self.c2f_2(x)))
+            p4 = self.c2f_4(self.down4(p3))
+            return p3, p4, self.sppf(self.c2f_5(self.down5(p4)))
+        p3 = self.b3(self.down3(self.b2(x)))
+        p4 = self.b4(self.down4(p3))
+        p5 = self.b5(self.down5(p4))
+        return p3, p4, (self.psa(self.sppf(p5)) if self.family == "v11" else p5)
+
     def forward(self, images):
         """images: ``(B, H, W, 3)`` float in [0, 1]; H, W divisible by 32.
         Returns the per-level raw head outputs, NHWC (decode with
         `decode_predictions` or `decode_topk`); for the segment task
         ``(outs, protos)``."""
-        x = images.to(self.compute_dtype)
-        x = self.c2f_2(self.down2(self.stem(x)))
-        p3 = self.c2f_3(self.down3(x))
-        p4 = self.c2f_4(self.down4(p3))
-        p5 = self.sppf(self.c2f_5(self.down5(p4)))
+        p3, p4, p5 = self._backbone(images.to(self.compute_dtype))
         n4 = self.neck_p4(torch.cat([_upsample2(p5), p4], dim=-1))
         n3 = self.neck_p3(torch.cat([_upsample2(n4), p3], dim=-1))
         o4 = self.pan_p4(torch.cat([self.pan_d3(n3), n4], dim=-1))

@@ -46,10 +46,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "slam_nn_argmin": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
-    "slam_raster_update": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _P],
-    "slam_raster_update_grid": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _P],
-    "slam_raster_smem_bytes": [_I] * 3,
-    "slam_raster_max_clusters": [_I] * 3,
+    "slam_raster_update": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I,
+                           _P],
+    "slam_raster_update_grid": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _I, _P],
+    "slam_raster_smem_bytes": [_I] * 4,
+    "slam_raster_max_clusters": [_I] * 4,
     "slam_icp_fused": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _F, _F, _I, _I, _I, _I] + [_P] * 8,
     "slam_icp_blocks_per_sm": [_I, _P],
     "slam_icp_clusters": [_I, _I, _P],

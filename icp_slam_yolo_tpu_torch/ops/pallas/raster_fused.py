@@ -16,8 +16,11 @@ reads them on the host.  Cells outside a robot's ``(side_y, side_x)`` window,
 and every cell of a robot whose flag is false, keep their values.  K2
 (`raster_update`) returns new grids; K4 (`raster_update_grid`) updates the
 caller's grids IN PLACE and returns the same tensor, as the TPU kernel does
-through its aliased output.  Both take grids of any shape whose window and
-samples a ray fit a layout (`raster_plan` raises otherwise, on any device).
+through its aliased output.  Both take grids of any shape, any window a
+row of which fits a block's shared memory (up to 12,088 cells wide) and any
+number of samples a ray: a window whose tables fit no block is taken in
+bands of rows inside the same launch (`raster_plan` says how many, and
+raises where nothing fits, on any device).
 """
 
 from __future__ import annotations
@@ -135,21 +138,26 @@ TWO_BLOCKS_SMEM = 115712  # shared memory a block may take for two to share a mu
 CLUSTER = 16  # blocks a robot's window takes (`kCluster` in csrc/raster.cu)
 H100_CLUSTERS = 7  # clusters of 1024-thread blocks an H100 holds at once (`slam_raster_max_clusters`)
 MAX_RAYS = 65535  # both counts of a cell share one uint32, 16 bits each
-MAX_PER_RAY = 32  # samples of a ray a block counts, at most: k <= 32 x CLUSTER
 
 
-def smem_bytes(side_y: int, side_x: int, threads: int) -> int:
+def band_rows(side_y: int, bands: int) -> int:
+    """Window rows a rank owns in each of ``bands`` bands."""
+    rows = -(-side_y // CLUSTER)  # of the whole window
+    return -(-rows // bands)
+
+
+def smem_bytes(side_y: int, side_x: int, threads: int, bands: int = 1) -> int:
     """Shared memory a block of ``threads`` of ``csrc/raster.cu`` takes (its
-    `layout`): the count tables Ty (the rank's rows, ``side_x + 1`` words
-    apart), Tx (its columns) and Rx (the column counts of its rows,
-    received; each rank's part padded to 4 words modulo 32), the rank's rows
-    of the window (rows of ``side_x + 6`` floats rounded down to 4), where
-    each ray of a group of 512 stops, each ray's geometry (32 bytes) twice
-    (as it comes and sorted), the decay^n table of 512 floats, the rays by
-    kind and samples (800 bytes) and three barriers.  At 512 threads
-    (compact) no rows are staged, the geometry shares Rx's space and the
-    stops the decay^n table's."""
-    rows = -(-side_y // CLUSTER)
+    `layout`) in ``bands`` bands of rows: the count tables Ty (the rank's
+    rows of a band, ``side_x + 1`` words apart), Tx (its columns) and Rx (the
+    column counts of its rows, received; each rank's part padded to 4 words
+    modulo 32), the rank's rows of the band (rows of ``side_x + 6`` floats
+    rounded down to 4), where each ray of a group of 512 stops, each ray's
+    geometry (32 bytes) twice (as it comes and sorted), the decay^n table of
+    512 floats, the rays by kind and samples (800 bytes) and three barriers.
+    At 512 threads (compact) no rows are staged, the geometry shares Rx's
+    space and the stops the decay^n table's."""
+    rows = band_rows(side_y, bands)
     cols = (-(-side_x // CLUSTER) + 3) & ~3
     rx = CLUSTER * (rows * cols + ((4 - rows * cols) & 31)) * 4
     ty_tx = ((rows * (side_x + 1) * 4 + 15) & ~15) + CLUSTER * rows * cols * 4
@@ -166,6 +174,7 @@ class RasterPlan(NamedTuple):
     copy_clusters: int  # K2: clusters after the B robots' that copy every cell outside the windows; K4: 0
     copy_vec: int       # K2: cells a copied vector (4: 16-byte vectors; 1 where the row width or address forbids)
     copy_chunk: int     # K2: vectors a copying block takes, one contiguous run
+    bands: int = 1      # bands of rows the window is taken in, one after another in the launch
 
 
 @functools.lru_cache(maxsize=64)
@@ -176,26 +185,28 @@ def raster_plan(b: int, h: int, w: int, side_y: int, side_x: int, n: int, k: int
     ``h x w``, a ``side_y x side_x`` window, ``n`` rays a robot and ``k``
     samples a ray, as ``csrc/raster.cu`` computes it from the same numbers:
     a cluster of `CLUSTER` blocks a robot, rank r taking the window rows and
-    columns r modulo `CLUSTER`.  ``threads`` forces 512 or 1024 threads a
-    block (the same bits); otherwise 1024 while the card holds the robots'
-    clusters at once (``capacity`` clusters of 1024-thread blocks), where
-    latency counts, and 512 beyond, where two blocks share a multiprocessor
-    and throughput counts (measured: `PERF.md`).  ``aligned``: both grids'
-    addresses are multiples of 16 bytes.  Raises ``ValueError`` where the
-    window's tables fit no block's shared memory (or not the forced
-    threads'), for ``k > MAX_PER_RAY x CLUSTER`` and for ``n > MAX_RAYS``."""
+    columns r modulo `CLUSTER`, the window's rows in the fewest bands whose
+    tables fit a block (one at the presets' 384 x 384).  ``threads`` forces
+    512 or 1024 threads a block (the same bits); otherwise 1024 while the
+    card holds the robots' clusters at once (``capacity`` clusters of
+    1024-thread blocks), where latency counts, and 512 beyond, where two
+    blocks share a multiprocessor and throughput counts (measured:
+    `PERF.md`).  ``aligned``: both grids' addresses are multiples of 16
+    bytes.  Raises ``ValueError`` where not even one row a rank fits a
+    block's shared memory (or not the forced threads'), for ``k < 1`` and
+    for ``n > MAX_RAYS``."""
     if n > MAX_RAYS:
         raise ValueError(f"raster update: {n} rays a robot, at most {MAX_RAYS} (the counts are 16 bits)")
     if b * h * w >= 2 ** 31 and not in_place:
         raise ValueError(f"raster update: {b} x {h} x {w} cells, the copy indexes fewer than 2^31")
     order = (512, 1024) if b > capacity else (1024, 512)
-    fits = [t for t in order if (threads is None or t == threads) and 0 < k <= MAX_PER_RAY * CLUSTER
-            and smem_bytes(side_y, side_x, t) <= (TWO_BLOCKS_SMEM if t < 1024 else MAX_SMEM)]
+    fits = [(t, bands) for t in order if (threads is None or t == threads) and k > 0
+            for bands in [fewest_bands(side_y, side_x, t)] if bands]
     if not fits:
         raise ValueError(f"raster update: a {side_y}x{side_x} window with {k} samples a ray fits no layout "
-                         f"(threads {threads}; {MAX_SMEM} bytes of shared memory a block, at most "
-                         f"{MAX_PER_RAY * CLUSTER} samples a ray)")
-    t, c = fits[0], CLUSTER
+                         f"(threads {threads}; {MAX_SMEM} bytes of shared memory a block, "
+                         f"{TWO_BLOCKS_SMEM} at 512 threads; a band of one row a rank at least)")
+    (t, bands), c = fits[0], CLUSTER
     copy_clusters = copy_vec = copy_chunk = 0
     if not in_place:
         copy_vec = 4 if w % 4 == 0 and aligned else 1
@@ -204,19 +215,36 @@ def raster_plan(b: int, h: int, w: int, side_y: int, side_x: int, n: int, k: int
         # cluster a robot, and no cluster with less than a vector a thread
         copy_clusters = max(1, min(max((sm - b * c) // c, b), -(-vectors // (c * t))))
         copy_chunk = -(-vectors // (copy_clusters * c))
-    return RasterPlan(t, smem_bytes(side_y, side_x, t), copy_clusters, copy_vec, copy_chunk)
+    return RasterPlan(t, smem_bytes(side_y, side_x, t, bands), copy_clusters, copy_vec, copy_chunk, bands)
+
+
+def fewest_bands(side_y: int, side_x: int, threads: int) -> int:
+    """The fewest bands of rows whose tables fit a block of ``threads``
+    (``TWO_BLOCKS_SMEM`` at 512 so that two share a multiprocessor,
+    ``MAX_SMEM`` at 1024), counted without a band that has no rows; 0 where
+    not even one row a rank fits."""
+    limit = TWO_BLOCKS_SMEM if threads < 1024 else MAX_SMEM
+    total = -(-side_y // CLUSTER)
+    for bands in range(1, total + 1):
+        if smem_bytes(side_y, side_x, threads, bands) <= limit:
+            return -(-total // band_rows(side_y, bands))
+    return 0
 
 
 def _launch(entry: str, grids: tuple, occ, meta, ey, ex, live, accept, kw, plan: RasterPlan) -> None:
     """Launch one of the two C entry points on ``grids`` (the data pointers
-    that lead its arguments) in the layout ``plan``: one device launch."""
+    that lead its arguments) in the layout ``plan``: one device launch.  A
+    window of more than one band gets the ``(B, CLUSTER, N)`` int32 device
+    memory where each rank keeps its stops between the bands."""
     b, h, w = occ.shape
+    n = ey.shape[1]
     copy = (plan.copy_clusters, plan.copy_vec) if entry == "slam_raster_update" else ()
+    stops = torch.empty((b, CLUSTER, max(n, 1)), dtype=torch.int32, device=occ.device) if plan.bands > 1 else None
     err = getattr(_lib.lib(), entry)(
         *grids, b, h, w, meta.data_ptr(), ey.data_ptr(), ex.data_ptr(), live.data_ptr(),
-        None if accept is None else accept.data_ptr(), ey.shape[1], kw["side_y"], kw["side_x"], int(kw["k"]),
-        float(kw["block_threshold"]), float(kw["p_free_decay"]), float(kw["p_occ_inc"]),
-        plan.threads, *copy, _lib.stream_ptr(occ.device),
+        None if accept is None else accept.data_ptr(), None if stops is None else stops.data_ptr(), n,
+        kw["side_y"], kw["side_x"], int(kw["k"]), float(kw["block_threshold"]), float(kw["p_free_decay"]),
+        float(kw["p_occ_inc"]), plan.threads, plan.bands, *copy, _lib.stream_ptr(occ.device),
     )
     _lib.check(err, entry)
 
@@ -237,7 +265,8 @@ def _capacity(dev, side_y: int, side_x: int) -> int:
     (the H100's for a CPU tensor; 0 where none fits)."""
     if dev.type != "cuda":
         return H100_CLUSTERS
-    return max(0, _lib.lib().slam_raster_max_clusters(side_y, side_x, 1024))
+    bands = fewest_bands(side_y, side_x, 1024)
+    return max(0, _lib.lib().slam_raster_max_clusters(side_y, side_x, 1024, bands)) if bands else 0
 
 
 def raster_update(occ, meta, ey, ex, live, accept=None, *, side_y: int, side_x: int, k: int,
@@ -253,7 +282,7 @@ def raster_update(occ, meta, ey, ex, live, accept=None, *, side_y: int, side_x: 
       accept: ``(B,)`` bool, or ``None`` for always: a robot's window is
         updated only where its flag is true (the SLAM step's accept flag,
         kept on the device so the step needs no select over the grid).
-      k: samples per ray (``> window_px``).
+      k: samples per ray (``> window_px``; any number).
       threads: force the threads a block of `raster_plan` (512 or 1024;
         both give the same bits).
 

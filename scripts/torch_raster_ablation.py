@@ -67,14 +67,14 @@ extern "C" int abl_read(void* dst) { return static_cast<int>(cudaMemcpyFromSymbo
 # the marks of the timeline variant: (text, mark before it or after it, mark index)
 MARKS = (
     ("  // the barriers\n", "after", 0),
-    ("    // a warp walks each ray to its first blocked body sample, and tells every rank\n", "before", 1),
-    ("    // while the stops come: zeroed tables; each ray's geometry (kThreads >= kRayGroup)\n", "before", 2),
-    ("    // every stop of the group here; every walker's lookups, done before it\n", "before", 3),
-    ("    // the counts of each of the rank's samples before its ray's stop, the\n", "before", 4),
-    ("  // the decay^n table while Tx is on its way\n", "before", 5),
-    ("  mbar_wait(bar_tx, 0);\n", "after", 6),
-    ("  cluster_meet();  // every bulk copy out of this block has landed\n", "before", 7),
-    ("  cluster_meet();  // every bulk copy out of this block has landed\n", "after", 8),
+    ("      // a warp walks each ray to its first blocked body sample, and tells every rank\n", "before", 1),
+    ("      // while the stops come: zeroed tables; each ray's geometry (kThreads >= kRayGroup)\n", "before", 2),
+    ("      // every stop of the group here; every walker's lookups, done before it\n", "before", 3),
+    ("      // the counts of each of the rank's samples before its ray's stop, the\n", "before", 4),
+    ("    // the decay^n table while Tx is on its way", "before", 5),
+    ("    mbar_wait(bar_tx, band & 1);\n", "after", 6),
+    ("    cluster_meet();  // every bulk copy out of this block has landed\n", "before", 7),
+    ("    cluster_meet();  // every bulk copy out of this block has landed\n", "after", 8),
 )
 PHASES = ("barriers", "walk", "tables, geometry", "stops received", "counted, Tx sent", "table, Tx received, rows staged",
           "update", "last barrier")
@@ -83,13 +83,13 @@ PHASES = ("barriers", "walk", "tables, geometry", "stops received", "counted, Tx
 def raster_source() -> str:
     src = open(os.path.join(_lib.CSRC, "raster.cu")).read()
     src = _sub(src, "constexpr int kWalk = 5;", "constexpr int kWalk = ABL_WALK_CHUNKS;")
-    src = _sub(src, "      for (int base = 0; base <= ray.last && s == kNone;",
+    src = _sub(src, "        for (int base = 0; base <= ray.last && s == kNone;",
                "      for (int base = 0; ABL_WALK && base <= ray.last && s == kNone;")
-    src = _sub(src, "          p[u] = __ldg(", "          p[u] = !ABL_LOOKUP ? 0.0f : __ldg(")
-    src = _sub(src, "    if (ly >= 0 && ly < a.side_y && lx >= 0 && lx < a.side_x) {\n      // Ty",
-               "    if (ABL_COUNT && ly >= 0 && ly < a.side_y && lx >= 0 && lx < a.side_x) {\n      // Ty")
-    src = _sub(src, "  // the update of this rank's rows",
-               "  if (!ABL_APPLY) {\n    cluster_meet();\n    return;\n  }\n  // the update of this rank's rows")
+    src = _sub(src, "            p[u] = __ldg(", "            p[u] = !ABL_LOOKUP ? 0.0f : __ldg(")
+    src = _sub(src, "      if (ly >= y0 && ly < y1 && lx >= 0 && lx < a.side_x) {\n        // Ty",
+               "      if (ABL_COUNT && ly >= y0 && ly < y1 && lx >= 0 && lx < a.side_x) {\n        // Ty")
+    src = _sub(src, "    // the update of this rank's rows",
+               "    if (!ABL_APPLY) {\n      cluster_meet();\n      return;\n    }\n    // the update of this rank's rows")
     src = _sub(src, "tyr[32 * u] + rxr[(32 * u) >> kLog2];", "tyr[32 * u] + (ABL_RX ? rxr[(32 * u) >> kLog2] : 0u);")
     src = _sub(src, "    const int blk = blockIdx.x - a.B * C;\n", "    const int blk = blockIdx.x - a.B * C;\n    if (!ABL_COPY) return;\n")
     src = _sub(src, "pow_s[n] = powf(a.decay, static_cast<float>(n));", "pow_s[n] = ABL_POW ? powf(a.decay, static_cast<float>(n)) : 0.5f;")
@@ -179,8 +179,8 @@ def main() -> None:
         n = t["ey"].shape[1]
         occ_cfg = cfg.occupancy
         common = (t["meta"].data_ptr(), t["ey"].data_ptr(), t["ex"].data_ptr(), t["live"].data_ptr(),
-                  t["accept"].data_ptr(), n, side_y, side_x, occ_cfg.max_ray_px, occ_cfg.block_threshold,
-                  occ_cfg.p_free_decay, occ_cfg.p_occ_inc)
+                  t["accept"].data_ptr(), None, n, side_y, side_x, occ_cfg.max_ray_px, occ_cfg.block_threshold,
+                  occ_cfg.p_free_decay, occ_cfg.p_occ_inc)  # the presets' windows: one band, no stops kept
         for threads in (512, 1024):
             try:
                 plan = rf.raster_plan(b, h, w, side_y, side_x, n, occ_cfg.max_ray_px, in_place=kernel == "K4",
@@ -192,11 +192,12 @@ def main() -> None:
                 if kernel == "K2":
                     def call(lib=lib):
                         return lib.slam_raster_update(occ.data_ptr(), out.data_ptr(), b, h, w, *common,
-                                                      plan.threads, plan.copy_clusters, plan.copy_vec, stream)
+                                                      plan.threads, plan.bands, plan.copy_clusters, plan.copy_vec,
+                                                      stream)
                 else:
                     def call(lib=lib):
                         return lib.slam_raster_update_grid(occ.data_ptr(), b, h, w, *common,
-                                                           plan.threads, stream)
+                                                           plan.threads, plan.bands, stream)
                 err = call()
                 if err != 0:
                     times.append(f"{name} refused ({_lib.lib().slam_cuda_error_string(err).decode()})")

@@ -29,6 +29,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 64
 V8_CHECKPOINTS = ["pallet_detect_640", "pallet_obb_640", "pallet_obb_1024", "pallet_pose_640",
                   "pallet_segment_320", "pallet_segment_640"]
+V11_V12_CHECKPOINTS = ["pallet_detect_v12_640", "pallet_obb_v11_640"]
 
 
 def _frame(seed, h=480, w=640):
@@ -123,16 +124,18 @@ def test_defaults_and_device_rule():
             port.detector_from_checkpoint(path)
 
 
-@pytest.mark.parametrize("name", V8_CHECKPOINTS)
+@pytest.mark.parametrize("name", V8_CHECKPOINTS + V11_V12_CHECKPOINTS)
 def test_real_checkpoint_at_64px_matches_jax(name):
     """The trained weights through both packages at a 64 px input (a 640 px
     JAX forward on the CPU is slow): fused port path against the JAX
-    package's unfused path, float32."""
+    package's unfused path, float32.  The v11 and v12 checkpoints load by
+    their sidecars' ``family`` and ``task``."""
     path = os.path.join(REPO, "checkpoints", name + ".msgpack")
     kw = dict(conf_threshold=0.0, img_size=SIZE)
     jdet = jdetect.detector_from_checkpoint(path, compute_dtype=jnp.float32, **kw)
     tdet = port.detector_from_checkpoint(path, compute_dtype=torch.float32, pallas_convs=True, device="cpu", **kw)
     assert tdet.task == jdet.task and tdet.model.task == jdet.task
+    assert tdet.model.family == jdet.model.family
     before = dict(pallas.LAUNCHES)
     _assert_same(tdet(_frame(5)), jdet(_frame(5)))
     assert pallas.LAUNCHES == before
@@ -156,10 +159,24 @@ def test_shortcut_flag_from_the_module_agrees_with_the_name_rule(name):
     assert det.model.compute_dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("name", ["pallet_detect_v12_640", "pallet_obb_v11_640"])
-def test_unported_family_checkpoints_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.detector_from_checkpoint(os.path.join(REPO, "checkpoints", name + ".msgpack"), device="cpu")
+@pytest.mark.parametrize("name", V11_V12_CHECKPOINTS)
+def test_shortcut_flag_from_the_module_agrees_with_the_name_rule_on_v11_v12(name):
+    """ROADMAP fault e on the v11 and v12 checkpoints: they have no C2f.  The
+    JAX package's name rule would see a C2f in every single-bottleneck C3k2
+    scope and give it no shortcut (not ``c2f*``), while the module's
+    bottleneck has one; neither package gives such a block to the
+    whole-block kernel (JAX's interceptor matches only a C2f), and the
+    port's fused model has no block the kernel would take."""
+    path = os.path.join(REPO, "checkpoints", name + ".msgpack")
+    payload, _, _ = load_checkpoint(path)
+    by_name = {n for n, sub in payload["params"].items()
+               if isinstance(sub, dict) and "Bottleneck_0" in sub and "Bottleneck_1" not in sub}
+    det = port.detector_from_checkpoint(path, pallas_convs=True, device="cpu")
+    assert not any(isinstance(m, tyolo.C2f) for m in det.model.modules())
+    assert by_name and all(isinstance(det.model.get_submodule(n), tyolo.C3k2) for n in by_name)
+    for n in by_name:
+        assert det.model.get_submodule(n).Bottleneck_0.shortcut and not n.startswith("c2f")
+    assert det.model.compute_dtype == torch.bfloat16 and det.model.fused
 
 
 def test_port_and_chip_smoke_import_no_jax_flax_or_jax_package():

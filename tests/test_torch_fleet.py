@@ -305,7 +305,7 @@ def test_fleet_init_and_rules():
     one = tpipe.init_state(torch.from_numpy(stack[1, 0]), cfg)
     for name, x in zip(tpipe.SlamState._fields, one):
         assert torch.equal(x, getattr(states, name)[1]), name
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md 'Open items' 1, item 3"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md 'Open items' 1, item 7"):
         port.fleet_run_sharded(stack, cfg)
     with pytest.raises(ValueError, match="two scans"):
         port.fleet_run_sequence(stack[:, :1], cfg, device="cpu")

@@ -178,16 +178,16 @@ def test_raster_plan_fits_every_preset(b, in_place):
     shared memory stays within a block's 227 KB (half of a multiprocessor's
     228 KB at 512 threads, so that two blocks share it), the ranks' rows
     (rank r of the cluster of C = 16: window rows r, r + C, ...) cover the
-    window once, the layout takes every sample of a ray (k <= 32 C), and the
-    blocks have 1024 threads while the robots' clusters fit the card at
-    once, 512 beyond."""
+    window once, the whole window is one band (the layout and time of the
+    presets' window do not change with the bands), and the blocks have 1024
+    threads while the robots' clusters fit the card at once, 512 beyond."""
     from icp_slam_yolo_tpu_torch.ops.pallas import raster_fused as rf
 
     for name, h, w, side_y, side_x, k in _preset_shapes():
         plan = rf.raster_plan(b, h, w, side_y, side_x, 512, k, in_place=in_place)
         limit = rf.TWO_BLOCKS_SMEM if plan.threads == 512 else rf.MAX_SMEM
         assert plan.smem_bytes == rf.smem_bytes(side_y, side_x, plan.threads) <= limit <= 232448, name
-        assert k <= rf.MAX_PER_RAY * rf.CLUSTER, name
+        assert plan.bands == 1, name
         assert plan.threads == (512 if b > rf.H100_CLUSTERS else 1024), name
         rows = np.concatenate([np.arange(r, side_y, rf.CLUSTER) for r in range(rf.CLUSTER)])
         np.testing.assert_array_equal(np.sort(rows), np.arange(side_y), err_msg=name)
@@ -249,35 +249,77 @@ def test_raster_copy_chunks_tile_the_grids_at_64_robots():
 
 
 def test_raster_plan_refuses_what_fits_no_layout():
-    """A window whose tables fit no block's shared memory, a ray of more
-    samples than 32 x 16, or forced threads whose layout does not fit: a
-    ValueError, never another kernel or the plain version."""
+    """A window not one row of which a rank fits in a block's shared memory
+    (a band of one row a rank), forced threads whose layout does not fit,
+    or no sample a ray: a ValueError, never another kernel or the plain
+    version."""
     from icp_slam_yolo_tpu_torch.ops.pallas import raster_fused as rf
 
+    with pytest.raises(ValueError, match="fits no layout"):  # one row a rank of Ty, Tx, Rx and the staged row
+        rf.raster_plan(1, 64, 20000, 64, 20000, 512, 144, in_place=True)
+    with pytest.raises(ValueError, match="fits no layout"):  # fits 1024 threads (one band), not 512
+        rf.raster_plan(64, 32, 11000, 32, 11000, 512, 144, threads=512, in_place=True)
+    assert rf.raster_plan(64, 32, 11000, 32, 11000, 512, 144, in_place=True).threads == 1024
     with pytest.raises(ValueError, match="fits no layout"):
-        rf.raster_plan(1, 2048, 2048, 1024, 1024, 512, 144)
-    with pytest.raises(ValueError, match="fits no layout"):
-        rf.raster_plan(1, 833, 1000, 384, 384, 512, 513)
-    with pytest.raises(ValueError, match="fits no layout"):  # 416 x 416 takes 140200 bytes at 512 threads
-        rf.raster_plan(64, 864, 1024, 416, 416, 512, 144, threads=512)
-    assert rf.raster_plan(64, 864, 1024, 416, 416, 512, 144).threads == 1024
+        rf.raster_plan(1, 833, 1000, 384, 384, 512, 0)
     assert rf.raster_plan(1, 100, 120, 64, 64, 200, 30, threads=512).threads == 512
 
 
+@pytest.mark.parametrize("case", ["1024x1024", "k=513", "416 at 512 threads", "640, k=1100"])
+def test_raster_plan_takes_big_windows_in_bands(case):
+    """What the kernels refused before they took bands: a window whose
+    tables fit no block is cut into the fewest bands of rows that fit (each
+    a multiple of the cluster's 16 rows, the last one shorter), the shared
+    memory the plan states; a ray of more than 512 samples needs no band."""
+    from icp_slam_yolo_tpu_torch.ops.pallas import raster_fused as rf
+
+    args, bands, threads = {  # (b, h, w, side_y, side_x, n, k), bands, threads a block
+        "1024x1024": ((1, 2048, 2048, 1024, 1024, 512, 144), 6, 1024),
+        "k=513": ((1, 833, 1000, 384, 384, 512, 513), 1, 1024),
+        "416 at 512 threads": ((64, 864, 1024, 416, 416, 512, 144), 2, 512),
+        "640, k=1100": ((8, 864, 1024, 640, 640, 1100, 1100), 3, 512),  # 8 robots: 512 threads
+    }[case]
+    plan = rf.raster_plan(*args, threads=512 if case == "416 at 512 threads" else None)
+    side_y, side_x = args[3], args[4]
+    assert plan.bands == bands
+    assert plan.threads == threads
+    limit = rf.TWO_BLOCKS_SMEM if plan.threads == 512 else rf.MAX_SMEM
+    assert plan.smem_bytes == rf.smem_bytes(side_y, side_x, plan.threads, bands) <= limit
+    assert bands == 1 or rf.smem_bytes(side_y, side_x, plan.threads, bands - 1) > limit  # the fewest
+    rows = rf.band_rows(side_y, bands)
+    cover = [range(rf.CLUSTER * rows * j, min(rf.CLUSTER * rows * (j + 1), side_y)) for j in range(bands)]
+    assert [y for band in cover for y in band] == list(range(side_y)) and all(len(band) for band in cover)
+
+
 @pytest.mark.parametrize("window_px", [193, 256])
-def test_window_beyond_384_px_is_refused(window_px):
+def test_window_beyond_384_px_matches_jax(rng, window_px):
     """A window of more than 384 cells a side (``window_px`` above 192:
-    `window_dims` makes it 512) fits no layout of the port's kernels, which
-    the JAX kernels take: ``update_occupancy`` raises, on the CPU as it
-    would on the card, rather than fall back."""
-    occ_cfg = dataclasses.replace(TOCC, window_px=window_px, max_ray_px=window_px + 4)
-    map_cfg = dataclasses.replace(TMAP, width_mm=18000.0, height_mm=18000.0)  # 600 x 600 cells
-    assert traster.window_dims(600, 600, occ_cfg) == (512, 512)
-    occ = torch.full((1, 600, 600), 0.5)
-    pts = torch.zeros((1, 8, 2))
-    with pytest.raises(ValueError, match="512x512 window with .* fits no layout"):
-        traster.update_occupancy(occ, pts, torch.ones((1, 8), dtype=torch.bool), torch.zeros((1, 2)), map_cfg,
-                                 occ_cfg)
+    `window_dims` makes it 512), which the kernels take in two bands, and
+    at 256 rays of more than 512 samples: the port's ``update_occupancy``
+    against the JAX package's fused Pallas raster in interpret mode, a few
+    rays crossing the whole window (atol 1e-5, as above)."""
+    max_ray = {193: 392, 256: 520}[window_px]  # the JAX kernel takes multiples of 8
+    jocc = dataclasses.replace(JOCC, window_px=window_px, max_ray_px=max_ray)
+    tocc = dataclasses.replace(TOCC, window_px=window_px, max_ray_px=max_ray)
+    jmap = dataclasses.replace(JMAP, width_mm=18000.0, height_mm=18000.0)  # 600 x 600 cells
+    tmap = dataclasses.replace(TMAP, width_mm=18000.0, height_mm=18000.0)
+    assert traster.window_dims(600, 600, tocc) == (512, 512)
+    from icp_slam_yolo_tpu_torch.ops.pallas import raster_fused as rf
+
+    assert rf.raster_plan(1, 600, 600, 512, 512, 256, max_ray).bands == 2
+    occ = np.full((600, 600), 0.5, np.float32)
+    occ += rng.uniform(-0.3, 0.3, occ.shape).astype(np.float32) * (rng.random(occ.shape) < 0.1)
+    occ[100:500, 420:423] = 0.9  # a wall some rays stop at
+    robot = np.asarray([200.0, 300.0], np.float32)
+    pts = (robot + rng.uniform(-window_px * 30.0, window_px * 30.0, (256, 2))).astype(np.float32)
+    pts[:4] = robot + np.float32(window_px * 30.0 - 45.0) * np.array([[1, 0], [-1, 0], [0, 1], [-1, -1]], np.float32)
+    valid = rng.random(256) < 0.9
+    valid[:4] = True
+    j = jraster.update_occupancy(jnp.asarray(occ), jnp.asarray(pts), jnp.asarray(valid), jnp.asarray(robot),
+                                 jmap, jocc)
+    t = traster.update_occupancy(_t(occ)[None], _t(pts)[None], _t(valid)[None], _t(robot)[None], tmap, tocc)[0]
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-5, rtol=0)
+    assert not np.array_equal(t.numpy(), occ)
 
 
 def test_wrapper_refuses_65536_rays():
