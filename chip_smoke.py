@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases (each prints a line; any failed check raises, so the script exits
-non-zero; they run in the order 1-3, 7-10, 4-6, 11, see `main`):
+non-zero; they run in the order 1-3, 7-11, 4-6, 12, see `main`):
   1. require a CUDA device; print the card's name and power limit;
   2. build the CUDA kernels (``nvcc``, first use) and print the build time
      and each kernel's registers, shared memory and spills (``ptxas -v``);
@@ -72,8 +72,23 @@ non-zero; they run in the order 1-3, 7-10, 4-6, 11, see `main`):
      K3, K5, K6, K7 each launched), the SLAM quality checks, ticks/s, a
      profiler window over the tick and over each half alone, and 8 float32
      ticks on the card against the same ticks on the CPU;
-  11. one JSON line listing the kernels, then the card line, then the result
-     line ``{"ok": true, "device": {...}}`` last.
+  11. the entry points users run (`serve_path`): the server
+     (``ServerState`` + the HTTP layer) on ``OFFLINE_CONFIG`` with 8192 map
+     slots and the v12 detector in bfloat16 on the fused path behind a
+     replayed PNG stereo camera: its warm-up (K1-K3 and K5-K7 launched, its
+     time beside phase 2's build), 120 seeded ``.npy`` scans replayed
+     unthrottled and driven over HTTP (a POI and its target fire the camera;
+     ``camera_data`` on the stream; the map PNG equal to the engine's
+     occupancy, a tile, the ICP view, a camera JPEG and an MJPEG part; the
+     map saved, loaded back and the last 10 scans tracked in reverse in
+     localization), the
+     server held to a direct ``Slam.run`` of the same scans, a profiler
+     window over served scans; ``cli replay`` and ``cli detect`` in
+     subprocesses against the direct run and an in-process detector; a v8
+     ``.pt`` (K5-K8) against the msgpack detector;
+  12. one JSON line listing the kernels (each kernel's launches summed over
+     the paths of phases 4-6, 8, 10 and 11), then the card line, then the
+     result line ``{"ok": true, "device": {...}}`` last.
 
 The synthetic scan generator (`synthetic_sequence`) lives here so the CPU
 tests can import it; it is not part of the package.
@@ -84,6 +99,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import re
+import struct
 import subprocess
 import sys
 import time
@@ -2288,15 +2304,426 @@ def tick_path() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 11: serve
+
+def ultralytics_layout(params: dict, stats: dict) -> dict:
+    """A v8 detect checkpoint's flax tree (``params``, ``batch_stats``) ->
+    the flat state dict an Ultralytics ``DetectionModel`` has (``model.``
+    prefix, OIHW convs, ``.bn.*`` statistics, the head's frozen DFL conv):
+    the inverse of `io.torch_import.convert_state_dict`'s mapping, written
+    out here on its own so that the import is checked against it."""
+    sd = {}
+
+    def convbn(tp, p, s):
+        sd[f"model.{tp}.conv.weight"] = np.asarray(p["Conv_0"]["kernel"], np.float32).transpose(3, 2, 0, 1)
+        for ours, theirs, tree in (("scale", "weight", p), ("bias", "bias", p), ("mean", "running_mean", s),
+                                   ("var", "running_var", s)):
+            sd[f"model.{tp}.bn.{theirs}"] = np.asarray(tree["BatchNorm_0"][ours], np.float32)
+        sd[f"model.{tp}.bn.num_batches_tracked"] = np.int64(0)
+
+    def plain(tp, p):
+        sd[f"model.{tp}.weight"] = np.asarray(p["kernel"], np.float32).transpose(3, 2, 0, 1)
+        sd[f"model.{tp}.bias"] = np.asarray(p["bias"], np.float32)
+
+    index = {"stem": 0, "down2": 1, "c2f_2": 2, "down3": 3, "c2f_3": 4, "down4": 5, "c2f_4": 6, "down5": 7,
+             "c2f_5": 8, "sppf": 9, "neck_p4": 12, "neck_p3": 15, "pan_d3": 16, "pan_p4": 18, "pan_d4": 19,
+             "pan_p5": 21}
+    for name, i in index.items():
+        p, s = params[name], stats.get(name, {})
+        if "Conv_0" in p:
+            convbn(i, p, s)
+            continue
+        convbn(f"{i}.cv1", p["ConvBnAct_0"], s["ConvBnAct_0"])
+        convbn(f"{i}.cv2", p["ConvBnAct_1"], s["ConvBnAct_1"])
+        b = 0
+        while f"Bottleneck_{b}" in p:
+            pb, sb = p[f"Bottleneck_{b}"], s[f"Bottleneck_{b}"]
+            convbn(f"{i}.m.{b}.cv1", pb["ConvBnAct_0"], sb["ConvBnAct_0"])
+            convbn(f"{i}.m.{b}.cv2", pb["ConvBnAct_1"], sb["ConvBnAct_1"])
+            b += 1
+    ph, sh = params["head"], stats["head"]
+    for lvl in range(3):
+        for branch, first in (("cv2", 0), ("cv3", 2)):
+            for j in range(2):
+                cba = f"ConvBnAct_{4 * lvl + first + j}"
+                convbn(f"22.{branch}.{lvl}.{j}", ph[cba], sh[cba])
+            plain(f"22.{branch}.{lvl}.2", ph[f"Conv_{2 * lvl + first // 2}"])
+    sd["model.22.dfl.conv.weight"] = np.arange(16, dtype=np.float32).reshape(1, 16, 1, 1)
+    return sd
+
+
+SERVE_N = 120      # scans the server replays
+SERVE_LOCALIZE = 10  # scans fed (the last ones, in reverse) after the saved map is loaded back
+SERVE_PAIRS = 4    # stereo pairs in the camera folder (the replay camera loops)
+
+
+def jpeg_size(data: bytes) -> tuple[int, int]:
+    """``(height, width)`` from a JPEG's SOF0 segment, after checking that
+    it starts with SOI and ends with EOI."""
+    if data[:2] != b"\xff\xd8" or data[-2:] != b"\xff\xd9":
+        raise ValueError("not a complete JPEG (SOI ... EOI)")
+    pos = 2
+    while pos + 4 <= len(data):
+        if data[pos] != 0xFF:
+            raise ValueError(f"JPEG marker expected at byte {pos}")
+        marker = data[pos + 1]
+        (n,) = struct.unpack(">H", data[pos + 2:pos + 4])
+        if marker == 0xC0:
+            _, h, w = struct.unpack(">BHH", data[pos + 4:pos + 9])
+            return h, w
+        pos += 2 + n
+    raise ValueError("JPEG without a baseline SOF0 segment")
+
+
+def _http(url: str, payload=None, timeout: float = 60.0):
+    """``(status, content type, body)`` of one request; a POST with a JSON body
+    when ``payload`` is given."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.headers.get("Content-Type"), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type"), e.read()
+
+
+def _timed_gets(url: str, n: int) -> tuple[list, bytes]:
+    times, body = [], b""
+    for _ in range(n):
+        t0 = time.perf_counter()
+        status, _, body = _http(url)
+        times.append(time.perf_counter() - t0)
+        _require(status == 200, f"serve: GET {url} answered {status}")
+    return times, body
+
+
+def _cli(args: list, what: str) -> tuple[str, dict]:
+    """The port's CLI in a subprocess (``cli.main`` with these arguments, as
+    ``python -m icp_slam_yolo_tpu_torch.cli`` runs it), then that process's
+    kernel launch counters.  Returns ``(stdout without the counters' line,
+    counters)``."""
+    import os
+
+    code = ("import json, sys; from icp_slam_yolo_tpu_torch import cli; from icp_slam_yolo_tpu_torch.ops import pallas; "
+            "cli.main(sys.argv[1:]); print('LAUNCHES ' + json.dumps(pallas.LAUNCHES))")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", code, *args], capture_output=True, text=True, timeout=300, env=env)
+    _require(r.returncode == 0, f"{what}: exit {r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    lines = r.stdout.splitlines()
+    _require(lines and lines[-1].startswith("LAUNCHES "), f"{what}: no launch counters printed")
+    return "\n".join(lines[:-1]), json.loads(lines[-1][len("LAUNCHES "):])
+
+
+def serve_path(build_s: float) -> dict:
+    """Phase 11: the entry points users run, on the card.  The server
+    (`serve.state.ServerState` + `serve.app`) on ``OFFLINE_CONFIG`` with
+    8192 map slots (the ``serve`` and ``replay`` defaults), the trained v12
+    detector in bfloat16 on the fused path attached through replayed PNG
+    stereo frames: warm-up (K1-K3 and K5-K7 launched in it), a replay of
+    ``SERVE_N`` seeded scans written as ``.npy`` at an unthrottled rate,
+    driven over HTTP (a POI at the robot and its target fire the camera;
+    the stream's ``camera_data``, the map, a tile, the ICP view, a camera
+    JPEG and one MJPEG part; the map saved, loaded back and the last
+    ``SERVE_LOCALIZE`` scans tracked in reverse in localization), then held against a
+    direct ``Slam(cfg).run`` of the same scans (accept flags equal, poses
+    within 2 mm / 2e-3 rad); ``cli replay`` and ``cli detect`` in
+    subprocesses against the direct run and an in-process detector; a v8
+    ``.pt`` built from ``DETECT_CHECKPOINT`` through
+    ``detector_from_checkpoint(..., pallas_convs=True)`` (K5-K8) against the
+    msgpack detector.  Returns the launch counts of the served path, the
+    CLI replay and the ``.pt`` detector (comparison runs not counted)."""
+    import os
+    import shutil
+    import statistics
+    import tempfile
+    import threading
+    import urllib.request
+
+    import torch
+
+    import icp_slam_yolo_tpu_torch as port
+    from icp_slam_yolo_tpu_torch.acquisition.camera import ReplayCamera, StereoCapture
+    from icp_slam_yolo_tpu_torch.io import maps as maps_io
+    from icp_slam_yolo_tpu_torch.io.checkpoint import load_checkpoint
+    from icp_slam_yolo_tpu_torch.ops import pallas
+    from icp_slam_yolo_tpu_torch.serve.app import make_server
+    from icp_slam_yolo_tpu_torch.serve.state import ServerState
+    from icp_slam_yolo_tpu_torch.utils.images import decode_png, encode_png, read_image
+
+    cfg = port.OFFLINE_CONFIG.replace(map_capacity=8192)
+    conf = 1e-6  # as phase 10: the trained weights score these frames (no pallet) near 1e-5
+    counted = dict.fromkeys(pallas.LAUNCHES, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            counted[k] += v
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    scan_dir, cam_dir, work = (os.path.join(tmp, d) for d in ("scans", "cams", "work"))
+    for d in (scan_dir, cam_dir, work):
+        os.makedirs(d)
+    # 1. the inputs: scans as .npy, stereo pairs as PNG
+    raw, gt = synthetic_sequence(SERVE_N, seed=31)
+    for k in range(SERVE_N):
+        np.save(os.path.join(scan_dir, f"Scan_data_{k + 1}.npy"), raw[k])
+    frames = []
+    for k in range(SERVE_PAIRS):
+        left, right = stereo_pair(300 + k)
+        for eye, img in ((1, left), (2, right)):
+            with open(os.path.join(cam_dir, f"anh_{eye}_{k}.png"), "wb") as f:
+                f.write(encode_png(img))
+        frames.append(left)
+
+    # 2. warm up and start: what a fresh `cli serve --weights --camera-dir` does, with the fused detector
+    det = port.detector_from_checkpoint(TICK_CHECKPOINT, conf_threshold=conf, pallas_convs=True)
+    state = ServerState(cfg, work_dir=work)
+    state.attach_camera(det, StereoCapture(ReplayCamera(cam_dir, "anh_1"), ReplayCamera(cam_dir, "anh_2"),
+                                           os.path.join(tmp, "captures")))
+    pallas.reset_launches()
+    took = state.warmup(det)
+    warm = dict(pallas.LAUNCHES)
+    for name in ("icp_fused", "raster_update", "nn_argmin", "conv1x1_silu", "conv3x3_silu", "conv3x3s2_silu"):
+        _require(warm[name] > 0, f"serve: the warm-up never launched {name}")
+    add(warm)
+    print(f"[11] warm-up {took['total_s']:.2f} s (kernel load {took['build_s']:.3f} s: phase 2 built them in this "
+          f"process in {build_s:.1f} s; two synthetic scans {took['slam_s']:.2f} s; detector __call__ + detect_pair "
+          f"{took['detector_s']:.2f} s): a fresh server pays {build_s + took['total_s']:.1f} s before it serves; "
+          f"launches {warm}", flush=True)
+
+    outs = []
+    feed = state.feed_scan
+
+    def recording(scan):
+        out = feed(scan)
+        outs.append(out)
+        return out
+
+    state.feed_scan = recording
+    srv = make_server(state, "127.0.0.1", 0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        pallas.reset_launches()
+        # the replay starts paused (/stop_stream), so that the robot stands at its start while the POI is set
+        _require(_http(base + "/stop_stream")[0] == 200, "serve: /stop_stream failed")
+        state.start_replay(scan_dir, 1, SERVE_N + 1, rate_hz=float("inf"))
+        # 3. over HTTP: a POI at the robot, then its target: the camera fires while the robot is within 1 m
+        status, _, body = _http(base + "/add_point", {})
+        _require(status == 200 and json.loads(body)["status"] == "success", "serve: /add_point failed")
+        status, _, body = _http(base + "/set_active_target", {"id": len(state.points_of_interest) - 1})
+        _require(status == 200, f"serve: /set_active_target answered {status}")
+        event, seen = None, 0
+        with urllib.request.urlopen(base + "/points_stream", timeout=60) as stream:
+            deadline = time.time() + 120
+            while time.time() < deadline:
+                line = stream.readline()
+                if line.startswith(b"data: "):
+                    seen += 1
+                    event = json.loads(line[6:])
+                    if "camera_data" in event:
+                        break
+        _require(event is not None and "camera_data" in event, f"serve: no camera_data on the stream in {seen} events")
+        pairs_before = state._camera_worker.pairs_processed
+        t0 = time.perf_counter()
+        _require(_http(base + "/resume_stream")[0] == 200, "serve: /resume_stream failed")
+        state._thread.join(300)
+        replay_s = time.perf_counter() - t0
+        _require(not state._thread.is_alive() and len(outs) == SERVE_N, f"serve: the replay fed {len(outs)} scans")
+        pairs_during = state._camera_worker.pairs_processed - pairs_before
+        served = dict(pallas.LAUNCHES)
+        add(served)
+        print(f"[11] served replay: {SERVE_N} scans in {replay_s:.2f} s, {SERVE_N / replay_s:.2f} scans/s unthrottled "
+              f"(the camera firing until the robot left the POI: {pairs_during} stereo pairs detected meanwhile); "
+              f"first stream event with camera_data {event['camera_data']} after {seen} events (robot at its start, "
+              f"{pairs_before} pairs); launches {served}", flush=True)
+
+        acc = np.array([o["accepted"] for o in outs[1:]])
+        rmse = np.array([o["rmse"] for o in outs[1:]])
+        poses = np.array([o["pose"] for o in outs[1:]])
+        pos_err, _ = check_quality("serve", cfg, acc, rmse, poses, gt[:SERVE_N], state.engine.state)
+
+        # the map and the views, decoded with the port's own PNG decoder
+        map_times, body = _timed_gets(base + "/map_image", 10)
+        map_bytes = len(body)
+        occ_img = maps_io.occupancy_to_image(state.engine.occupancy())
+        _require(np.array_equal(decode_png(body), occ_img), "serve: /map_image differs from the engine's occupancy")
+        meta = json.loads(_http(base + "/map_tiles_meta")[2])
+        tile_times, body = _timed_gets(base + f"/map_tiles?z={meta['zmax'] - 1}&x=1&y=1", 20)
+        tile = decode_png(body)
+        _require(tile.shape == (256, 256) and tile.dtype == np.uint8, "serve: malformed tile")
+        native = decode_png(_http(base + f"/map_tiles?z={meta['zmax']}&x=1&y=1")[2])
+        _require(np.array_equal(native, occ_img[256:512, 256:512]), "serve: a native tile differs from the map")
+        icp_view = decode_png(_http(base + "/icp_image")[2])
+        _require(icp_view.shape == (600, 600, 3) and (icp_view != 0).any(), "serve: malformed /icp_image")
+
+        # the camera again, at the robot's final pose: triggered pairs a second, a JPEG and an MJPEG part
+        _http(base + "/add_point", {})
+        _http(base + "/set_active_target", {"id": len(state.points_of_interest) - 1})
+        t_wait = time.time() + 30
+        while not state.camera_trigger and time.time() < t_wait:
+            time.sleep(0.01)
+        before_pairs, t0 = state._camera_worker.pairs_processed, time.perf_counter()
+        time.sleep(5.0)
+        pairs_s = (state._camera_worker.pairs_processed - before_pairs) / (time.perf_counter() - t0)
+        h, w = frames[0].shape[:2]
+        status, ctype, jpeg = _http(base + "/camera_image?eye=0")
+        _require(status == 200 and ctype == "image/jpeg" and jpeg_size(jpeg) == (h, w),
+                 f"serve: /camera_image answered {status} {ctype}")
+        with urllib.request.urlopen(base + "/camera_feed?eye=1", timeout=60) as feed_stream:
+            _require(feed_stream.headers.get("Content-Type") == "multipart/x-mixed-replace; boundary=frame",
+                     "serve: /camera_feed content type")
+            line = feed_stream.readline()
+            while not line.startswith(b"Content-Length:"):
+                line = feed_stream.readline()
+            n = int(line.split(b":")[1])
+            feed_stream.readline()
+            part = feed_stream.read(n)
+        _require(jpeg_size(part) == (h, w), "serve: the MJPEG part is not a JPEG of the frame's size")
+        landmarks = json.loads(_http(base + "/landmarks")[2])["landmarks"]
+        _require(len(landmarks) >= 1, "serve: no landmark")
+        _http(base + "/set_active_target", {"id": None})
+        time.sleep(0.3)  # the trigger-sync loop clears the trigger within a poll
+        served_more = dict(pallas.LAUNCHES)
+        add({k: served_more[k] - served[k] for k in served})
+        print(f"[11] /map_image ({occ_img.shape[1]} x {occ_img.shape[0]} PNG, {map_bytes} bytes) median "
+              f"{statistics.median(map_times) * 1e3:.2f} ms (min {min(map_times) * 1e3:.2f}, max "
+              f"{max(map_times) * 1e3:.2f}, 10 requests), equal to the engine's occupancy; a tile of level "
+              f"{meta['zmax'] - 1} median {statistics.median(tile_times) * 1e3:.2f} ms (min {min(tile_times) * 1e3:.2f}, "
+              f"max {max(tile_times) * 1e3:.2f}, 20 requests, the level cached 0.5 s); triggered pairs "
+              f"{pairs_s:.2f} a second (detect_pair, fusion, two annotated JPEGs); /camera_image and one /camera_feed "
+              f"part: JPEGs of {w} x {h}; {len(landmarks)} landmarks", flush=True)
+
+        # the map saved, loaded back (localization), scans tracked against it
+        status, _, _ = _http(base + "/save_map?filename=served.png")
+        _require(status == 200, "serve: /save_map failed")
+        n_map = int(state.engine.state.map_valid.sum())
+        status, _, body = _http(base + "/load_map/served.png")
+        _require(status == 200 and state.update_mode == 0 and state.engine.cfg.localization_only,
+                 f"serve: /load_map answered {status}")
+        # the robot walks back over the mapped path: the last scans again, last first (a frozen map only
+        # holds what was mapped; ahead of the replay's end the robot would leave it)
+        back = list(range(SERVE_N - 1, SERVE_N - 1 - SERVE_LOCALIZE, -1))
+        before = dict(pallas.LAUNCHES)
+        loc = [state.feed_scan(raw[k]) for k in back]
+        add({k: pallas.LAUNCHES[k] - before[k] for k in before})
+        _require(all(o["accepted"] for o in loc) and int(state.engine.state.map_valid.sum()) == n_map,
+                 "serve: localization rejected a scan or changed the map")
+        rel = relative_poses(gt)[back]
+        loc_err = np.hypot(*(np.array([o["pose"] for o in loc])[:, :2] - rel[:, :2]).T)
+        # pos_err[k - 1] is the replay's error at scan k (its first scan starts the map)
+        worse = float((loc_err - pos_err[np.array(back) - 1]).max())
+        _require(worse <= 100.0, f"serve: localization {worse:.1f} mm further off than the replay was")
+        print(f"[11] map saved (served.png / .npy, {n_map} points) and loaded back: localization on, the last "
+              f"{SERVE_LOCALIZE} scans fed back in reverse all accepted, map unchanged, position error "
+              f"{loc_err.max():.1f} mm, at most {worse:.1f} mm more than the replay's at the same scans "
+              f"(tolerance 100 mm)", flush=True)
+    finally:
+        state.stopped.set()
+        srv.shutdown()
+        srv.server_close()
+
+    # where a served scan's time goes: a profiler window over scans fed through a fresh server
+    prof_state = ServerState(cfg, work_dir=work)
+    prof_state.feed_scan(raw[0])
+    n = 20
+
+    def window():
+        for k in range(1, n + 1):
+            prof_state.feed_scan(raw[k])
+
+    torch.cuda.synchronize()
+    print(f"[11] a served scan (ServerState.feed_scan), profiled {n}: " + profile_window(torch, window, n), flush=True)
+
+    # 4. the server against a direct replay of the same scans on the card
+    padded = np.zeros((SERVE_N, cfg.n_max, 3), np.float32)
+    padded[:, :raw.shape[1]] = raw[:SERVE_N]
+    direct = port.Slam(cfg)
+    _, douts = direct.run(padded)
+    d_acc = douts.accepted.cpu().numpy()
+    d_pose = douts.pose.cpu().numpy()
+    dp = np.abs(poses - d_pose)
+    _require(np.array_equal(acc, d_acc), "serve: accept flags differ from the direct replay")
+    _require(dp[:, :2].max() <= 2.0 and dp[:, 2].max() <= 2e-3, f"serve: poses differ from the direct replay by {dp.max(0)}")
+    print(f"[11] server against Slam(cfg).run of the same {SERVE_N} scans: accept flags equal, poses within "
+          f"{dp[:, :2].max():.3g} mm / {dp[:, 2].max():.3g} rad (tolerance 2 mm / 2e-3 rad; bit equal: "
+          f"{bool(np.array_equal(poses, d_pose))})", flush=True)
+
+    # 5. the CLI in subprocesses
+    out = os.path.join(tmp, "cli_map")
+    t0 = time.perf_counter()
+    text, cli_launches = _cli(["replay", scan_dir, "--end", str(SERVE_N + 1), "--output", out], "cli replay")
+    cli_s = time.perf_counter() - t0
+    for name in ("icp_fused", "raster_update", "nn_argmin"):
+        _require(cli_launches[name] > 0, f"cli replay never launched {name}")
+    add(cli_launches)
+    traj = np.load(out + "_trajectory.npy")
+    png = decode_png(open(out + ".png", "rb").read())
+    pix = np.load(out + ".npy")
+    pcd = maps_io.load_pcd(out + ".pcd")
+    want_traj = np.asarray(direct.trajectory)
+    dt = np.abs(traj - want_traj)
+    _require(traj.shape == (SERVE_N, 3) and dt[:, :2].max() <= 2.0 and dt[:, 2].max() <= 2e-3,
+             f"cli replay: trajectory differs from the direct run by {dt.max(0)}")
+    _require(png.shape == (cfg.map.height_px, cfg.map.width_px) and pix.dtype == np.int32 and pix.shape[1] == 2
+             and pcd.shape == (len(pix), 3) and len(pix) == int(direct.state.map_valid.sum()),
+             "cli replay: malformed artifacts")
+    print(f"[11] cli replay ({cli_s:.1f} s in a subprocess, start-up included): {text.splitlines()[1]}; artifacts "
+          f"{png.shape} PNG, {pix.shape} npy, {pcd.shape} PCD, trajectory within {dt[:, :2].max():.3g} mm / "
+          f"{dt[:, 2].max():.3g} rad of the direct run (bit equal: {bool(np.array_equal(traj, want_traj))}); launches "
+          f"{cli_launches}", flush=True)
+    frame_paths = [os.path.join(cam_dir, f"anh_1_{k}.png") for k in range(2)]
+    text, det_launches = _cli(["detect", *frame_paths, "--weights", TICK_CHECKPOINT, "--conf", str(conf)], "cli detect")
+    rows = [json.loads(line) for line in text.splitlines()]
+    plain_det = port.detector_from_checkpoint(TICK_CHECKPOINT, conf_threshold=conf)  # the CLI's defaults
+    worst = 0.0
+    for row, path in zip(rows, frame_paths):
+        want = plain_det(read_image(path))
+        _require(len(row["boxes"]) == len(want["boxes"]) > 0 and row["classes"] == want["classes"].tolist(),
+                 f"cli detect: {path} gave other detections")
+        worst = max(worst, float(np.abs(np.subtract(row["boxes"], want["boxes"])).max()),
+                    float(np.abs(np.subtract(row["scores"], want["scores"])).max()))
+    _require(len(rows) == 2 and worst <= 1e-3, f"cli detect: rows differ from the in-process detector by {worst}")
+    print(f"[11] cli detect ({TICK_CHECKPOINT}, the CLI's defaults: bfloat16, unfused; conf {conf}): rows equal to "
+          f"an in-process detector's within {worst:.3g} (tolerance 1e-3 px and score); {[len(r['boxes']) for r in rows]} "
+          f"detections; launches {det_launches}", flush=True)
+
+    # 6. a v8 .pt through detector_from_checkpoint, fused: K5-K8, against the msgpack detector
+    payload, _, _ = load_checkpoint(DETECT_CHECKPOINT)
+    pt_path = os.path.join(tmp, "pallet_detect_640.pt")
+    torch.save({k: torch.tensor(np.asarray(v)) for k, v in ultralytics_layout(payload["params"],
+                                                                             payload["batch_stats"]).items()}, pt_path)
+    pt_det = port.detector_from_checkpoint(pt_path, conf_threshold=conf, pallas_convs=True)
+    ref = port.detector_from_checkpoint(DETECT_CHECKPOINT, conf_threshold=conf, pallas_convs=True)
+    pallas.reset_launches()
+    pt_outs = [pt_det(f) for f in frames[:3]] + list(pt_det.detect_pair(frames[0], frames[1]))
+    pt_launches = dict(pallas.LAUNCHES)
+    for name in DETECTOR_KERNELS:
+        _require(pt_launches[name] > 0, f".pt detector never launched {name}")
+    add(pt_launches)
+    ref_outs = [ref(f) for f in frames[:3]] + list(ref.detect_pair(frames[0], frames[1]))
+    for got, want in zip(pt_outs, ref_outs):
+        _require(len(got["boxes"]) > 0 and all(np.array_equal(got[k], want[k]) for k in ("boxes", "scores", "classes")),
+                 ".pt detector differs from the msgpack detector")
+    print(f"[11] {DETECT_CHECKPOINT} as an Ultralytics-layout .pt (plain state dict, torch.save) through "
+          f"detector_from_checkpoint(pallas_convs=True): detections on 3 frames and a stereo pair bit-equal to the "
+          f"msgpack detector's; launches {pt_launches}", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return counted
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", choices=("all", "slam", "detector", "tick"), default="all",
+    parser.add_argument("--phases", choices=("all", "slam", "detector", "tick", "serve"), default="all",
                         help="run every phase (the default: the only run that ends in the result line), or only "
-                             "the SLAM and fleet phases 3-6, only the detector phases 7-9, or only the tick (10)")
+                             "the SLAM and fleet phases 3-6, only the detector phases 7-9, only the tick (10) or "
+                             "only the entry points (11: server, CLI, .pt import)")
     phases = parser.parse_args(argv).phases
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2312,7 +2739,8 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     _lib.lib()
-    print(f"[2] built kernels in {time.perf_counter() - t0:.1f} s", flush=True)
+    build_s = time.perf_counter() - t0
+    print(f"[2] built kernels in {build_s:.1f} s", flush=True)
     for source in _lib.SOURCES:  # every kernel's resources, from `ptxas -v`
         for kernel, regs, spill_st, spill_ld, smem in _lib.ptxas_summary(source):
             print(f"[2] {source} {_kernel_name(kernel)}: {regs} registers, {smem} bytes static shared memory, spills "
@@ -2343,6 +2771,8 @@ def main(argv=None) -> int:
             detector_times(path)
     if phases in ("all", "tick"):
         paths.append(tick_path())
+    if phases in ("all", "serve"):
+        paths.append(serve_path(build_s))
     if phases in ("all", "slam"):
         paths += [replay(cfg)[0], fleet(port.FLEET_CONFIG), presets(port.OFFLINE_CONFIG, port.REALTIME_CONFIG)]
 
@@ -2351,7 +2781,7 @@ def main(argv=None) -> int:
     _require(phases != "all" or set(kernels) == set(order), f"kernels checked: {sorted(kernels)}")
     for name in (n for n in order if n in kernels):
         row = kernels[name]
-        row["launches"] = sum(p[name] for p in paths)  # over the slice, fleet, preset and detector paths
+        row["launches"] = sum(p[name] for p in paths)  # over the slice, fleet, preset, detector, tick and serve paths
         _require(row["launches"] > 0, f"no path launched {name}")
         rows.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches", "max_abs_err",
                                          "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})

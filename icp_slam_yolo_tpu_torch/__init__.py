@@ -14,7 +14,12 @@ plain PyTorch version beside it; a wrapper launches the kernel for a CUDA
 tensor and runs the plain version only for a CPU tensor.  The stereo and
 pose geometry (`perception`) and the landmark map (`fusion`) close the
 fused SLAM + detect loop: a scan step, a stereo pair's detect, and the
-detection projected at the new pose (`fusion.fuse_stereo_pair`).
+detection projected at the new pose (`fusion.fuse_stereo_pair`).  The
+entry points users run sit on top: the command line (`cli`: replay, serve,
+detect, register), the control-panel server (`serve`) with its camera
+(`acquisition`), the map and image files (`io.maps`, `io.render`,
+`utils.images`: PNG and JPEG without an imaging package) and the
+Ultralytics ``.pt`` import (`io.torch_import`).
 
 Entry points (`Slam`, `run_sequence`, `fleet_run_sequence`, `register`,
 `gicp`, `Detector`, `detector_from_checkpoint`) take ``device=None``, which means the card; without one they raise

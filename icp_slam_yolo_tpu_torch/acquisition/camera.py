@@ -1,0 +1,153 @@
+"""Stereo camera capture; the counterpart of the JAX package's
+``acquisition/camera.py``.
+
+The reference opens two cameras and saves paired frames ``anh_1_N`` /
+``anh_2_N``.  Here: a `StereoCapture` with a pluggable frame source
+(`ReplayCamera` serves recorded PNG or ``.npy`` frames through
+`utils.images.read_image`), and the reference's camera-worker behaviour
+(event-gated lazy open, frame-pair grab, release when the trigger clears)
+as `TriggeredCameraWorker`.  The live-camera backend needs OpenCV, which the
+port does not use; it is not ported.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+
+import numpy as np
+
+from icp_slam_yolo_tpu_torch.utils.images import encode_png, read_image
+
+
+class CameraBackend:
+    def open(self) -> None: ...
+    def release(self) -> None: ...
+    def read(self) -> np.ndarray | None:
+        raise NotImplementedError
+
+    @property
+    def is_open(self) -> bool:
+        return False
+
+
+def _rgb(frame: np.ndarray) -> np.ndarray:
+    """Gray -> three equal channels; an alpha channel is dropped."""
+    if frame.ndim == 2:
+        return np.repeat(frame[..., None], 3, axis=2)
+    if frame.shape[2] == 2:
+        return np.repeat(frame[..., :1], 3, axis=2)
+    return np.ascontiguousarray(frame[..., :3])
+
+
+class ReplayCamera(CameraBackend):
+    """Serves frames from a directory of images (loops).  Frames are PNG or
+    ``.npy`` (uint8 HWC); a directory whose only frames are JPEG raises
+    here, when it is listed, naming the format."""
+
+    def __init__(self, directory: str, pattern_prefix: str = ""):
+        names = sorted(n for n in os.listdir(directory) if n.startswith(pattern_prefix))
+        frames = [n for n in names if n.lower().endswith((".png", ".npy"))]
+        if not frames:
+            if any(n.lower().endswith((".jpg", ".jpeg")) for n in names):
+                raise ValueError(f"{directory}: only JPEG frames, which the port does not read (PNG or .npy)")
+            raise FileNotFoundError(f"no frames under {directory}")
+        self.paths = [os.path.join(directory, n) for n in frames]
+        self.idx = 0
+        self._open = False
+
+    def open(self) -> None:
+        self._open = True
+
+    def release(self) -> None:
+        self._open = False
+
+    @property
+    def is_open(self) -> bool:
+        return self._open
+
+    def read(self) -> np.ndarray | None:
+        if not self._open:
+            return None
+        frame = _rgb(np.asarray(read_image(self.paths[self.idx % len(self.paths)]), np.uint8))
+        self.idx += 1
+        return frame
+
+
+class StereoCapture:
+    """Paired capture + save (the reference's file naming: anh_1_N /
+    anh_2_N).  `save_pair` writes PNG (the reference and the JAX package
+    write JPEG; the port has no JPEG decoder to read them back)."""
+
+    def __init__(self, left: CameraBackend, right: CameraBackend, save_dir: str):
+        self.left = left
+        self.right = right
+        self.save_dir = save_dir
+        os.makedirs(save_dir, exist_ok=True)
+        self.counter = 0
+
+    def open(self) -> None:
+        self.left.open()
+        self.right.open()
+
+    def grab_pair(self):
+        return self.left.read(), self.right.read()
+
+    def save_pair(self) -> tuple[str, str] | None:
+        f1, f2 = self.grab_pair()
+        if f1 is None or f2 is None:
+            return None
+        paths = []
+        for eye, frame in ((1, f1), (2, f2)):
+            path = os.path.join(self.save_dir, f"anh_{eye}_{self.counter}.png")
+            with open(path, "wb") as f:
+                f.write(encode_png(np.asarray(frame, np.uint8)))
+            paths.append(path)
+        self.counter += 1
+        return paths[0], paths[1]
+
+    def release(self) -> None:
+        self.left.release()
+        self.right.release()
+
+
+class TriggeredCameraWorker:
+    """The reference's camera-worker loop: wait on a trigger event, lazily
+    open both cameras, per tick grab a pair and run the callback (detector +
+    stereo math); release the cameras when the trigger clears."""
+
+    def __init__(self, stereo: StereoCapture, trigger: threading.Event,
+                 stop: threading.Event, on_pair, poll_s: float = 0.1):
+        self.stereo = stereo
+        self.trigger = trigger
+        self.stop = stop
+        self.on_pair = on_pair
+        self.poll_s = poll_s
+        self.pairs_processed = 0
+        self._thread: threading.Thread | None = None
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _loop(self) -> None:
+        opened = False
+        while not self.stop.is_set():
+            if not self.trigger.wait(self.poll_s):
+                if opened:  # trigger cleared: release the cameras
+                    self.stereo.release()
+                    opened = False
+                continue
+            if not opened:
+                self.stereo.open()
+                opened = True
+            f1, f2 = self.stereo.grab_pair()
+            if f1 is not None and f2 is not None:
+                self.on_pair(f1, f2)
+                self.pairs_processed += 1
+        if opened:
+            self.stereo.release()
+
+    def join(self, timeout: float = 2.0) -> None:
+        if self._thread is not None:
+            self._thread.join(timeout)

@@ -19,7 +19,7 @@ import torch
 
 from icp_slam_yolo_tpu_torch.convert import detector_params_from_numpy
 from icp_slam_yolo_tpu_torch.device import resolve_device
-from icp_slam_yolo_tpu_torch.models.yolo import YOLO, decode_topk, fold_batchnorm
+from icp_slam_yolo_tpu_torch.models.yolo import BN_EPS, YOLO, decode_topk, fold_batchnorm
 from icp_slam_yolo_tpu_torch.ops.nms import Detections, suppress
 
 LETTERBOX_FILL = 114.0 / 255.0  # Ultralytics pad gray
@@ -37,18 +37,26 @@ def letterbox_transform(w0: int, h0: int, size: int):
 def detector_from_checkpoint(path: str, conf_threshold: float = 0.5, iou_threshold: float = 0.45,
                              compute_dtype=torch.bfloat16, img_size: int | None = None, fold_bn: bool = True,
                              pallas_convs: bool = False, device=None) -> "Detector":
-    """Build a ``Detector`` from a checkpoint (``*.msgpack`` with its JSON
-    sidecar), honouring its metadata (task, family, variant, n_kpt, img_size,
-    num_classes).  ``pallas_convs`` defaults to False here (the unfused
-    ``F.conv2d`` path) and to True in ``Detector``, as in the JAX package."""
-    from icp_slam_yolo_tpu_torch.io.checkpoint import load_checkpoint
+    """Build a ``Detector`` from a checkpoint, honouring its metadata (task,
+    family, variant, n_kpt, img_size, num_classes): a ``*.msgpack`` with its
+    JSON sidecar, or an Ultralytics ``*.pt`` (v8 detect layouts only,
+    `io.torch_import`).  ``pallas_convs`` defaults to False here (the
+    unfused ``F.conv2d`` path) and to True in ``Detector``, as in the JAX
+    package."""
+    payload, state = None, None
+    if path.endswith(".pt"):
+        from icp_slam_yolo_tpu_torch.io.torch_import import load_ultralytics_pt
 
-    payload, _, meta = load_checkpoint(path)
+        state, meta = load_ultralytics_pt(path), {"family": "v8", "task": "detect"}
+    else:
+        from icp_slam_yolo_tpu_torch.io.checkpoint import load_checkpoint
+
+        payload, _, meta = load_checkpoint(path)
     return Detector(
         num_classes=meta.get("num_classes", 1), variant=meta.get("variant", "n"), task=meta.get("task", "detect"),
         family=meta.get("family", "v8"), img_size=img_size or meta.get("img_size", 640), n_kpt=meta.get("n_kpt", 4),
         conf_threshold=conf_threshold, iou_threshold=iou_threshold, params=payload, compute_dtype=compute_dtype,
-        fold_bn=fold_bn, pallas_convs=pallas_convs, device=device,
+        fold_bn=fold_bn, pallas_convs=pallas_convs, device=device, state_dict=state,
     )
 
 
@@ -56,9 +64,10 @@ class Detector:
     """Owns the model; ``__call__`` runs frame -> detections.
 
     ``params``: a flax tree (``{"params": ..., "batch_stats": ...}`` of numpy
-    arrays) or None for seeded random weights.  ``fold_bn`` folds the
-    BatchNorm affines into the convs at load (a PSABlock's or ABlock's bare
-    BatchNorm stays); ``pallas_convs`` (needs ``fold_bn``) runs every conv
+    arrays) or None for seeded random weights; or ``state_dict``: the state
+    of the unfolded model (what `io.torch_import` gives).  ``fold_bn`` folds
+    the BatchNorm affines into the convs at load (a PSABlock's or ABlock's
+    bare BatchNorm stays); ``pallas_convs`` (needs ``fold_bn``) runs every conv
     site in the hand-written kernels, one launch per ConvBnAct or plain 1x1
     conv and one per v8 C2f block with a single bottleneck; False runs
     ``F.conv2d``.  ``family``: v8, v11 or v12."""
@@ -66,7 +75,7 @@ class Detector:
     def __init__(self, num_classes: int = 1, variant: str = "n", task: str = "detect", family: str = "v8",
                  img_size: int = 640, conf_threshold: float = 0.5, iou_threshold: float = 0.45,
                  max_detections: int = 100, params=None, seed: int = 0, compute_dtype=torch.bfloat16,
-                 n_kpt: int = 4, fold_bn: bool = True, pallas_convs: bool = True, device=None):
+                 n_kpt: int = 4, fold_bn: bool = True, pallas_convs: bool = True, device=None, state_dict=None):
         self.device = resolve_device(device)
         self.img_size, self.task = img_size, task
         self.conf_threshold, self.iou_threshold, self.max_detections = conf_threshold, iou_threshold, max_detections
@@ -81,6 +90,10 @@ class Detector:
             if fold_bn:
                 tree, stats = fold_batchnorm(tree, stats)
             self.model.load_state_dict(detector_params_from_numpy(tree, stats, self.model))
+        elif state_dict is not None:
+            from icp_slam_yolo_tpu_torch.io.torch_import import fold_state_dict
+
+            self.model.load_state_dict(fold_state_dict(state_dict, BN_EPS) if fold_bn else state_dict)
         self.model.to(self.device)
 
     @torch.no_grad()

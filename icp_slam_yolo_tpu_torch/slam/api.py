@@ -6,10 +6,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from icp_slam_yolo_tpu_torch.config import SlamConfig
+from icp_slam_yolo_tpu_torch.config import MapConfig, SlamConfig
 from icp_slam_yolo_tpu_torch.convert import state_from_numpy, state_to_numpy
 from icp_slam_yolo_tpu_torch.device import resolve_device
+from icp_slam_yolo_tpu_torch.io import maps as maps_io
 from icp_slam_yolo_tpu_torch.io import scans as scans_io
+from icp_slam_yolo_tpu_torch.ops.geometry import se2_to_mat44
 from icp_slam_yolo_tpu_torch.slam import pipeline
 
 
@@ -74,6 +76,11 @@ class Slam:
     def pose(self) -> np.ndarray:
         return np.zeros(3) if self.state is None else self.state.pose.cpu().numpy()
 
+    @property
+    def pose44(self) -> np.ndarray:
+        """The pose as a 4 x 4 homogeneous transform (float32)."""
+        return se2_to_mat44(torch.as_tensor(self.pose, dtype=torch.float32)).numpy()
+
     def map_points(self) -> np.ndarray:
         if self.state is None:
             return np.zeros((0, 2), np.float32)
@@ -84,6 +91,18 @@ class Slam:
             mc = self.cfg.map
             return np.full((mc.height_px, mc.width_px), 0.5, np.float32)
         return self.state.occ.cpu().numpy()
+
+    # --- the reference's artifacts: occupancy PNG + pixel-coords npy, PCD ---
+    def save_map(self, base_path: str, map_cfg: MapConfig | None = None) -> None:
+        """``<base_path>.png`` (the occupancy rendering) and ``<base_path>.npy``
+        (the map points in pixel coordinates of ``map_cfg``, by default the
+        engine's map)."""
+        mc = map_cfg or self.cfg.map
+        maps_io.save_occupancy_png(self.occupancy(), base_path + ".png")
+        maps_io.save_map_points_npy(self.map_points(), base_path + ".npy", mc)
+
+    def save_pcd(self, path: str) -> None:
+        maps_io.save_pcd(self.map_points(), path)
 
     # --- persistence: the same .npz layout as the JAX package's Slam -------
     def save_state(self, path: str) -> None:

@@ -1,0 +1,155 @@
+"""The port's command line (``python -m icp_slam_yolo_tpu_torch.cli``, run
+as a subprocess with ``--device cpu``) against the JAX package's CLI on the
+same inputs, and the port's import rule.
+
+Inputs: a folder of seeded synthetic scans (`chip_smoke.synthetic_sequence`
+saved as ``.npy``) and seeded PNG frames.  Tolerances: trajectories 2 mm /
+2e-3 rad (`test_torch_slam._compare`'s); the map PNG's gray levels equal on
+at least 99.5 % of cells; the map point count within 1 % + 5; detections as
+`test_torch_detect.py` holds them (boxes 0.02 px, scores 1e-4); the
+registration 1 mm / 2e-3 rad and its RMSE 0.1 mm."""
+
+import ast
+import json
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+import chip_smoke
+from icp_slam_yolo_tpu import cli as jcli
+from icp_slam_yolo_tpu_torch.io import maps as tmaps
+from icp_slam_yolo_tpu_torch.utils.images import decode_png
+from test_torch_slam import ANG_RAD, POS_MM
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_cli(*args, check=True):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-m", "icp_slam_yolo_tpu_torch.cli", *args], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=600)
+    if check:
+        assert r.returncode == 0, r.stdout + r.stderr
+    return r
+
+
+@pytest.fixture(scope="module")
+def scan_dir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("scans")
+    scans, _ = chip_smoke.synthetic_sequence(10, seed=3)
+    for k, scan in enumerate(scans):
+        np.save(d / f"Scan_data_{k + 1}.npy", scan)
+    return str(d)
+
+
+def _fields(out: str) -> dict:
+    """The numbers of `replay`'s printed lines, by name."""
+    got = {"loaded": int(re.search(r"loaded (\d+) scans", out).group(1))}
+    m = re.search(r"replayed (\d+) scans in [\d.]+s.*\(([\d.]+) scans/s.*accepted (\d+)/(\d+), "
+                  r"median rmse ([\d.]+) mm, map (\d+) points", out)
+    got.update(replayed=int(m.group(1)), accepted=(int(m.group(3)), int(m.group(4))), rmse=float(m.group(5)),
+               map_points=int(m.group(6)))
+    got["saved"] = re.search(r"saved (\S+)\.png / \.npy / \.pcd / _trajectory\.npy", out) is not None
+    return got
+
+
+def test_replay_matches_the_jax_cli(scan_dir, tmp_path, capsys):
+    jout, tout = str(tmp_path / "j_map"), str(tmp_path / "t_map")
+    jcli.main(["replay", scan_dir, "--output", jout, "--map-capacity", "2048"])
+    want = _fields(capsys.readouterr().out)
+    r = _port_cli("replay", scan_dir, "--output", tout, "--map-capacity", "2048", "--device", "cpu")
+    got = _fields(r.stdout)
+    assert want["saved"] and got["saved"]
+    for key in ("loaded", "replayed", "accepted"):
+        assert got[key] == want[key], key
+    assert abs(got["rmse"] - want["rmse"]) <= 0.1
+    assert abs(got["map_points"] - want["map_points"]) <= 0.01 * want["map_points"] + 5
+    tt, jt = np.load(tout + "_trajectory.npy"), np.load(jout + "_trajectory.npy")
+    assert tt.shape == jt.shape == (10, 3)
+    dp = np.abs(tt - jt)
+    assert dp[:, :2].max() <= POS_MM and dp[:, 2].max() <= ANG_RAD, dp.max(0)
+    t_img = decode_png(open(tout + ".png", "rb").read())
+    j_img = np.asarray(Image.open(jout + ".png"))
+    assert t_img.shape == j_img.shape and (t_img == j_img).mean() >= 0.995
+    assert abs(len(np.load(tout + ".npy")) - len(np.load(jout + ".npy"))) <= 0.01 * len(np.load(jout + ".npy")) + 5
+    assert tmaps.load_pcd(tout + ".pcd").shape == (got["map_points"], 3)
+
+
+def test_replay_needs_the_card_unless_told(scan_dir, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    r = _port_cli("replay", scan_dir, "--output", str(tmp_path / "m"), check=False)
+    assert r.returncode != 0 and "device='cpu'" in r.stderr
+
+
+def test_detect_matches_the_jax_cli(tmp_path, capsys):
+    """The trained detector on synthetic frames (no pallet in them: it scores
+    them near 1e-5, so the threshold is 1e-6 to leave candidates)."""
+    paths = []
+    for seed in range(2):
+        path = str(tmp_path / f"frame_{seed}.png")
+        Image.fromarray(chip_smoke.synthetic_frame(seed)).save(path)
+        paths.append(path)
+    weights = os.path.join(REPO, chip_smoke.DETECT_CHECKPOINT)
+    args = ["detect", *paths, "--weights", weights, "--img-size", "64", "--conf", "1e-6", "--f32"]
+    jcli.main(args)
+    want = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    got = [json.loads(line) for line in _port_cli(*args, "--device", "cpu").stdout.splitlines()]
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g["image"] == w["image"] and set(g) == set(w)
+        assert len(g["boxes"]) == len(w["boxes"]) > 0
+        np.testing.assert_allclose(g["boxes"], w["boxes"], atol=0.02)
+        np.testing.assert_allclose(g["scores"], w["scores"], atol=1e-4)
+        assert g["classes"] == w["classes"]
+    jpg = str(tmp_path / "frame.jpg")
+    Image.fromarray(chip_smoke.synthetic_frame(0)).save(jpg)
+    r = _port_cli("detect", jpg, "--weights", weights, "--img-size", "64", "--device", "cpu", check=False)
+    assert r.returncode != 0 and "JPEG" in r.stderr
+
+
+def test_register_matches_the_jax_cli(scan_dir, tmp_path, capsys):
+    src, dst = os.path.join(scan_dir, "Scan_data_3.npy"), os.path.join(scan_dir, "Scan_data_1.npy")
+    jcli.main(["register", src, dst, "--output", str(tmp_path / "j.png")])
+    want = json.loads(capsys.readouterr().out.splitlines()[0])
+    out = _port_cli("register", src, dst, "--output", str(tmp_path / "t.png"), "--device", "cpu").stdout
+    got = json.loads(out.splitlines()[0])
+    assert "overlay saved to" in out
+    assert (got["source_points"], got["target_points"]) == (want["source_points"], want["target_points"])
+    assert abs(got["rmse_mm"] - want["rmse_mm"]) <= 0.1 and abs(got["theta_rad"] - want["theta_rad"]) <= ANG_RAD
+    assert np.abs(np.subtract(got["t_mm"], want["t_mm"])).max() <= 1.0
+    t_img = decode_png((tmp_path / "t.png").read_bytes())
+    j_img = np.asarray(Image.open(tmp_path / "j.png"))
+    assert t_img.shape == j_img.shape == (800, 800, 3) and (t_img == j_img).all(axis=-1).mean() >= 0.999
+
+
+def _sources():
+    pkg = os.path.join(REPO, "icp_slam_yolo_tpu_torch")
+    files = [os.path.join(root, f) for root, _, names in os.walk(pkg) for f in names if f.endswith(".py")]
+    return sorted(files) + [os.path.join(REPO, "chip_smoke.py")]
+
+
+FORBIDDEN = ("jax", "flax", "PIL", "cv2", "icp_slam_yolo_tpu")
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_port_imports_nothing_forbidden(path):
+    """No import (at any depth of the file) of JAX, flax, PIL, OpenCV or the
+    JAX package: the port runs on a machine that has none of them."""
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            root = name.split(".")[0]
+            assert root not in FORBIDDEN, f"{os.path.relpath(path, REPO)}:{node.lineno} imports {name}"
