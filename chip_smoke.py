@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases (each prints a line; any failed check raises, so the script exits
-non-zero; they run in the order 1-3, 7-11, 4-6, 12, see `main`):
+non-zero; they run in the order 1-3, 7-12, 4-6, 13, see `main`):
   1. require a CUDA device; print the card's name and power limit;
   2. build the CUDA kernels (``nvcc``, first use) and print the build time
      and each kernel's registers, shared memory and spills (``ptxas -v``);
@@ -86,9 +86,19 @@ non-zero; they run in the order 1-3, 7-11, 4-6, 12, see `main`):
      window over served scans; ``cli replay`` and ``cli detect`` in
      subprocesses against the direct run and an in-process detector; a v8
      ``.pt`` (K5-K8) against the msgpack detector;
-  12. one JSON line listing the kernels (each kernel's launches summed over
-     the paths of phases 4-6, 8, 10 and 11), then the card line, then the
-     result line ``{"ok": true, "device": {...}}`` last.
+  12. training (`train_path`): a seeded synthetic YOLO dataset of PNG
+     frames (`pallet_dataset`); one float32 train step at 64 px, card
+     against CPU (v8 detect, v11 obb); the pallet recipe
+     (`scripts/torch_train_pallet.run`: yolo-n v8, 640 px, batch 16,
+     bfloat16 compute, the dataset on the card) for 60 timed steps with a
+     profiler window, the loss required to fall, then 10 float32 steps; the
+     trained checkpoint through the fused detector (K5-K8 launches a
+     forward, every launch held against its plain version, fused against
+     unfused, mAP on ``val/``); v12 detect, v11 obb, v8 segment and pose
+     steps at 640 px; ``cli train`` and ``cli eval`` in subprocesses;
+  13. one JSON line listing the kernels (each kernel's launches summed over
+     the paths of phases 4-6, 8, 10, 11 and 12), then the card line, then
+     the result line ``{"ok": true, "device": {...}}`` last.
 
 The synthetic scan generator (`synthetic_sequence`) lives here so the CPU
 tests can import it; it is not part of the package.
@@ -436,9 +446,7 @@ RASTER_KERNELS = ("raster_update", "raster_update_grid")
 
 def profile_window(torch, fn, n_steps: int) -> str:
     """Run ``fn`` (``n_steps`` steps ending in a synchronise) under the
-    profiler and describe where the device time went.  The raster kernels'
-    device events must number the wrappers' launches in the window (one
-    device launch a call), so a lost profiler record shows."""
+    profiler and describe where the device time went (`window_summary`)."""
     from icp_slam_yolo_tpu_torch.ops import pallas
 
     before = dict(pallas.LAUNCHES)
@@ -451,7 +459,17 @@ def profile_window(torch, fn, n_steps: int) -> str:
         wall.append(time.perf_counter() - t0)
 
     prof = _traced(torch, timed)
-    wall = wall[0]
+    return window_summary(torch, prof, wall[0], n_steps, before)
+
+
+def window_summary(torch, prof, wall: float, n_steps: int, before: dict) -> str:
+    """Where the device time of a profiled window of ``n_steps`` steps
+    (``wall`` seconds) went: busy share, device us and launches a step, the
+    top kernels.  The raster kernels' device events must number the
+    wrappers' launches in the window since ``before`` (one device launch a
+    call), so a lost profiler record shows."""
+    from icp_slam_yolo_tpu_torch.ops import pallas
+
     avgs = sorted(_kernel_events(torch, prof), key=lambda e: -e.self_device_time_total)
     raster_launches = sum(pallas.LAUNCHES[k] - before[k] for k in RASTER_KERNELS)
     raster_events = sum(e.count for e in avgs if "raster_kernel" in e.key)
@@ -1816,6 +1834,61 @@ def synthetic_frame(seed: int, h: int = 480, w: int = 640) -> np.ndarray:
     return np.clip(img + rng.normal(0, 6, img.shape), 0, 255).astype(np.uint8)
 
 
+def pallet_image(rng, h: int = 480, w: int = 640):
+    """A seeded frame with 1-3 box-shaped "pallets" (a face with slats,
+    turned by up to 15 degrees) on a floor and wall gradient, uint8 HWC, and
+    each pallet's corners ``(4, 2)`` in pixels, in label order (the top
+    edge first)."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([90 + 60 * yy / h, 85 + 50 * yy / h, 80 + 40 * xx / w], axis=-1)
+    corners = []
+    for _ in range(int(rng.integers(1, 4))):
+        bw, bh = rng.uniform(w / 8, 0.4 * w), rng.uniform(h / 12, h / 4)
+        cx, cy = rng.uniform(0.6 * bw, w - 0.6 * bw), rng.uniform(h / 3, h - 0.6 * bh - h / 24)
+        a = np.radians(rng.uniform(-15, 15))
+        rot = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+        local = np.stack([(xx - cx) * np.cos(a) + (yy - cy) * np.sin(a), -(xx - cx) * np.sin(a) + (yy - cy) * np.cos(a)])
+        face = (np.abs(local[0]) <= bw / 2) & (np.abs(local[1]) <= bh / 2)
+        img[face] = rng.uniform(120, 210, 3) * np.array([1.0, 0.8, 0.55])
+        slats = face & (local[1] > -bh / 6) & (np.mod(local[0] + bw / 2, bw / 3) < bw / 10)
+        img[slats] *= 0.35
+        corners.append(np.array([[cx, cy]]) + np.array([[-bw, -bh], [bw, -bh], [bw, bh], [-bw, bh]]) / 2 @ rot.T)
+    return np.clip(img + rng.normal(0, 6, img.shape), 0, 255).astype(np.uint8), corners
+
+
+def pallet_dataset(root: str, seed: int, n_train: int = 48, n_val: int = 16, h: int = 480, w: int = 640) -> str:
+    """Write a seeded YOLO-layout dataset of PNG frames (`pallet_image`):
+    ``{train,val}/images/*.png`` with ``labels/`` (boxes: ``0 cx cy w h``),
+    ``labels_poly/`` (the corners as a polygon: the obb and segment tasks)
+    and ``labels_pose/`` (the box and the corners as keypoints, visible).
+    Returns ``root``."""
+    import os
+
+    from icp_slam_yolo_tpu_torch.utils.images import encode_png
+
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("val", n_val)):
+        dirs = {k: os.path.join(root, split, k) for k in ("images", "labels", "labels_poly", "labels_pose")}
+        for d in dirs.values():
+            os.makedirs(d, exist_ok=True)
+        for i in range(n):
+            img, corners = pallet_image(rng, h, w)
+            with open(os.path.join(dirs["images"], f"{i:04d}.png"), "wb") as f:
+                f.write(encode_png(img))
+            rows = {"labels": [], "labels_poly": [], "labels_pose": []}
+            for c in corners:
+                n_c = np.clip(c / np.array([w, h]), 0.0, 1.0)
+                lo, hi = n_c.min(0), n_c.max(0)
+                box = f"{(lo[0] + hi[0]) / 2:.6f} {(lo[1] + hi[1]) / 2:.6f} {hi[0] - lo[0]:.6f} {hi[1] - lo[1]:.6f}"
+                rows["labels"].append(f"0 {box}")
+                rows["labels_poly"].append("0 " + " ".join(f"{v:.6f}" for v in n_c.reshape(-1)))
+                rows["labels_pose"].append(f"0 {box} " + " ".join(f"{x:.6f} {y:.6f} 2" for x, y in n_c))
+            for kind, lines in rows.items():
+                with open(os.path.join(dirs[kind], f"{i:04d}.txt"), "w") as f:
+                    f.write("\n".join(lines) + "\n")
+    return root
+
+
 TICK_CHECKPOINT = "checkpoints/pallet_detect_v12_640.msgpack"
 TICK_DISPARITY_PX = 24
 
@@ -2038,54 +2111,82 @@ FAMILY_CHECKPOINTS = {
 }
 
 
+class HeldKernels:
+    """Shims around the K5-K8 wrappers, in place inside a ``with`` block,
+    that hold each launch against its plain version on the same input
+    (`_tolerance`: 2 bfloat16 steps for K5-K7, 4 for K8; float32 3e-4).
+    ``worst`` is each kernel's largest error, ``held`` its launches held,
+    ``shapes`` the distinct (kernel, input shape, Cout, act) seen."""
+
+    CONVS = ("conv1x1_silu", "conv3x3_silu", "conv3x3s2_silu")
+
+    def __init__(self):
+        from icp_slam_yolo_tpu_torch.ops.pallas import c2f_fused as c2f
+        from icp_slam_yolo_tpu_torch.ops.pallas import conv_fused as conv
+
+        self.conv, self.c2f = conv, c2f
+        self.real = {name: getattr(conv, name) for name in self.CONVS}
+        self.real["c2f_fused"] = c2f.c2f_fused
+        self.worst, self.held, self.shapes = dict.fromkeys(self.real, 0.0), dict.fromkeys(self.real, 0), set()
+
+    def _check(self, name, x, got, want, steps, cout, act=True):
+        err = float((got.float() - want.float()).abs().max())
+        tol = _tolerance(str(x.dtype).split(".")[-1], steps, float(want.float().abs().max()))
+        _require(got.shape == want.shape and err <= tol,
+                 f"{name} {tuple(x.shape)} {x.dtype} -> {cout} act={act}: error {err} (tolerance {tol})")
+        self.worst[name] = max(self.worst[name], err)
+        self.held[name] += 1
+        self.shapes.add((name, tuple(x.shape), cout, act))
+
+    def _conv_shim(self, name):
+        def call(x, w, b, act=True, **kw):
+            real = self.real[name]
+            got = real(x, w, b, act=act, **kw) if name == "conv1x1_silu" else real(x, w, b, **kw)
+            hwio = w[None, None] if name == "conv1x1_silu" else w
+            want = self.conv.conv_bias_act_plain(x, hwio, b, 2 if name == "conv3x3s2_silu" else 1, act)
+            self._check(name, x, got, want, 2, hwio.shape[-1], act)
+            return got
+        return call
+
+    def _c2f_shim(self, x, *weights, shortcut=True, **kw):
+        got = self.real["c2f_fused"](x, *weights, shortcut=shortcut, **kw)
+        self._check("c2f_fused", x, got, self.c2f.c2f_fused_plain(x, *weights, shortcut=shortcut), 4, got.shape[-1])
+        return got
+
+    def __enter__(self):
+        for name in self.CONVS:
+            setattr(self.conv, name, self._conv_shim(name))
+        self.c2f.c2f_fused = self._c2f_shim
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.CONVS:
+            setattr(self.conv, name, self.real[name])
+        self.c2f.c2f_fused = self.real["c2f_fused"]
+
+
 def check_family_sites() -> dict:
     """Phase 7, continued: K5-K7 at every conv site of the v11 and v12
     checkpoints' forwards on the card (640 px; batch 1, 2 and 8; bfloat16
     and float32), each launch held against its plain version on the same
-    input (`_tolerance`, 2 bfloat16 steps).  Returns each kernel's largest
-    error."""
+    input (`HeldKernels`).  Returns each kernel's largest error."""
     import torch
 
     import icp_slam_yolo_tpu_torch as port
-    from icp_slam_yolo_tpu_torch.ops.pallas import conv_fused as conv
-
-    worst = dict.fromkeys(("conv1x1_silu", "conv3x3_silu", "conv3x3s2_silu"), 0.0)
-    shapes, n_checks = set(), 0
-    real = {name: getattr(conv, name) for name in worst}
-
-    def holding(name):
-        def call(x, w, b, act=True, **kw):
-            nonlocal n_checks
-            got = real[name](x, w, b, act=act, **kw) if name == "conv1x1_silu" else real[name](x, w, b, **kw)
-            hwio = w[None, None] if name == "conv1x1_silu" else w
-            want = conv.conv_bias_act_plain(x, hwio, b, 2 if name == "conv3x3s2_silu" else 1, act)
-            err = float((got.float() - want.float()).abs().max())
-            tol = _tolerance(str(x.dtype).split(".")[-1], 2, float(want.float().abs().max()))
-            _require(got.shape == want.shape and err <= tol,
-                     f"{name} {tuple(x.shape)} {x.dtype} -> {hwio.shape[-1]} act={act}: error {err} (tolerance {tol})")
-            worst[name] = max(worst[name], err)
-            shapes.add((name, tuple(x.shape), hwio.shape[-1], act))
-            n_checks += 1
-            return got
-        return call
 
     frames = [synthetic_frame(s) for s in range(70, 78)]
-    for name in worst:
-        setattr(conv, name, holding(name))
-    try:
+    with HeldKernels() as held:
         for path in FAMILY_CHECKPOINTS:
             for dt in (torch.bfloat16, torch.float32):
                 det = port.detector_from_checkpoint(path, conf_threshold=1e-6, pallas_convs=True, compute_dtype=dt)
                 det(frames[0])
                 det.detect_pair(frames[1], frames[2])
                 det.predict_batch(np.concatenate([det.preprocess(f)[0] for f in frames]))
-    finally:
-        for name, fn in real.items():
-            setattr(conv, name, fn)
     torch.cuda.synchronize()
-    print(f"[7] v11/v12 checkpoints' conv sites on the card (batch 1, 2, 8; bfloat16 and float32): {n_checks} launches "
-          f"at {len(shapes)} distinct shapes, each within 2 bfloat16 steps (float32: 3e-4) of its plain version; "
-          f"largest errors {worst}", flush=True)
+    worst = {k: held.worst[k] for k in HeldKernels.CONVS}
+    print(f"[7] v11/v12 checkpoints' conv sites on the card (batch 1, 2, 8; bfloat16 and float32): "
+          f"{sum(held.held.values())} launches at {len(held.shapes)} distinct shapes, each within 2 bfloat16 steps "
+          f"(float32: 3e-4) of its plain version; largest errors {worst}", flush=True)
     return worst
 
 
@@ -2714,16 +2815,296 @@ def serve_path(build_s: float) -> dict:
     return counted
 
 
+# ---------------------------------------------------------------- training (phase 12)
+
+TRAIN_STEPS = 60  # the recipe's steps on the card
+TRAIN_WINDOW = (40, 5)  # the recipe's profiled steps: the first and how many
+
+
+class _StepTimer:
+    """A `torch_train_pallet.run` step hook: each step between two
+    synchronisations on the host clock, a profiler window over ``window`` =
+    (first step, steps), and steps 2-4 under PyTorch's sync debug mode (a
+    step must not wait for the card: its metrics stay on the device)."""
+
+    SYNC_CHECKED = range(2, 5)
+
+    def __init__(self, torch, window):
+        self.torch, self.window = torch, window
+        self.ms, self.summary = [], None
+
+    def __call__(self, i, take_step):
+        from torch.profiler import ProfilerActivity, profile
+
+        from icp_slam_yolo_tpu_torch.ops import pallas
+
+        torch = self.torch
+        first, n = self.window
+        if i == first:
+            self.before = dict(pallas.LAUNCHES)
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            torch.cuda._sleep(20_000_000)  # the tracer misses its first milliseconds (`_traced`)
+            torch.cuda.synchronize()
+            self.t_window = time.perf_counter()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i in self.SYNC_CHECKED:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            metrics = take_step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        if i == first + n - 1:
+            wall = time.perf_counter() - self.t_window
+            torch.cuda._sleep(20_000_000)
+            torch.cuda.synchronize()
+            self.prof.__exit__(None, None, None)
+            self.summary = window_summary(torch, self.prof, wall, n, self.before)
+        return metrics
+
+
+def _recipe_args(root: str, out: str, **kw):
+    import argparse
+
+    args = dict(data=root, img_size=640, batch_size=16, steps=TRAIN_STEPS, eval_images=16, eval_every=0,
+                target_map50=0.99, family="v8", dtype="bfloat16", no_scale_aug=False, out=out, device=None)
+    args.update(kw)
+    return argparse.Namespace(**args)
+
+
+def _train_card_against_cpu(root: str, family: str, task: str, labels: str) -> str:
+    """One float32 train step at 64 px, batch 2, on the card (cuDNN, TF32
+    off) and on the CPU from one initial state and one batch: the loss, each
+    gradient leaf, each updated parameter and each running statistic.
+    Returns a summary; raises beyond the tolerances."""
+    import torch
+
+    from icp_slam_yolo_tpu_torch.io.yolo_data import DeviceYoloDataset, find_pairs
+    from icp_slam_yolo_tpu_torch.models.train import TrainState, create_train_state, make_optimizer, make_train_step
+    from icp_slam_yolo_tpu_torch.models.yolo import YOLO
+
+    pairs = find_pairs(f"{root}/train/images", label_root=f"{root}/train/{labels}")
+    ds = DeviceYoloDataset("", img_size=64, batch_size=2, max_gt=16, task=task, pairs=pairs, device="cpu")
+    batch_cpu = next(iter(ds))
+    sides = {}
+    for dev in ("cpu", "cuda"):
+        model = YOLO(num_classes=1, family=family, task=task)
+        create_train_state(model, 64, seed=5, device="cpu")
+        model.to(dev)
+        state = TrainState(model, make_optimizer(model, total_steps=10))
+        p0 = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        grads = {}
+        update = state.optimizer.step
+
+        def keep_grads_then_update(model=model, update=update):  # the unclipped gradients
+            grads.update({n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()})
+            return update()
+
+        state.optimizer.step = keep_grads_then_update
+        step = make_train_step(model, state.optimizer, 64)
+        _, metrics = step(state, {k: v.to(dev) for k, v in batch_cpu.items()})
+        sides[dev] = (float(metrics["loss"]), grads, p0, {k: v.detach().cpu() for k, v in model.state_dict().items()})
+    (loss_c, g_c, p0, s_c), (loss_g, g_g, _, s_g) = sides["cpu"], sides["cuda"]
+    loss_err = abs(loss_g / loss_c - 1.0)
+    # a leaf whose gradient cancels to rounding noise (the v11 attention blocks' bare BatchNorm biases: ~1e-21
+    # in a float64 run) is held to 1e-5 of the whole gradient's norm instead
+    floor = 1e-5 * float(torch.sqrt(sum((g * g).sum() for g in g_c.values())))
+    grad_err = max(float((g_g[n] - g_c[n]).norm() / (g_c[n].norm() + floor)) for n in g_c)
+    big_grad = [n for n in g_c if float((g_g[n] - g_c[n]).norm()) > 2e-2 * float(g_c[n].norm()) + floor]
+    param_err, stat_err = 0.0, 0.0
+    for k, after in s_c.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        e = float((s_g[k] - after).norm())
+        if k.endswith(("running_mean", "running_var")):
+            stat_err = max(stat_err, e / float(after.norm()))
+            _require(e <= 2e-3 * float(after.norm()), f"card vs cpu train step ({family} {task}): statistic {k} off by {e}")
+        else:
+            bound = 1e-3 * float(after.norm()) + 0.05 * float((after - p0[k]).norm()) + 1e-9
+            param_err = max(param_err, e / bound)
+            _require(e <= bound, f"card vs cpu train step ({family} {task}): parameter {k} off by {e} (bound {bound})")
+    _require(loss_err <= 1e-4 and not big_grad,
+             f"card vs cpu train step ({family} {task}): loss {loss_g} vs {loss_c}; gradients beyond 2e-2: {big_grad[:5]}")
+    return (f"{family} {task}: loss {loss_g:.6f} (card) vs {loss_c:.6f} (cpu), relative {loss_err:.2e} (tolerance 1e-4); "
+            f"gradient leaves within {grad_err:.2e} of their norm (tolerance 2e-2, + 1e-5 of the whole gradient's norm); "
+            f"parameters after the update at most {param_err:.2f} of their bound (1e-3 of the norm + 5e-2 of the update "
+            f"+ 1e-9); running "
+            f"statistics within {stat_err:.2e} (tolerance 2e-3)")
+
+
+def train_path() -> dict:
+    """Phase 12: training and evaluation of the pallet detector on the card.
+    A seeded synthetic dataset (`pallet_dataset`: 48 + 16 PNG frames of 480
+    x 640, 1-3 pallets each, box, polygon and pose labels); one float32 step
+    at 64 px, batch 2, card against CPU (v8 detect, v11 obb); the recipe
+    (`scripts/torch_train_pallet.run`: yolo-n v8, 640 px, batch 16, bfloat16
+    compute, zoom-out and flips, the dataset on the card) for
+    ``TRAIN_STEPS`` steps, each timed, a profiler window, the loss required
+    to fall, then 10 float32 steps; the trained checkpoint through the fused
+    detector (K5-K8 launches a forward, each held against its plain
+    version, fused against unfused, `evaluate_detector` on ``val/``); v12
+    detect and v11 obb (5 steps) and v8 segment and pose (3 steps) at 640 px,
+    batch 16, bfloat16; ``cli train`` and ``cli eval`` in subprocesses.
+    Returns the launch counts of the run (counters zeroed at its start)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    import icp_slam_yolo_tpu_torch as port
+    from icp_slam_yolo_tpu_torch.io.yolo_data import DeviceYoloDataset, find_pairs
+    from icp_slam_yolo_tpu_torch.models.eval import evaluate_detector
+    from icp_slam_yolo_tpu_torch.models.train import create_train_state, make_train_step
+    from icp_slam_yolo_tpu_torch.models.yolo import YOLO
+    from icp_slam_yolo_tpu_torch.ops import pallas
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import torch_train_pallet
+
+    t_phase = time.perf_counter()
+    pallas.reset_launches()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    root = os.path.join(tmp, "pallets")
+    t0 = time.perf_counter()
+    pallet_dataset(root, seed=12)
+    print(f"[12] dataset: 48 train + 16 val PNG frames of 480 x 640 written in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 2. one float32 step, card against CPU
+    for family, task, labels in (("v8", "detect", "labels"), ("v11", "obb", "labels_poly")):
+        print("[12] float32 train step at 64 px, batch 2, card vs cpu, " + _train_card_against_cpu(root, family, task, labels),
+              flush=True)
+
+    # 3. the recipe at full width
+    torch.cuda.reset_peak_memory_stats()
+    timer = _StepTimer(torch, TRAIN_WINDOW)
+    metrics = torch_train_pallet.run(_recipe_args(root, os.path.join(tmp, "pallet")), step_hook=timer)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    hist = metrics.pop("history")
+    losses = np.array([h["loss"] for h in hist])
+    norms = np.array([h["grad_norm"] for h in hist])
+    _require(len(hist) == TRAIN_STEPS and np.isfinite(losses).all() and np.isfinite(norms).all(),
+             "recipe: a loss or gradient norm is not finite")
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    _require(last < first, f"recipe: the loss did not fall (first 10 steps {first:.4f}, last 10 {last:.4f})")
+    med = float(np.median(timer.ms[1:]))
+    print(f"[12] torch_train_pallet.run: yolo-n v8, 640 px, batch 16, bfloat16 compute (float32 parameters), zoom-out "
+          f"and flips, {TRAIN_STEPS} steps: loss mean of steps 1-10 {first:.4f} -> steps {TRAIN_STEPS - 9}-{TRAIN_STEPS} "
+          f"{last:.4f}, every loss and gradient norm finite (last grad_norm {norms[-1]:.3f}, num_fg {hist[-1]['num_fg']:.0f}), "
+          f"steps 3-5 under the sync debug mode; "
+          f"step wall (synchronised) median {med:.2f} ms (first step {timer.ms[0]:.1f} ms), {16e3 / med:.1f} images/s; "
+          f"peak memory {peak:.2f} GiB; val (16 frames, conf 0.001, the fused bfloat16 detector): "
+          f"mAP50 {metrics['mAP50']:.4f}, mAP50-95 {metrics['mAP50_95']:.4f}", flush=True)
+    print(f"[12] recipe steps {TRAIN_WINDOW[0] + 1}-{sum(TRAIN_WINDOW)}, profiled: {timer.summary}", flush=True)
+
+    timer32 = _StepTimer(torch, (4, 5))
+    m32 = torch_train_pallet.run(_recipe_args(root, os.path.join(tmp, "pallet_f32"), dtype="float32", steps=10,
+                                              eval_images=2), step_hook=timer32)
+    h32 = m32.pop("history")
+    _require(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in h32), "float32 recipe: not finite")
+    med32 = float(np.median(timer32.ms[1:]))
+    print(f"[12] the same in float32 (the CLI's type), 10 steps: step wall median {med32:.2f} ms, {16e3 / med32:.1f} "
+          f"images/s; steps 5-9 profiled: {timer32.summary}", flush=True)
+
+    # 4. the trained checkpoint through the fused detector
+    ckpt = os.path.join(tmp, "pallet")
+    fused = port.detector_from_checkpoint(ckpt, conf_threshold=0.001, pallas_convs=True)
+    unfused = port.detector_from_checkpoint(ckpt, conf_threshold=0.001, pallas_convs=False)
+    full = port.detector_from_checkpoint(ckpt, conf_threshold=0.001, pallas_convs=True, compute_dtype=torch.float32)
+    frames = [pallet_image(np.random.default_rng(1200 + k))[0] for k in range(8)]
+    batch8 = np.concatenate([fused.preprocess(f)[0] for f in frames])
+    per_forward = []
+
+    def counted(fn):
+        before = dict(pallas.LAUNCHES)
+        out = fn()
+        per_forward.append({k: pallas.LAUNCHES[k] - before[k] for k in LAUNCHES_PER_FORWARD})
+        return out
+
+    with HeldKernels() as held:
+        counted(lambda: fused(frames[0]))
+        counted(lambda: fused.detect_pair(frames[1], frames[2]))
+        counted(lambda: fused.predict_batch(batch8))
+        counted(lambda: full.predict_batch(batch8[:2]))
+    for counts in per_forward:
+        _require(counts == LAUNCHES_PER_FORWARD, f"trained detector: launches per forward {counts}")
+    images = torch.from_numpy(batch8[:2]).cuda()
+    with torch.no_grad():
+        heads = [_head_tensors(d.model(images)) for d in (fused, unfused, full)]
+    worst_fu, worst_f, worst_u, mag = 0.0, 0.0, 0.0, 0.0
+    for a, b, c in zip(*heads):
+        worst_fu = max(worst_fu, float((a.float() - b.float()).abs().max()))
+        worst_f = max(worst_f, float((a.float() - c).abs().max()))
+        worst_u = max(worst_u, float((b.float() - c).abs().max()))
+        mag = max(mag, float(c.abs().max()))
+    tol = 0.04 * mag  # phase 8's
+    _require(worst_fu <= tol and worst_f <= max(2.0 * worst_u, tol / 2), "trained detector: fused and unfused differ")
+    ev = evaluate_detector(fused, os.path.join(root, "val"), 640, conf_threshold=0.001)
+    print(f"[12] the trained checkpoint through detector_from_checkpoint(pallas_convs=True), bfloat16 and float32: "
+          f"launches per forward {per_forward[0]} at batch 1, 2, 8 (and float32 batch 2); {sum(held.held.values())} K5-K8 "
+          f"launches each held against its plain version (2 bfloat16 steps, K8 4; float32 3e-4), largest errors "
+          f"{ {k: float(f'{v:.4g}') for k, v in held.worst.items()} }; head outputs at batch 2: fused vs unfused "
+          f"{worst_fu:.4g} (tolerance {tol:.4g}), against float32 fused {worst_f:.4g}, unfused {worst_u:.4g}; "
+          f"evaluate_detector on val/ (16 frames, conf 0.001): mAP50 {ev['mAP50']:.4f}, mAP50-95 {ev['mAP50_95']:.4f}, "
+          f"P {ev['precision']:.4f}, R {ev['recall']:.4f} (reported, not gated: {TRAIN_STEPS} steps from scratch)",
+          flush=True)
+
+    # 5. the reference's other families and tasks at full width
+    for family, task, labels, steps in (("v12", "detect", "labels", 5), ("v11", "obb", "labels_poly", 5),
+                                        ("v8", "segment", "labels_poly", 3), ("v8", "pose", "labels_pose", 3)):
+        pairs = find_pairs(f"{root}/train/images", label_root=f"{root}/train/{labels}")
+        ds = DeviceYoloDataset("", img_size=640, batch_size=16, max_gt=16, augment=True, task=task, pairs=pairs,
+                               scale_aug=(0.5, 0.67, 0.83, 1.0))
+        model = YOLO(num_classes=1, family=family, task=task, compute_dtype=torch.bfloat16)
+        state = create_train_state(model, 640, total_steps=steps)
+        step = make_train_step(model, state.optimizer, 640)
+        it, ms, hist = iter(ds), [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, next(it))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            hist.append({k: float(v) for k, v in m.items()})
+        _require(all(np.isfinite(list(h.values())).all() for h in hist), f"{family} {task}: a loss is not finite")
+        print(f"[12] {family} {task}, 640 px, batch 16, bfloat16, {steps} steps: losses "
+              f"{[round(h['loss'], 3) for h in hist]}, last terms { {k: round(v, 4) for k, v in hist[-1].items()} }; "
+              f"step wall {ms[-1]:.1f} ms (first {ms[0]:.0f} ms)", flush=True)
+
+    # 6. the command line in subprocesses
+    cli_ckpt = os.path.join(tmp, "cli_ckpt")
+    t0 = time.perf_counter()
+    out, _ = _cli(["train", os.path.join(root, "train"), "--steps", "4", "--output", cli_ckpt], "cli train")
+    train_s = time.perf_counter() - t0
+    _require(os.path.exists(cli_ckpt) and os.path.exists(cli_ckpt + ".results.csv") and "step 1/4" in out,
+             "cli train: no checkpoint or log")
+    t0 = time.perf_counter()
+    out, _ = _cli(["eval", "--weights", cli_ckpt, "--data", os.path.join(root, "val")], "cli eval")
+    got = json.loads(out)
+    _require(got.get("task") == "detect" and "mAP50" in got, f"cli eval: {got}")
+    print(f"[12] cli train (float32, 640 px, batch 16, 4 steps) in a subprocess {train_s:.1f} s, then cli eval on its "
+          f"checkpoint {time.perf_counter() - t0:.1f} s: {got}", flush=True)
+    launches = dict(pallas.LAUNCHES)
+    for name in DETECTOR_KERNELS:
+        _require(launches[name] > 0, f"phase 12 never launched {name}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[12] phase 12 in {time.perf_counter() - t_phase:.1f} s; launches {launches}", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", choices=("all", "slam", "detector", "tick", "serve"), default="all",
+    parser.add_argument("--phases", choices=("all", "slam", "detector", "tick", "serve", "train"), default="all",
                         help="run every phase (the default: the only run that ends in the result line), or only "
-                             "the SLAM and fleet phases 3-6, only the detector phases 7-9, only the tick (10) or "
-                             "only the entry points (11: server, CLI, .pt import)")
+                             "the SLAM and fleet phases 3-6, only the detector phases 7-9, only the tick (10), "
+                             "only the entry points (11: server, CLI, .pt import) or only training (12)")
     phases = parser.parse_args(argv).phases
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2773,6 +3154,8 @@ def main(argv=None) -> int:
         paths.append(tick_path())
     if phases in ("all", "serve"):
         paths.append(serve_path(build_s))
+    if phases in ("all", "train"):
+        paths.append(train_path())
     if phases in ("all", "slam"):
         paths += [replay(cfg)[0], fleet(port.FLEET_CONFIG), presets(port.OFFLINE_CONFIG, port.REALTIME_CONFIG)]
 
@@ -2781,7 +3164,7 @@ def main(argv=None) -> int:
     _require(phases != "all" or set(kernels) == set(order), f"kernels checked: {sorted(kernels)}")
     for name in (n for n in order if n in kernels):
         row = kernels[name]
-        row["launches"] = sum(p[name] for p in paths)  # over the slice, fleet, preset, detector, tick and serve paths
+        row["launches"] = sum(p[name] for p in paths)  # over the slice, fleet, preset, detector, tick, serve and train paths
         _require(row["launches"] > 0, f"no path launched {name}")
         rows.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches", "max_abs_err",
                                          "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})

@@ -7,12 +7,16 @@
                and --camera-dir the fused perception loop
   detect       run the detector over images (one JSON line per image)
   register     pairwise scan registration (R, t, rmse) with an overlay PNG
+  train        train the YOLO detector on a YOLO-layout dataset (float32,
+               the dataset held on the device): a checkpoint + results CSV
+  eval         evaluate a checkpoint on a val set (the task's metrics, JSON)
 
 Every subcommand runs on the CUDA card unless ``--device cpu`` is given
 (the kernels' plain PyTorch versions).  Frames and maps are read as PNG or
 ``.npy`` (the port has no JPEG decoder).  The detector of ``serve`` and
 ``detect`` is built by ``detector_from_checkpoint`` with its default, the
-unfused convolutions (``F.conv2d`` + SiLU), as the JAX CLI builds it.
+unfused convolutions (``F.conv2d`` + SiLU), as the JAX CLI builds it, and
+so is the detector ``eval`` runs.
 
 Run: ``python -m icp_slam_yolo_tpu_torch.cli <command> --help``.
 """
@@ -118,6 +122,87 @@ def cmd_detect(args):
         print(json.dumps(row))
 
 
+def cmd_train(args):
+    from icp_slam_yolo_tpu_torch.io.yolo_data import DeviceYoloDataset
+    from icp_slam_yolo_tpu_torch.models.train import fit
+    from icp_slam_yolo_tpu_torch.models.yolo import YOLO
+
+    ds = DeviceYoloDataset(args.data, img_size=args.img_size, batch_size=args.batch_size, max_gt=args.max_gt,
+                           augment=True, task=args.task, label_root=args.label_dir, device=args.device)
+    steps = args.steps or (len(ds) // args.batch_size) * args.epochs
+    model = YOLO(num_classes=args.num_classes, variant=args.variant, task=args.task, family=args.family)
+    state, history = fit(model, iter(ds), args.img_size, steps, device=args.device)
+    if args.output:
+        from icp_slam_yolo_tpu_torch.convert import detector_params_to_numpy
+        from icp_slam_yolo_tpu_torch.io.checkpoint import save_checkpoint
+        from icp_slam_yolo_tpu_torch.models.train import write_results_csv
+
+        save_checkpoint(args.output, *detector_params_to_numpy(state.model),
+                        meta={"img_size": args.img_size, "num_classes": args.num_classes, "variant": args.variant,
+                              "task": args.task, "family": args.family})
+        write_results_csv(history, args.output + ".results.csv")
+        print(f"saved checkpoint to {args.output}")
+
+
+def cmd_eval(args):
+    """Evaluate a checkpoint on a val set: the task (detect, obb, segment,
+    pose) comes from its metadata, and each task reports its own metrics
+    (AP, angle error, mask IoU, corner error and OKS)."""
+    import sys
+
+    from icp_slam_yolo_tpu_torch.io.checkpoint import load_checkpoint
+
+    _, _, meta = load_checkpoint(args.weights)
+    task = meta.get("task", "detect")
+    img_size = args.img_size or meta.get("img_size", 640)
+
+    if task == "segment":
+        from icp_slam_yolo_tpu_torch.models.eval import evaluate_segment_checkpoint
+
+        metrics = evaluate_segment_checkpoint(args.weights, args.data, img_size, max_images=args.max_images,
+                                              device=args.device)
+    else:
+        from icp_slam_yolo_tpu_torch.models.detect import detector_from_checkpoint
+
+        # AP needs the full sweep (conf 0.001); the pose metrics take the
+        # best detection a frame and want a real gate
+        conf = 0.25 if task == "pose" else 0.001
+        det = detector_from_checkpoint(args.weights, conf_threshold=conf, img_size=args.img_size, device=args.device)
+        if task == "obb":
+            from icp_slam_yolo_tpu_torch.models.eval import evaluate_obb_detector
+
+            metrics = evaluate_obb_detector(det, args.data, max_images=args.max_images)
+        elif task == "pose":
+            from icp_slam_yolo_tpu_torch.io.yolo_data import find_pairs
+            from icp_slam_yolo_tpu_torch.models.eval import evaluate_pose_detector
+
+            pairs = [p for p in find_pairs(args.data, label_root=args.label_dir) if os.path.exists(p[1])]
+            if not pairs:
+                sys.exit("eval: no labeled images found - check --data/--label-dir "
+                         "(pose labels are .txt files next to the images or under --label-dir)")
+            if args.val_split:
+                # the pose set has no train/val directories: the 80/20 seed-42 holdout
+                import random
+
+                random.Random(42).shuffle(pairs)
+                pairs = pairs[int(len(pairs) * 0.8):]
+            if args.max_images:
+                pairs = pairs[:args.max_images]
+            metrics = evaluate_pose_detector(det, pairs)
+        else:
+            from icp_slam_yolo_tpu_torch.models.eval import evaluate_detector
+
+            metrics = evaluate_detector(det, args.data, img_size, max_images=args.max_images)
+
+    metrics = {k: (round(v, 4) if isinstance(v, float) else v) for k, v in metrics.items()}
+    metrics["task"] = task
+    print(json.dumps(metrics, indent=2))
+    if args.output:
+        with open(args.output, "w") as f:
+            json.dump(metrics, f, indent=2)
+        print(f"wrote {args.output}")
+
+
 def cmd_register(args):
     """Pairwise scan registration: load two raw scans, gate, register,
     report (R, t, rmse) and save an overlay image."""
@@ -207,6 +292,35 @@ def main(argv=None):
     d.add_argument("--f32", action="store_true", help="float32 detector compute (default bfloat16)")
     device_arg(d)
     d.set_defaults(fn=cmd_detect)
+
+    t = sub.add_parser("train", help="train the YOLO detector")
+    t.add_argument("data", help="dataset root (images/ + labels/; PNG images)")
+    t.add_argument("--img-size", type=int, default=640)
+    t.add_argument("--batch-size", type=int, default=16)
+    t.add_argument("--epochs", type=int, default=400)
+    t.add_argument("--steps", type=int, default=None)
+    t.add_argument("--num-classes", type=int, default=1)
+    t.add_argument("--variant", default="n")
+    t.add_argument("--family", default="v8", choices=["v8", "v11", "v12"],
+                   help="architecture generation (v11: C3k2 + C2PSA, v12: area-attention A2C2f)")
+    t.add_argument("--task", default="detect", choices=["detect", "obb", "segment", "pose"])
+    t.add_argument("--max-gt", type=int, default=32)
+    t.add_argument("--label-dir", default=None, help="labels in a separate directory (pose)")
+    t.add_argument("--output", default=None)
+    device_arg(t)
+    t.set_defaults(fn=cmd_train)
+
+    ev = sub.add_parser("eval", help="evaluate a checkpoint on a val set")
+    ev.add_argument("--weights", required=True, help="checkpoint .msgpack (the task from its metadata)")
+    ev.add_argument("--data", required=True, help="YOLO-layout val dir (or image dir for pose)")
+    ev.add_argument("--label-dir", default=None, help="pose: a separate label directory")
+    ev.add_argument("--img-size", type=int, default=None, help="override the checkpoint's native size")
+    ev.add_argument("--max-images", type=int, default=None,
+                    help="cap the number of val images; unset evaluates the whole directory for every task")
+    ev.add_argument("--val-split", action="store_true", help="pose: evaluate the 20%% seed-42 holdout of --data")
+    ev.add_argument("--output", default=None, help="write the metrics JSON here")
+    device_arg(ev)
+    ev.set_defaults(fn=cmd_eval)
 
     rg = sub.add_parser("register", help="pairwise scan registration demo")
     rg.add_argument("source", help="source scan .npy (registered onto target)")

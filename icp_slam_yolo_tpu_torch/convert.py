@@ -7,7 +7,7 @@ scan, counters) is what moves.  The field names are those of the JAX
 The detector's weights are a flax tree (``params`` and ``batch_stats``, as
 nested dicts of numpy arrays: what `io.checkpoint.load_checkpoint` reads);
 `detector_params_from_numpy` turns it into the ``state_dict`` of the port's
-`models.yolo.YOLO`.
+`models.yolo.YOLO`, and `detector_params_to_numpy` back.
 """
 
 from __future__ import annotations
@@ -54,6 +54,38 @@ def _flatten(tree, prefix: tuple) -> dict:
     return out
 
 
+def flax_leaves(model):
+    """``(state_dict key, flax path, is_kernel)`` for every leaf of the
+    model's flax tree, by the rule `detector_params_from_numpy` states: the
+    path is ``("params" | "batch_stats", scope ..., leaf name)``; a kernel
+    is HWIO in the tree and OIHW in the model."""
+    from icp_slam_yolo_tpu_torch.models.yolo import A2C2f, BatchNorm, Conv1x1, ConvBnAct, DepthwiseConv3x3
+
+    for name, mod in model.named_modules():
+        scope = tuple(name.split(".")) if name else ()  # () for the model itself (a block converted alone)
+        pre = f"{name}." if name else ""
+        if isinstance(mod, ConvBnAct):
+            yield f"{pre}conv.weight", ("params", *scope, "Conv_0", "kernel"), True
+            if mod.folded:
+                yield f"{pre}conv.bias", ("params", *scope, "Conv_0", "bias"), False
+            else:
+                yield f"{pre}bn.weight", ("params", *scope, "BatchNorm_0", "scale"), False
+                yield f"{pre}bn.bias", ("params", *scope, "BatchNorm_0", "bias"), False
+                yield f"{pre}bn.running_mean", ("batch_stats", *scope, "BatchNorm_0", "mean"), False
+                yield f"{pre}bn.running_var", ("batch_stats", *scope, "BatchNorm_0", "var"), False
+        elif isinstance(mod, (Conv1x1, DepthwiseConv3x3)):
+            yield f"{pre}conv.weight", ("params", *scope, "kernel"), True
+            if mod.conv.bias is not None:
+                yield f"{pre}conv.bias", ("params", *scope, "bias"), False
+        elif isinstance(mod, BatchNorm):
+            yield f"{pre}weight", ("params", *scope, "scale"), False
+            yield f"{pre}bias", ("params", *scope, "bias"), False
+            yield f"{pre}running_mean", ("batch_stats", *scope, "mean"), False
+            yield f"{pre}running_var", ("batch_stats", *scope, "var"), False
+        elif isinstance(mod, A2C2f) and mod.gamma is not None:
+            yield f"{pre}gamma", ("params", *scope, "gamma"), False
+
+
 def detector_params_from_numpy(params: dict, batch_stats: dict, model) -> dict:
     """A flax tree of the JAX ``YOLO`` (folded or not, matching ``model``) ->
     the ``state_dict`` of the port's ``model``.
@@ -70,40 +102,14 @@ def detector_params_from_numpy(params: dict, batch_stats: dict, model) -> dict:
     ``bias`` and the statistics ``mean``, ``var``; an A2C2f with a residual
     scale gives ``gamma``.  Raises on a leaf of the tree that no module
     consumed and on a module parameter that no leaf filled."""
-    from icp_slam_yolo_tpu_torch.models.yolo import A2C2f, BatchNorm, Conv1x1, ConvBnAct, DepthwiseConv3x3
-
     flat = {**_flatten(params, ("params",)), **_flatten(batch_stats, ("batch_stats",))}
     used, state = set(), {}
-
-    def take(*path):
+    for key, path, kernel in flax_leaves(model):
         if path not in flat:
             raise KeyError(f"the flax tree has no leaf {'/'.join(path)}")
         used.add(path)
-        return torch.from_numpy(np.array(flat[path], dtype=np.float32))
-
-    for name, mod in model.named_modules():
-        scope = tuple(name.split(".")) if name else ()  # () for the model itself (a block converted alone)
-        pre = f"{name}." if name else ""
-        if isinstance(mod, ConvBnAct):
-            state[f"{pre}conv.weight"] = take("params", *scope, "Conv_0", "kernel").permute(3, 2, 0, 1).contiguous()
-            if mod.folded:
-                state[f"{pre}conv.bias"] = take("params", *scope, "Conv_0", "bias")
-            else:
-                state[f"{pre}bn.weight"] = take("params", *scope, "BatchNorm_0", "scale")
-                state[f"{pre}bn.bias"] = take("params", *scope, "BatchNorm_0", "bias")
-                state[f"{pre}bn.running_mean"] = take("batch_stats", *scope, "BatchNorm_0", "mean")
-                state[f"{pre}bn.running_var"] = take("batch_stats", *scope, "BatchNorm_0", "var")
-        elif isinstance(mod, (Conv1x1, DepthwiseConv3x3)):
-            state[f"{pre}conv.weight"] = take("params", *scope, "kernel").permute(3, 2, 0, 1).contiguous()
-            if mod.conv.bias is not None:
-                state[f"{pre}conv.bias"] = take("params", *scope, "bias")
-        elif isinstance(mod, BatchNorm):
-            state[f"{pre}weight"] = take("params", *scope, "scale")
-            state[f"{pre}bias"] = take("params", *scope, "bias")
-            state[f"{pre}running_mean"] = take("batch_stats", *scope, "mean")
-            state[f"{pre}running_var"] = take("batch_stats", *scope, "var")
-        elif isinstance(mod, A2C2f) and mod.gamma is not None:
-            state[f"{pre}gamma"] = take("params", *scope, "gamma")
+        t = torch.from_numpy(np.array(flat[path], dtype=np.float32))
+        state[key] = t.permute(3, 2, 0, 1).contiguous() if kernel else t
     unused = sorted("/".join(p) for p in set(flat) - used)
     if unused:
         raise ValueError(f"{len(unused)} leaves of the flax tree were not consumed, e.g. {unused[:4]}")
@@ -117,3 +123,19 @@ def detector_params_from_numpy(params: dict, batch_stats: dict, model) -> dict:
         elif state[key].shape != value.shape:
             raise ValueError(f"{key}: the tree gives {tuple(state[key].shape)}, the model has {tuple(value.shape)}")
     return state
+
+
+def detector_params_to_numpy(model) -> tuple[dict, dict]:
+    """The inverse of `detector_params_from_numpy`: the port's ``model`` ->
+    ``(params, batch_stats)``, flax trees (nested dicts, flax's scope
+    names) of float32 numpy arrays, kernels HWIO; what
+    `io.checkpoint.save_checkpoint` writes and flax reads."""
+    state = model.state_dict()
+    trees = {"params": {}, "batch_stats": {}}
+    for key, path, kernel in flax_leaves(model):
+        t = state[key].detach().to("cpu", torch.float32)
+        node = trees[path[0]]
+        for part in path[1:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.array((t.permute(2, 3, 1, 0) if kernel else t).contiguous().numpy())  # a copy
+    return trees["params"], trees["batch_stats"]

@@ -2,7 +2,7 @@
 ``models/yolo.py`` (families v8, v11 and v12; variants n/s/m; tasks
 detect, obb, segment, pose).
 
-Inference only.  Activations are NHWC (``(B, H, W, C)`` contiguous) at every
+Activations are NHWC (``(B, H, W, C)`` contiguous) at every
 public function and between the modules, as in the JAX package, so outputs
 compare like with like and the conv kernels take them as they are.  Child
 modules carry the names flax gives them (``ConvBnAct_0``, ``Bottleneck_0``,
@@ -23,6 +23,23 @@ Two conv paths, chosen by the caller through ``fused`` and never silently:
     products stay library calls, as they stay XLA's there;
   * ``fused=False``: ``F.conv2d`` + ``F.silu``, the counterpart of the JAX
     package's unfused path through XLA's conv emitter.
+
+Every module starts in inference mode, a block built alone too.
+Training: ``model.train()`` on an unfolded, unfused model (the JAX
+package's ``apply(..., train=True)``).  In that mode every module computes
+from its live parameters with autograd, casting them to the working type
+inside the graph, and a BatchNorm normalises with the batch's statistics
+as flax's
+``nn.BatchNorm(use_running_average=False, momentum=0.97, epsilon=1e-3)``
+does: mean and biased variance ``E[x^2] - E[x]^2`` (clipped at 0) in
+float32 whatever the working type, and running statistics updated as
+``0.97 * running + 0.03 * batch``, the biased variance included.
+
+The memo: at inference a module keeps cast or re-laid copies of its
+parameters (`_Cached`), dropped when the module is moved or reloaded and
+at every ``train()``/``eval()``, so the weights an optimizer moved in
+training mode are read again.  Training mode neither reads nor fills it;
+a weight changed in place at inference needs a ``model.eval()`` after it.
 """
 
 from __future__ import annotations
@@ -39,6 +56,7 @@ from icp_slam_yolo_tpu_torch.ops.pallas import c2f_fused as c2f_kernel
 from icp_slam_yolo_tpu_torch.ops.pallas import conv_fused as conv_kernels
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.97  # flax's: running = 0.97 * running + 0.03 * batch
 _FUSED_SITES = ((1, 1), (3, 1), (3, 2))
 
 
@@ -47,22 +65,57 @@ def _make_divisible(x: float, div: int = 8) -> int:
 
 
 class _Cached(nn.Module):
-    """A module that keeps casted or re-laid copies of its parameters, made
-    at first use and dropped when the module is moved or reloaded."""
+    """A module that keeps cast or re-laid copies of its parameters for
+    inference, made at first use and dropped when the module is moved,
+    reloaded or switched between training and inference."""
 
     def __init__(self):
         super().__init__()
         self._memo = {}
+        self.training = False  # inference until `train()` opts in, as alone as inside a YOLO
 
     def _apply(self, *args, **kwargs):
         self._memo = {}
         return super()._apply(*args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._memo = {}
+        return super()._load_from_state_dict(*args, **kwargs)
+
+    def train(self, mode: bool = True):
+        self._memo = {}  # the optimizer steps between a train() and the next eval() change the weights
+        return super().train(mode)
 
     def _cached(self, key, make):
         if key not in self._memo:
             with torch.no_grad():
                 self._memo[key] = make()
         return self._memo[key]
+
+
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, channel_dim: int) -> torch.Tensor:
+    """flax's ``nn.BatchNorm`` in training mode on ``x`` (channels on
+    ``channel_dim``): the batch's float32 mean and biased variance ``E[x^2]
+    - E[x]^2`` clipped at 0, ``(x - mean) * (rsqrt(var + eps) * scale) +
+    bias`` in float32, cast back to ``x``'s type; the running statistics
+    move to ``0.97 * running + 0.03 * batch`` (the biased variance:
+    ``F.batch_norm`` would store the unbiased one)."""
+    dims = tuple(d for d in range(x.dim()) if d != channel_dim)
+    shape = [1] * x.dim()
+    shape[channel_dim] = -1
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))  # float32 at least, as flax computes them
+    mean = xf.mean(dims)
+    var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1.0 - BN_MOMENTUM) * mean)
+        bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var)
+    mul = torch.rsqrt(var + BN_EPS) * bn.weight
+    return ((xf - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)).to(x.dtype)
+
+
+def _live(t: torch.Tensor | None, dt) -> torch.Tensor | None:
+    """A parameter cast to the working type inside the autograd graph."""
+    return None if t is None else t.to(dt)
 
 
 def _hwio(conv: nn.Conv2d, dtype) -> torch.Tensor:
@@ -80,7 +133,7 @@ class ConvBnAct(_Cached):
         super().__init__()
         self.kernel, self.stride, self.dtype, self.folded, self.fused = kernel, stride, dtype, folded, fused
         self.conv = nn.Conv2d(cin, features, kernel, stride, kernel // 2, bias=folded)
-        self.bn = None if folded else nn.BatchNorm2d(features, eps=BN_EPS, momentum=0.03)
+        self.bn = None if folded else nn.BatchNorm2d(features, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
 
     def fused_params(self):
         """``(w HWIO, b)`` in the working type: what K5-K7 take (the bias is
@@ -89,6 +142,12 @@ class ConvBnAct(_Cached):
 
     def forward(self, x):
         dt = self.dtype
+        if self.training:
+            y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), _live(self.conv.weight, dt), _live(self.conv.bias, dt),
+                         self.stride, self.kernel // 2)
+            if not self.folded:
+                y = batch_norm_train(y, self.bn, 1)
+            return F.silu(y).permute(0, 2, 3, 1)
         if (self.fused and self.folded and (self.kernel, self.stride) in _FUSED_SITES
                 and conv_kernels.use_kernels(x.shape[0], x.shape[1])):
             w, b = self.fused_params()
@@ -126,6 +185,9 @@ class Conv1x1(_Cached):
 
     def forward(self, x):
         dt = self.dtype
+        if self.training:
+            return F.conv2d(x.to(dt).permute(0, 3, 1, 2), _live(self.conv.weight, dt),
+                            _live(self.conv.bias, dt)).permute(0, 2, 3, 1)
         if self.fused and conv_kernels.use_kernels(x.shape[0], x.shape[1]):
             w, b = self._cached("fused", lambda: (_hwio(self.conv, dt)[0, 0].contiguous(), self._bias(dt)))
             return conv_kernels.conv1x1_silu(x.to(dt).contiguous(), w, b, act=False)
@@ -144,21 +206,26 @@ class DepthwiseConv3x3(_Cached):
         self.conv = nn.Conv2d(c, c, 3, 1, 1, groups=c, bias=False)
 
     def forward(self, x):
-        w = self._cached("plain", lambda: self.conv.weight.detach().to(self.dtype))
+        w = _live(self.conv.weight, self.dtype) if self.training else \
+            self._cached("plain", lambda: self.conv.weight.detach().to(self.dtype))
         return F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), w, None, 1, 1, 1, w.shape[0]).permute(0, 2, 3, 1)
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """A bare BatchNorm at inference (running statistics) on NHWC, computed
-    as flax computes it: in float32, ``(x - mean) * (rsqrt(var + eps) *
-    scale) + bias``, then cast to the working type.  It stays in the folded
-    model: only a ConvBnAct's BatchNorm folds."""
+    """A bare BatchNorm on NHWC, computed as flax computes it: at inference
+    with the running statistics, in float32, ``(x - mean) * (rsqrt(var +
+    eps) * scale) + bias``, then cast to the working type; in training mode
+    with the batch's (`batch_norm_train`).  It stays in the folded model:
+    only a ConvBnAct's BatchNorm folds."""
 
     def __init__(self, features: int, dtype=torch.float32):
-        super().__init__(features, eps=BN_EPS, momentum=0.03)
+        super().__init__(features, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
         self.dtype = dtype
+        self.training = False  # inference until `train()` opts in
 
     def forward(self, x):
+        if self.training:
+            return batch_norm_train(x, self, x.dim() - 1).to(self.dtype)
         mul = torch.rsqrt(self.running_var.float() + BN_EPS) * self.weight.float()
         return ((x.float() - self.running_mean.float()) * mul + self.bias.float()).to(self.dtype)
 
@@ -442,8 +509,14 @@ class DetectHead(nn.Module):
         for f in feats:
             box = [self._cba(f, c2), self._cba(c2, c2), self._conv(c2, 4 * reg_max)]
             cls = [self._cba(f, c3), self._cba(c3, c3), self._conv(c3, num_classes)]
-            nn.init.constant_(getattr(self, cls[2]).conv.bias, -4.6)  # prior p ~ 0.01
             self._levels.append((box, cls))
+        self.reset_class_bias()
+
+    @torch.no_grad()
+    def reset_class_bias(self):
+        """The class branches' output biases to -4.6: a prior of ~0.01."""
+        for _, cls in self._levels:
+            getattr(self, cls[2]).conv.bias.fill_(-4.6)
 
     def _cba(self, cin, cout):
         name = f"ConvBnAct_{self._n_cba}"
@@ -611,12 +684,13 @@ class YOLO(nn.Module):
             self.head = DetectHead(feats, num_classes, reg_max, **kw)
         self.eval()
 
-    def load_state_dict(self, *args, **kwargs):
-        out = super().load_state_dict(*args, **kwargs)
-        for m in self.modules():
-            if isinstance(m, _Cached):
-                m._memo = {}
-        return out
+    def train(self, mode: bool = True):
+        """Training mode needs the unfolded, unfused model (the BatchNorms
+        and ``F.conv2d``): the kernels and the folded convs are inference
+        forms."""
+        if mode and (self.fold_bn or self.fused):
+            raise ValueError("training needs YOLO(fold_bn=False, fused=False)")
+        return super().train(mode)
 
     def _backbone(self, x):
         """The (P3, P4, P5) pyramid (strides 8/16/32)."""

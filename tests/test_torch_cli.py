@@ -114,6 +114,32 @@ def test_detect_matches_the_jax_cli(tmp_path, capsys):
     assert r.returncode != 0 and "JPEG" in r.stderr
 
 
+def test_train_then_eval(tmp_path, capsys):
+    """``train`` (float32, the dataset on the device; 64 px, batch 2, two
+    steps) writes a checkpoint that flax reads, its metadata and the results
+    CSV; ``eval`` on it prints the metrics JSON with the JAX CLI's keys and,
+    for the same checkpoint, the JAX CLI's values (both bfloat16, unfused;
+    within 2e-3)."""
+    from flax import serialization
+
+    root = chip_smoke.pallet_dataset(str(tmp_path / "pallets"), seed=9, n_train=4, n_val=3, h=120, w=160)
+    ckpt = str(tmp_path / "trained.msgpack")
+    r = _port_cli("train", f"{root}/train", "--img-size", "64", "--batch-size", "2", "--steps", "2", "--output", ckpt,
+                  "--device", "cpu")
+    assert "step 1/2: " in r.stdout and f"saved checkpoint to {ckpt}" in r.stdout
+    assert set(serialization.msgpack_restore(open(ckpt, "rb").read())) == {"params", "batch_stats"}
+    assert json.load(open(ckpt + ".json")) == {"img_size": 64, "num_classes": 1, "variant": "n", "task": "detect",
+                                               "family": "v8"}
+    assert open(ckpt + ".results.csv").readline().startswith("step,")
+    out = str(tmp_path / "metrics.json")
+    got = json.loads(_port_cli("eval", "--weights", ckpt, "--data", f"{root}/val", "--device", "cpu").stdout.split("\nwrote")[0])
+    jcli.main(["eval", "--weights", ckpt, "--data", f"{root}/val", "--output", out])
+    want = json.loads(capsys.readouterr().out.split("\nwrote")[0])
+    assert got["task"] == want["task"] == "detect" and set(got) == set(want)
+    for k in ("precision", "recall", "mAP50", "mAP50_95"):
+        assert abs(got[k] - want[k]) <= 2e-3, k
+
+
 def test_register_matches_the_jax_cli(scan_dir, tmp_path, capsys):
     src, dst = os.path.join(scan_dir, "Scan_data_3.npy"), os.path.join(scan_dir, "Scan_data_1.npy")
     jcli.main(["register", src, dst, "--output", str(tmp_path / "j.png")])
@@ -132,16 +158,16 @@ def test_register_matches_the_jax_cli(scan_dir, tmp_path, capsys):
 def _sources():
     pkg = os.path.join(REPO, "icp_slam_yolo_tpu_torch")
     files = [os.path.join(root, f) for root, _, names in os.walk(pkg) for f in names if f.endswith(".py")]
-    return sorted(files) + [os.path.join(REPO, "chip_smoke.py")]
+    return sorted(files) + [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "scripts", "torch_train_pallet.py")]
 
 
-FORBIDDEN = ("jax", "flax", "PIL", "cv2", "icp_slam_yolo_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "PIL", "cv2", "icp_slam_yolo_tpu")
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))
 def test_port_imports_nothing_forbidden(path):
-    """No import (at any depth of the file) of JAX, flax, PIL, OpenCV or the
-    JAX package: the port runs on a machine that has none of them."""
+    """No import (at any depth of the file) of JAX, flax, optax, PIL, OpenCV
+    or the JAX package: the port runs on a machine that has none of them."""
     tree = ast.parse(open(path).read(), path)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
