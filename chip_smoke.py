@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases (each prints a line; any failed check raises, so the script exits
-non-zero; they run in the order 1-3, 7-12, 4-6, 13, see `main`):
+non-zero; they run in the order 1-3, 7-13, 4-6, 14, see `main`):
   1. require a CUDA device; print the card's name and power limit;
   2. build the CUDA kernels (``nvcc``, first use) and print the build time
      and each kernel's registers, shared memory and spills (``ptxas -v``);
@@ -96,9 +96,20 @@ non-zero; they run in the order 1-3, 7-12, 4-6, 13, see `main`):
      forward, every launch held against its plain version, fused against
      unfused, mAP on ``val/``); v12 detect, v11 obb, v8 segment and pose
      steps at 640 px; ``cli train`` and ``cli eval`` in subprocesses;
-  13. one JSON line listing the kernels (each kernel's launches summed over
-     the paths of phases 4-6, 8, 10, 11 and 12), then the card line, then
-     the result line ``{"ok": true, "device": {...}}`` last.
+  13. JPEG decoding and the labeling toolchain (`label_path`): the committed
+     JPEG fixtures decoded and held to the digests of PIL's pixels, decode
+     times of 480 x 640 frames; 8 seeded pallet frames written as JPEG,
+     labeled over HTTP (``serve_labeler``'s routes in process, ``POST
+     /label/auto`` through the trained v8 detector, fused, bfloat16, 640 px:
+     12 / 20 / 7 / 6 launches of K5 / K6 / K7 / K8 a frame, then
+     ``/label/save``), ``cli label-check`` and ``cli split`` on the result,
+     the split's ``val/`` evaluated through the same detector, a segment
+     auto-label; ``cli detect`` on a JPEG; every auto-label launch held
+     against its plain version; float32 auto-label polygons, card against
+     CPU;
+  14. one JSON line listing the kernels (each kernel's launches summed over
+     the paths of phases 4-6, 8, 10, 11, 12 and 13), then the card line,
+     then the result line ``{"ok": true, "device": {...}}`` last.
 
 The synthetic scan generator (`synthetic_sequence`) lives here so the CPU
 tests can import it; it is not part of the package.
@@ -3095,16 +3106,254 @@ def train_path() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 13: JPEG decoding and the labeling path
+
+JPEG_FIXTURES = "tests/data/torch_jpeg"  # written with PIL by scripts/torch_jpeg_fixtures.py
+LABEL_FRAMES = 8
+LABEL_SEGMENT_INSTANCES = 4
+
+
+def _median_ms(fn, n: int = 10) -> float:
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def check_jpeg_fixtures() -> str:
+    """Phase 13 (1-2): decode the committed JPEG fixtures and hold each array
+    to the digest of PIL's pixels committed beside it (this machine has no
+    PIL); then the decode times of 480 x 640 frames, median of 10."""
+    import hashlib
+    import os
+
+    from icp_slam_yolo_tpu_torch.utils.images import decode_jpeg, encode_jpeg
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), JPEG_FIXTURES)
+    with open(os.path.join(root, "pixels.json")) as f:
+        want = json.load(f)
+    for name, entry in want.items():
+        with open(os.path.join(root, name), "rb") as f:
+            arr = decode_jpeg(f.read())
+        got = hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+        _require(list(arr.shape) == entry["shape"] and got == entry["sha256"],
+                 f"jpeg fixture {name}: decoded {arr.shape} {got}, PIL's {entry['shape']} {entry['sha256']}")
+    frames = {"synthetic_frame": synthetic_frame(0), "pallet_image": pallet_image(np.random.default_rng(0))[0]}
+    times = {}
+    for what, frame in frames.items():
+        data = encode_jpeg(frame, quality=95)
+        times[f"{what} baseline q95 4:2:0 ({len(data)} bytes)"] = _median_ms(lambda d=data: decode_jpeg(d))
+    for name in sorted(want):
+        if want[name]["shape"][:2] == [480, 640]:
+            with open(os.path.join(root, name), "rb") as f:
+                data = f.read()
+            times[f"{name} ({len(data)} bytes)"] = _median_ms(lambda d=data: decode_jpeg(d))
+    return (f"{len(want)} fixtures decoded to PIL's digests; decode ms a 480 x 640 frame (median of 10): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
+
+
+def _cli_in_process(args: list) -> tuple[int, str]:
+    """``cli.main(args)`` in this process: its exit code and standard output."""
+    import contextlib
+    import io
+
+    from icp_slam_yolo_tpu_torch import cli
+
+    out, code = io.StringIO(), 0
+    with contextlib.redirect_stdout(out):
+        try:
+            cli.main(args)
+        except SystemExit as e:
+            code = e.code if isinstance(e.code, int) else 1
+    return code, out.getvalue()
+
+
+def _boxes_match(a: dict, b: dict, conf: float, tol: float = 0.05) -> str:
+    """Two detectors' outputs on one frame: every box of each side has one on
+    the other within ``tol`` pixels (but those scored at the threshold)."""
+    worst, n = 0.0, 0
+    for mine, other in ((a, b), (b, a)):
+        for box, score in zip(mine["boxes"], mine["scores"]):
+            if abs(float(score) - conf) <= 2e-3 * conf:
+                continue
+            d = np.abs(other["boxes"] - box).max(axis=1) if len(other["boxes"]) else np.array([np.inf])
+            worst = max(worst, float(d.min()))
+            n += 1
+    _require(n > 0 and worst <= tol, f"float32 auto-label polygons, card vs cpu: {worst} px apart (tolerance {tol})")
+    return f"{n // 2} polygons on both sides within {worst:.3g} px (tolerance {tol})"
+
+
+def label_path() -> dict:
+    """Phase 13: JPEG decoding and the dataset-labeling toolchain on the card.
+    Returns the labeling path's launch counts (the run between the counters'
+    reset and their reading)."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    import icp_slam_yolo_tpu_torch as port
+    from icp_slam_yolo_tpu_torch.data.labeler import LabelSession
+    from icp_slam_yolo_tpu_torch.models.eval import evaluate_detector
+    from icp_slam_yolo_tpu_torch.ops import pallas
+    from http.server import ThreadingHTTPServer
+
+    from icp_slam_yolo_tpu_torch.serve.labeler_app import make_labeler_handler
+    from icp_slam_yolo_tpu_torch.utils.images import encode_jpeg, read_image
+
+    t_phase = time.perf_counter()
+    print("[13] " + check_jpeg_fixtures(), flush=True)
+    conf = 1e-6  # phase 8's threshold: the trained weights score these frames far below 0.5
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_label_")
+    try:
+        frames_dir, out_dir = os.path.join(tmp, "frames"), os.path.join(tmp, "labels")
+        os.makedirs(frames_dir)
+        rng = np.random.default_rng(13)
+        for i in range(LABEL_FRAMES):
+            with open(os.path.join(frames_dir, f"pallet_{i}.jpg"), "wb") as f:
+                f.write(encode_jpeg(pallet_image(rng)[0], quality=95))
+        session = LabelSession(frames_dir, out_dir)
+        det = port.detector_from_checkpoint(DETECT_CHECKPOINT, conf_threshold=conf, pallas_convs=True)
+        det(read_image(session.images[0]))  # warm-up
+        server = ThreadingHTTPServer(("127.0.0.1", 0), make_labeler_handler(session, det))
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            torch.cuda.synchronize()
+            # -- the main path: counters zeroed just before, read just after
+            pallas.reset_launches()
+            per_label, added, auto_s = [], [], 0.0
+            for i in range(LABEL_FRAMES):
+                before = dict(pallas.LAUNCHES)
+                t0 = time.perf_counter()
+                status, _, body = _http(base + "/label/auto", {})
+                auto_s += time.perf_counter() - t0
+                _require(status == 200, f"/label/auto answered {status}: {body[:200]!r}")
+                per_label.append({k: pallas.LAUNCHES[k] - before[k] for k in LAUNCHES_PER_FORWARD})
+                added.append(json.loads(body)["added"])
+                status, _, body = _http(base + "/label/save", {})
+                _require(status == 200 and json.loads(body)["saved"] == added[-1], f"/label/save: {body[:200]!r}")
+                status, _, body = _http(base + "/label/nav", {"dir": 1})
+                _require(status == 200 and json.loads(body)["ok"], f"/label/nav: {body[:200]!r}")
+            obb_dir = os.path.join(out_dir, "output")
+            # label-check: a box that crosses the frame's edge is out of range, and --fix clamps it
+            bad = 0
+            for name in os.listdir(obb_dir):
+                with open(os.path.join(obb_dir, name)) as f:
+                    bad += any(not 0.0 <= float(v) <= 1.0 for line in f for v in line.split()[1:])
+            code, text = _cli_in_process(["label-check", obb_dir])
+            _require(code == (1 if bad else 0) and f"checked {LABEL_FRAMES} files: {bad} with" in text,
+                     f"cli label-check: exit {code}, {text[-300:]!r}, expected {bad} bad files")
+            if bad:
+                code, _ = _cli_in_process(["label-check", obb_dir, "--fix"])
+                _require(code == 0, "cli label-check --fix did not exit 0")
+                code, text = _cli_in_process(["label-check", obb_dir])
+                _require(code == 0, f"cli label-check after --fix: exit {code}, {text[-300:]!r}")
+            pool = os.path.join(tmp, "pool")
+            shutil.copytree(frames_dir, os.path.join(pool, "images"))
+            shutil.copytree(os.path.join(out_dir, "output_oject"), os.path.join(pool, "labels"))
+            split_dir = os.path.join(tmp, "split")
+            code, text = _cli_in_process(["split", pool, split_dir])
+            n_train = int(LABEL_FRAMES * 0.8)
+            _require(code == 0 and f"-> {n_train} train / {LABEL_FRAMES - n_train} val" in text, f"cli split: {text!r}")
+            t0 = time.perf_counter()
+            # at the auto-label threshold: the labels are this detector's own boxes, so AP must be high
+            metrics = evaluate_detector(det, os.path.join(split_dir, "val"), 640, conf_threshold=conf)
+            eval_s = time.perf_counter() - t0
+            _require(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in metrics.values() if isinstance(v, float))
+                     and metrics["mAP50"] >= 0.5, f"evaluate on the split's val set: {metrics}")
+            seg = port.detector_from_checkpoint(SEGMENT_CHECKPOINT, conf_threshold=conf, pallas_convs=True)
+            before = dict(pallas.LAUNCHES)
+            n_seg = session.auto_label_segment(seg.model, 640, conf_threshold=conf, max_instances=LABEL_SEGMENT_INSTANCES)
+            seg_launches = {k: pallas.LAUNCHES[k] - before[k] for k in LAUNCHES_PER_FORWARD}
+            torch.cuda.synchronize()
+            launches = dict(pallas.LAUNCHES)
+        finally:
+            server.shutdown()
+            server.server_close()
+        for counts in per_label:
+            _require(counts == LAUNCHES_PER_FORWARD, f"auto-label: launches a frame {counts}, expected {LAUNCHES_PER_FORWARD}")
+        _require(min(added) > 0, f"auto-label: polygons a frame {added}")
+        _require(0 < n_seg <= LABEL_SEGMENT_INSTANCES and all(seg_launches.values()),
+                 f"auto_label_segment: {n_seg} polygons, launches {seg_launches}")
+        for sub in ("output", "output_pose", "output_oject"):
+            _require(len(os.listdir(os.path.join(out_dir, sub))) == LABEL_FRAMES, f"labels: {sub} incomplete")
+        print(f"[13] labeling path: {LABEL_FRAMES} pallet_image frames as q95 JPEG, LabelSession + serve_labeler "
+              f"in process, detector_from_checkpoint({DETECT_CHECKPOINT!r}, pallas_convs=True) bfloat16 at 640 px, "
+              f"conf {conf}: POST /label/auto {LABEL_FRAMES / auto_s:.2f} auto-labels/s ({auto_s / LABEL_FRAMES * 1e3:.1f} "
+              f"ms each: the JPEG decode, the forward and NMS, HTTP), polygons a frame {added}, launches a frame "
+              f"{per_label[0]}; /label/save wrote the three formats and kiem_tra.csv; cli label-check "
+              f"({bad} files with a box past the frame's edge{', fixed by --fix' if bad else ''}) exit 0; cli split "
+              f"{n_train} / {LABEL_FRAMES - n_train}; evaluate on val/ ({eval_s:.2f} s): "
+              f"{ {k: round(v, 4) for k, v in metrics.items() if isinstance(v, float)} }; auto_label_segment "
+              f"({SEGMENT_CHECKPOINT}, fused) {n_seg} polygons, launches {seg_launches}; launches {launches}", flush=True)
+
+        # -- cli detect on one JPEG against an in-process detector built the same way (unfused, bfloat16)
+        jpg = session.images[0]
+        code, text = _cli_in_process(["detect", jpg, "--weights", DETECT_CHECKPOINT, "--conf", str(conf)])
+        _require(code == 0, f"cli detect: exit {code}")
+        row = json.loads(text.strip().splitlines()[-1])
+        want = port.detector_from_checkpoint(DETECT_CHECKPOINT, conf_threshold=conf)(read_image(jpg))
+        _require(row["image"] == jpg and len(row["boxes"]) == len(want["boxes"]) > 0
+                 and np.allclose(row["boxes"], want["boxes"], atol=1e-3), "cli detect on a JPEG differs")
+
+        # -- every K5-K8 launch of an auto-label held against its plain version (phase 7's shims)
+        held_session = LabelSession(frames_dir, os.path.join(tmp, "held"))
+        with HeldKernels() as held:
+            for i in range(LABEL_FRAMES):
+                held_session.index = i
+                held_session.auto_label(det)
+        torch.cuda.synchronize()
+        _require(held.held == {k: v * LABEL_FRAMES for k, v in LAUNCHES_PER_FORWARD.items()},
+                 f"held launches {held.held}")
+        # ... and the segment forward's (its proto and mask-coefficient convs too), on the same frame
+        held_seg_session = LabelSession(frames_dir, os.path.join(tmp, "held_seg"))
+        held_seg_session.index = session.index
+        with HeldKernels() as held_seg:
+            n_seg_held = held_seg_session.auto_label_segment(seg.model, 640, conf_threshold=conf,
+                                                             max_instances=LABEL_SEGMENT_INSTANCES)
+        torch.cuda.synchronize()
+        _require(held_seg.held == seg_launches and n_seg_held == n_seg,
+                 f"held segment launches {held_seg.held} ({n_seg_held} polygons), counted {seg_launches} ({n_seg})")
+
+        # -- float32: the card's auto-label polygons against the port's on the CPU
+        full = port.detector_from_checkpoint(DETECT_CHECKPOINT, conf_threshold=conf, pallas_convs=True,
+                                             compute_dtype=torch.float32)
+        cpu = port.detector_from_checkpoint(DETECT_CHECKPOINT, conf_threshold=conf, pallas_convs=True,
+                                            compute_dtype=torch.float32, device="cpu")
+        sides = []
+        for d in (full, cpu):
+            s, seen = LabelSession(frames_dir, os.path.join(tmp, f"f32_{d.device.type}")), []
+            s.auto_label(lambda img, d=d: seen.append(d(img)) or seen[-1])
+            polygons = np.array([p.bbox() for p in s.current], np.float64).reshape(-1, 4)
+            _require(np.array_equal(polygons, seen[0]["boxes"].astype(np.float64)), "auto-label polygons are not the detections")
+            sides.append({"boxes": polygons, "scores": seen[0]["scores"]})
+        summary = _boxes_match(sides[0], sides[1], conf)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[13] every auto-label launch held against its plain version ({sum(held.held.values())} launches, largest "
+          f"errors {held.worst}; the segment forward's {sum(held_seg.held.values())}, largest errors "
+          f"{held_seg.worst}); float32 auto-label, card vs cpu: {summary}; cli detect on a JPEG equal to the "
+          f"in-process detector; phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", choices=("all", "slam", "detector", "tick", "serve", "train"), default="all",
+    parser.add_argument("--phases", choices=("all", "slam", "detector", "tick", "serve", "train", "label"),
+                        default="all",
                         help="run every phase (the default: the only run that ends in the result line), or only "
                              "the SLAM and fleet phases 3-6, only the detector phases 7-9, only the tick (10), "
-                             "only the entry points (11: server, CLI, .pt import) or only training (12)")
+                             "only the entry points (11: server, CLI, .pt import), only training (12) or only "
+                             "JPEG decoding and the labeling path (13)")
     phases = parser.parse_args(argv).phases
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3156,6 +3405,8 @@ def main(argv=None) -> int:
         paths.append(serve_path(build_s))
     if phases in ("all", "train"):
         paths.append(train_path())
+    if phases in ("all", "label"):
+        paths.append(label_path())
     if phases in ("all", "slam"):
         paths += [replay(cfg)[0], fleet(port.FLEET_CONFIG), presets(port.OFFLINE_CONFIG, port.REALTIME_CONFIG)]
 
@@ -3164,7 +3415,7 @@ def main(argv=None) -> int:
     _require(phases != "all" or set(kernels) == set(order), f"kernels checked: {sorted(kernels)}")
     for name in (n for n in order if n in kernels):
         row = kernels[name]
-        row["launches"] = sum(p[name] for p in paths)  # over the slice, fleet, preset, detector, tick, serve and train paths
+        row["launches"] = sum(p[name] for p in paths)  # over the slice, fleet, preset, detector, tick, serve, train and label paths
         _require(row["launches"] > 0, f"no path launched {name}")
         rows.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches", "max_abs_err",
                                          "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})

@@ -16,10 +16,12 @@ pose geometry (`perception`) and the landmark map (`fusion`) close the
 fused SLAM + detect loop: a scan step, a stereo pair's detect, and the
 detection projected at the new pose (`fusion.fuse_stereo_pair`).  The
 entry points users run sit on top: the command line (`cli`: replay, serve,
-detect, register), the control-panel server (`serve`) with its camera
-(`acquisition`), the map and image files (`io.maps`, `io.render`,
-`utils.images`: PNG and JPEG without an imaging package) and the
-Ultralytics ``.pt`` import (`io.torch_import`).
+detect, register, train, eval, label-check, labeler, split), the
+control-panel server (`serve`) with its camera (`acquisition`), the map
+and image files (`io.maps`, `io.render`, `utils.images`: PNG and JPEG in
+and out without an imaging package, JPEG decoded to PIL's pixels), the
+Ultralytics ``.pt`` import (`io.torch_import`) and the dataset-labeling
+toolchain (`data`, `serve.labeler_app`).
 
 Entry points (`Slam`, `run_sequence`, `fleet_run_sequence`, `register`,
 `gicp`, `Detector`, `detector_from_checkpoint`) take ``device=None``, which means the card; without one they raise

@@ -3,7 +3,7 @@
 
 The reference opens two cameras and saves paired frames ``anh_1_N`` /
 ``anh_2_N``.  Here: a `StereoCapture` with a pluggable frame source
-(`ReplayCamera` serves recorded PNG or ``.npy`` frames through
+(`ReplayCamera` serves recorded JPEG, PNG or ``.npy`` frames through
 `utils.images.read_image`), and the reference's camera-worker behaviour
 (event-gated lazy open, frame-pair grab, release when the trigger clears)
 as `TriggeredCameraWorker`.  The live-camera backend needs OpenCV, which the
@@ -17,7 +17,7 @@ import threading
 
 import numpy as np
 
-from icp_slam_yolo_tpu_torch.utils.images import encode_png, read_image
+from icp_slam_yolo_tpu_torch.utils.images import read_image, to_rgb, write_image
 
 
 class CameraBackend:
@@ -31,26 +31,14 @@ class CameraBackend:
         return False
 
 
-def _rgb(frame: np.ndarray) -> np.ndarray:
-    """Gray -> three equal channels; an alpha channel is dropped."""
-    if frame.ndim == 2:
-        return np.repeat(frame[..., None], 3, axis=2)
-    if frame.shape[2] == 2:
-        return np.repeat(frame[..., :1], 3, axis=2)
-    return np.ascontiguousarray(frame[..., :3])
-
-
 class ReplayCamera(CameraBackend):
-    """Serves frames from a directory of images (loops).  Frames are PNG or
-    ``.npy`` (uint8 HWC); a directory whose only frames are JPEG raises
-    here, when it is listed, naming the format."""
+    """Serves frames from a directory of images (loops): JPEG, PNG or
+    ``.npy`` (uint8 HWC), as RGB."""
 
     def __init__(self, directory: str, pattern_prefix: str = ""):
-        names = sorted(n for n in os.listdir(directory) if n.startswith(pattern_prefix))
-        frames = [n for n in names if n.lower().endswith((".png", ".npy"))]
+        frames = sorted(n for n in os.listdir(directory)
+                        if n.startswith(pattern_prefix) and n.lower().endswith((".jpg", ".jpeg", ".png", ".npy")))
         if not frames:
-            if any(n.lower().endswith((".jpg", ".jpeg")) for n in names):
-                raise ValueError(f"{directory}: only JPEG frames, which the port does not read (PNG or .npy)")
             raise FileNotFoundError(f"no frames under {directory}")
         self.paths = [os.path.join(directory, n) for n in frames]
         self.idx = 0
@@ -69,15 +57,14 @@ class ReplayCamera(CameraBackend):
     def read(self) -> np.ndarray | None:
         if not self._open:
             return None
-        frame = _rgb(np.asarray(read_image(self.paths[self.idx % len(self.paths)]), np.uint8))
+        frame = to_rgb(np.asarray(read_image(self.paths[self.idx % len(self.paths)]), np.uint8))
         self.idx += 1
         return frame
 
 
 class StereoCapture:
-    """Paired capture + save (the reference's file naming: anh_1_N /
-    anh_2_N).  `save_pair` writes PNG (the reference and the JAX package
-    write JPEG; the port has no JPEG decoder to read them back)."""
+    """Paired capture + save (the reference's file naming: ``anh_1_N.jpg`` /
+    ``anh_2_N.jpg``, JPEG at PIL's save defaults: quality 75, 4:2:0)."""
 
     def __init__(self, left: CameraBackend, right: CameraBackend, save_dir: str):
         self.left = left
@@ -97,14 +84,12 @@ class StereoCapture:
         f1, f2 = self.grab_pair()
         if f1 is None or f2 is None:
             return None
-        paths = []
-        for eye, frame in ((1, f1), (2, f2)):
-            path = os.path.join(self.save_dir, f"anh_{eye}_{self.counter}.png")
-            with open(path, "wb") as f:
-                f.write(encode_png(np.asarray(frame, np.uint8)))
-            paths.append(path)
+        p1 = os.path.join(self.save_dir, f"anh_1_{self.counter}.jpg")
+        p2 = os.path.join(self.save_dir, f"anh_2_{self.counter}.jpg")
+        write_image(p1, np.asarray(f1, np.uint8))
+        write_image(p2, np.asarray(f2, np.uint8))
         self.counter += 1
-        return paths[0], paths[1]
+        return p1, p2
 
     def release(self) -> None:
         self.left.release()

@@ -10,13 +10,17 @@
   train        train the YOLO detector on a YOLO-layout dataset (float32,
                the dataset held on the device): a checkpoint + results CSV
   eval         evaluate a checkpoint on a val set (the task's metrics, JSON)
+  label-check  validate YOLO label files (exit 1 on out-of-range coords
+               unless --fix)
+  labeler      the web labeler (polygons, paintbrush, detector assist)
+  split        shuffled train/val copy of an images + labels pool
 
-Every subcommand runs on the CUDA card unless ``--device cpu`` is given
-(the kernels' plain PyTorch versions).  Frames and maps are read as PNG or
-``.npy`` (the port has no JPEG decoder).  The detector of ``serve`` and
-``detect`` is built by ``detector_from_checkpoint`` with its default, the
-unfused convolutions (``F.conv2d`` + SiLU), as the JAX CLI builds it, and
-so is the detector ``eval`` runs.
+Every subcommand that runs a model runs on the CUDA card unless ``--device
+cpu`` is given (the kernels' plain PyTorch versions).  Frames and maps are
+read as PNG, JPEG (decoded to PIL's pixels) or ``.npy``.  The detector of
+``serve``, ``detect`` and ``labeler`` is built by ``detector_from_checkpoint``
+with its default, the unfused convolutions (``F.conv2d`` + SiLU), as the
+JAX CLI builds it, and so is the detector ``eval`` runs.
 
 Run: ``python -m icp_slam_yolo_tpu_torch.cli <command> --help``.
 """
@@ -240,6 +244,42 @@ def cmd_register(args):
         print(f"overlay saved to {args.output}")
 
 
+def cmd_label_check(args):
+    import sys
+
+    from icp_slam_yolo_tpu_torch.data.labels import check_labels
+
+    report = check_labels(args.directory, fix=args.fix)
+    for line in report.messages:
+        print(line)
+    print(f"checked {report.n_files} files: {report.n_bad} with out-of-range coords"
+          + (", fixed" if args.fix else ""))
+    if report.n_bad and not args.fix:
+        sys.exit(1)
+
+
+def cmd_labeler(args):
+    """Launch the web labeler (the reference's OpenCV labeling tools as a
+    browser UI)."""
+    from icp_slam_yolo_tpu_torch.data.labeler import LabelSession
+    from icp_slam_yolo_tpu_torch.serve.labeler_app import serve_labeler
+
+    session = LabelSession(args.image_dir, args.out_dir, classes=args.classes)
+    detector = None
+    if args.weights:
+        from icp_slam_yolo_tpu_torch.models.detect import detector_from_checkpoint
+
+        detector = detector_from_checkpoint(args.weights, device=args.device)
+    serve_labeler(session, detector, host=args.host, port=args.port)
+
+
+def cmd_split(args):
+    from icp_slam_yolo_tpu_torch.data.split import split_dataset
+
+    n_train, n_val = split_dataset(args.source, args.output, train_ratio=args.ratio, seed=args.seed)
+    print(f"split {n_train + n_val} examples -> {n_train} train / {n_val} val under {args.output}")
+
+
 def main(argv=None):
     from icp_slam_yolo_tpu_torch.config import PRESETS
 
@@ -275,14 +315,14 @@ def main(argv=None):
     s.add_argument("--weights", default=None,
                    help="detector checkpoint for the fused loop (.msgpack or a v8 .pt); the detector runs the "
                         "unfused convolutions, detector_from_checkpoint's default")
-    s.add_argument("--camera-dir", default=None, help="stereo frame source (anh_1_*/anh_2_*, PNG or .npy)")
+    s.add_argument("--camera-dir", default=None, help="stereo frame source (anh_1_*/anh_2_*: JPEG, PNG or .npy)")
     s.add_argument("--preset", default="offline", choices=preset_names,
                    help="config preset (the reference's per-script realtime mains)")
     s.add_argument("--f32", action="store_true", help="float32 detector compute (default bfloat16)")
     device_arg(s)
     s.set_defaults(fn=cmd_serve)
 
-    d = sub.add_parser("detect", help="run detection on images (PNG or .npy)")
+    d = sub.add_parser("detect", help="run detection on images (JPEG, PNG or .npy)")
     d.add_argument("images", nargs="+")
     d.add_argument("--weights", default=None, help="checkpoint (.msgpack or a v8 .pt); unfused convolutions")
     d.add_argument("--img-size", type=int, default=None,
@@ -294,7 +334,7 @@ def main(argv=None):
     d.set_defaults(fn=cmd_detect)
 
     t = sub.add_parser("train", help="train the YOLO detector")
-    t.add_argument("data", help="dataset root (images/ + labels/; PNG images)")
+    t.add_argument("data", help="dataset root (images/ + labels/)")
     t.add_argument("--img-size", type=int, default=640)
     t.add_argument("--batch-size", type=int, default=16)
     t.add_argument("--epochs", type=int, default=400)
@@ -328,6 +368,29 @@ def main(argv=None):
     rg.add_argument("--output", default=None, help="overlay PNG path")
     device_arg(rg)
     rg.set_defaults(fn=cmd_register)
+
+    lc = sub.add_parser("label-check", help="validate YOLO label files")
+    lc.add_argument("directory")
+    lc.add_argument("--fix", action="store_true")
+    lc.set_defaults(fn=cmd_label_check)
+
+    lb = sub.add_parser("labeler", help="web labeler (polygon + paintbrush + detector assist)")
+    lb.add_argument("image_dir")
+    lb.add_argument("--out-dir", default="labels_out")
+    lb.add_argument("--classes", nargs="+", default=["pallet"])
+    lb.add_argument("--weights", default=None,
+                    help="detector checkpoint for auto-label (.msgpack or a v8 .pt); unfused convolutions")
+    lb.add_argument("--host", default="0.0.0.0")
+    lb.add_argument("--port", type=int, default=5001)
+    device_arg(lb)
+    lb.set_defaults(fn=cmd_labeler)
+
+    sp = sub.add_parser("split", help="train/val dataset split")
+    sp.add_argument("source")
+    sp.add_argument("output")
+    sp.add_argument("--ratio", type=float, default=0.8)
+    sp.add_argument("--seed", type=int, default=42)
+    sp.set_defaults(fn=cmd_split)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -1,5 +1,5 @@
 """Map persistence: occupancy PNGs, pixel-coordinate point dumps, PCD files.
-Counterpart of the JAX package's ``io/maps.py``, with the PNG codec of
+Counterpart of the JAX package's ``io/maps.py``, with the image codecs of
 `utils.images` in place of an imaging package.
 
 The reference's artifacts:
@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from icp_slam_yolo_tpu_torch.config import MapConfig
-from icp_slam_yolo_tpu_torch.utils.images import decode_png, encode_png
+from icp_slam_yolo_tpu_torch.utils.images import encode_png, read_image
 
 
 def occupancy_to_image(occ: np.ndarray) -> np.ndarray:
@@ -28,8 +28,9 @@ def save_occupancy_png(occ: np.ndarray, path: str) -> None:
 
 
 def _luminance(img: np.ndarray) -> np.ndarray:
-    """Gray from an RGB(A) map image: ITU-R 601-2 luma in 16-bit fixed point,
-    ``(19595 R + 38470 G + 7471 B + 2^15) >> 16``; alpha is dropped."""
+    """PIL's ``convert("L")``: gray from an RGB(A) image, ITU-R 601-2 luma
+    in 16-bit fixed point, ``(19595 R + 38470 G + 7471 B + 2^15) >> 16``;
+    alpha is dropped."""
     if img.ndim == 2:
         return img
     if img.shape[2] <= 2:
@@ -39,8 +40,9 @@ def _luminance(img: np.ndarray) -> np.ndarray:
 
 
 def load_occupancy_png(path: str) -> np.ndarray:
-    with open(path, "rb") as f:
-        img = _luminance(decode_png(f.read())).astype(np.float32)
+    """An occupancy grid from any image `read_image` reads (PNG, JPEG):
+    its gray levels, ``1 - L / 255``."""
+    img = _luminance(np.asarray(read_image(path), np.uint8)).astype(np.float32)
     return 1.0 - img / 255.0
 
 

@@ -6,14 +6,12 @@ cx cy w h`` normalised to [0, 1] (detect) or ``class x1 y1 ... xn yn``
 polygons (obb, segment), or pose rows.  Batches are padded to ``max_gt``
 boxes with a validity mask, for the static-shape loss.
 
-Images are read by `utils.images.read_image` (PNG or ``.npy``; a ``.jpg``
-raises naming the file: the port has no JPEG decoder).  The two imaging
-operations the JAX package takes from PIL are written here to PIL's
-arithmetic, so the pixels are PIL's: `resize_bilinear` (``Image.resize(...,
-BILINEAR)`` on uint8: a two-pass, antialiased resample with a triangle
-filter whose support grows with the downscale factor, fixed-point
-coefficients, rounding to uint8 after each pass) and `rasterize_polygon`
-(``ImageDraw.polygon(fill=1)``'s scanline fill).
+Images are read by `utils.images.read_image` (PNG, JPEG to PIL's pixels,
+or ``.npy``).  The two imaging operations the JAX package takes from PIL
+are written to PIL's arithmetic, so the pixels are PIL's:
+`utils.images.resize_bilinear` (``Image.resize(..., BILINEAR)`` on uint8)
+and, here, `rasterize_polygon` (``ImageDraw.polygon(fill=1)``'s scanline
+fill).
 """
 
 from __future__ import annotations
@@ -27,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from icp_slam_yolo_tpu_torch.models.detect import LETTERBOX_FILL, letterbox_transform
-from icp_slam_yolo_tpu_torch.utils.images import read_image
+from icp_slam_yolo_tpu_torch.utils.images import read_image, resize_bilinear, to_rgb
 
 # pose corner order is [tl, tr, br, bl] (`parse_pose_label`); a horizontal
 # mirror exchanges the left and right corners
@@ -38,8 +36,7 @@ _IMAGE_EXTS = (".jpg", ".jpeg", ".png")
 def find_pairs(root: str, label_root: str | None = None) -> list[tuple[str, str]]:
     """``(image, label)`` path pairs: ``root/{images,labels}``, or a flat
     directory with each txt beside its image, or (``label_root``) images in
-    ``root`` and labels in ``label_root``.  ``.jpg`` images are listed, as
-    the JAX package lists them; reading one raises."""
+    ``root`` and labels in ``label_root``."""
     def listed(img_dir, lbl_dir):
         out = []
         for name in sorted(os.listdir(img_dir)):
@@ -134,56 +131,7 @@ def polygon_angle(poly: np.ndarray) -> float:
     return ang
 
 
-# ---------------------------------------------------------------- PIL's resample and polygon fill
-
-_PRECISION_BITS = 32 - 8 - 2  # PIL's fixed point for 8-bit images
-
-
-def _resample_coeffs(in_size: int, out_size: int):
-    """PIL's ``precompute_coeffs`` for the bilinear (triangle) filter and
-    ``normalize_coeffs_8bpc``: each output's first input, its tap count and
-    the fixed-point weights ``(out, ksize)``."""
-    scale = in_size / out_size
-    filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
-    ksize = int(math.ceil(support)) * 2 + 1
-    centers = (np.arange(out_size) + 0.5) * scale
-    xmin = np.maximum(np.trunc(centers - support + 0.5).astype(np.int64), 0)
-    xmax = np.minimum(np.trunc(centers + support + 0.5).astype(np.int64), in_size) - xmin
-    taps = np.arange(ksize)
-    w = np.maximum(0.0, 1.0 - np.abs((taps[None, :] + xmin[:, None] - centers[:, None] + 0.5) / filterscale))
-    w = np.where(taps[None, :] < xmax[:, None], w, 0.0)
-    total = w.sum(axis=1, keepdims=True)
-    w = np.where(total != 0.0, w / np.where(total != 0.0, total, 1.0), w)
-    kk = np.trunc(np.where(w < 0, -0.5, 0.5) + w * (1 << _PRECISION_BITS)).astype(np.int64)
-    return xmin, kk
-
-
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
-    """One pass of PIL's 8-bit resample along ``axis`` of a uint8 image."""
-    in_size = img.shape[axis]
-    xmin, kk = _resample_coeffs(in_size, out_size)
-    idx = np.minimum(xmin[:, None] + np.arange(kk.shape[1])[None, :], in_size - 1)  # (out, ksize); zero weights past xmax
-    src = np.moveaxis(img, axis, 0).astype(np.int64)  # (in, ...)
-    acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
-    for t in range(kk.shape[1]):
-        acc += src[idx[:, t]] * kk[:, t].reshape((-1,) + (1,) * (src.ndim - 1))
-    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
-    return np.moveaxis(out, 0, axis)
-
-
-def resize_bilinear(img: np.ndarray, width: int, height: int) -> np.ndarray:
-    """PIL's ``Image.resize((width, height), Image.BILINEAR)`` of a uint8
-    ``(H, W[, C])`` image: the horizontal pass, then the vertical one, each
-    rounded to uint8; an axis whose size does not change is not passed
-    over (an image of the same size comes back as a copy)."""
-    out = np.array(img, np.uint8)
-    if out.shape[1] != width:
-        out = _resample_axis(out, width, 1)
-    if out.shape[0] != height:
-        out = _resample_axis(out, height, 0)
-    return out
-
+# ---------------------------------------------------------------- PIL's polygon fill
 
 def _round_up(v: np.ndarray) -> np.ndarray:
     """PIL's ``ROUND_UP``: halves away from zero."""
@@ -308,19 +256,6 @@ def letterbox_image(img: np.ndarray, size: int) -> np.ndarray:
     x0, y0 = int(round(px)), int(round(py))
     out[y0:y0 + nh, x0:x0 + nw] = resized[..., :3]
     return out
-
-
-def to_rgb(img: np.ndarray) -> np.ndarray:
-    """A decoded image as uint8 RGB, as PIL's ``convert("RGB")`` makes it
-    from gray (replicated), gray + alpha and RGBA (the alpha dropped)."""
-    img = np.asarray(img)
-    if img.dtype != np.uint8:
-        raise ValueError(f"8-bit images only, got {img.dtype}")
-    if img.ndim == 2:
-        return np.repeat(img[..., None], 3, axis=-1)
-    if img.shape[-1] == 2:
-        return np.repeat(img[..., :1], 3, axis=-1)
-    return np.ascontiguousarray(img[..., :3])
 
 
 def map_polygon(poly_norm: np.ndarray, w0: int, h0: int, size: int) -> np.ndarray:

@@ -4,7 +4,8 @@ package's ``models/eval.py``.
 
 The metrics the reference reports from Ultralytics training (precision,
 recall, mAP50, mAP50-95; the OBB run's angle error) for the port's
-detectors.  Images are read by `utils.images.read_image` (PNG or ``.npy``).
+detectors.  Images are read by `utils.images.read_image` (JPEG to PIL's
+pixels, PNG or ``.npy``).
 """
 
 from __future__ import annotations
@@ -143,8 +144,8 @@ def evaluate_obb_detector(detector, dataset_root: str, max_images: int | None = 
     (degrees) of confident predictions (score >= 0.5) matched to labelled
     polygons at IoU >= 0.5.  Build the detector with a low
     ``conf_threshold`` (0.001): AP needs the full sweep."""
-    from icp_slam_yolo_tpu_torch.io.yolo_data import find_pairs, parse_polygons, polygon_angle, to_rgb
-    from icp_slam_yolo_tpu_torch.utils.images import read_image
+    from icp_slam_yolo_tpu_torch.io.yolo_data import find_pairs, parse_polygons, polygon_angle
+    from icp_slam_yolo_tpu_torch.utils.images import read_image, to_rgb
 
     pairs = find_pairs(dataset_root)
     if max_images:
@@ -194,8 +195,8 @@ def evaluate_pose_detector(detector, pairs) -> dict:
     and p90 corner error in the original frame's pixels, PCK@0.1 (a corner
     within 10 % of the ground-truth box's diagonal), mean OKS and the share
     of labelled images with a detection."""
-    from icp_slam_yolo_tpu_torch.io.yolo_data import parse_pose_label, to_rgb
-    from icp_slam_yolo_tpu_torch.utils.images import read_image
+    from icp_slam_yolo_tpu_torch.io.yolo_data import parse_pose_label
+    from icp_slam_yolo_tpu_torch.utils.images import read_image, to_rgb
 
     errs, oks_all, hits, n_det, n_img = [], [], 0, 0, 0
     for ip, lp in pairs:

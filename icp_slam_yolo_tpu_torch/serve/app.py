@@ -375,10 +375,7 @@ def make_handler(state: ServerState):
             self.wfile.write(data)
 
         def _body_json(self):
-            length = int(self.headers.get("Content-Length") or 0)
-            if not length:
-                return {}
-            return json.loads(self.rfile.read(length) or b"{}")
+            return json.loads(self._raw_body) if self._raw_body else {}
 
         def _safe_path(self, name: str) -> str | None:
             """Resolve a client-supplied filename under the work dir, or
@@ -502,6 +499,9 @@ def make_handler(state: ServerState):
         # --- POST -----------------------------------------------------------
         def do_POST(self):
             path = urlparse(self.path).path
+            # read the body before any route: a socket closed with bytes unread
+            # is reset, and the client can lose the answer
+            self._raw_body = self.rfile.read(int(self.headers.get("Content-Length") or 0))
             if path == "/add_point":
                 pos = state.add_poi()
                 self._json({"status": "success", "message": "point added", "new_point": pos})

@@ -403,18 +403,18 @@ class ServerState:
                                                        map_valid=torch.from_numpy(valid).to(dev))
 
     def load_map(self, filepath: str) -> None:
-        """Load a PNG occupancy or PCD point map and switch the engine to
-        localization (the map is frozen and ICP tracks the pose against it).
-        A PNG's point map is the sibling ``.npy`` that `save_map` writes, or
-        else the occupied cells' corners.  Other formats raise ``ValueError``
-        (JPEG maps are not read by the port)."""
+        """Load a PNG/JPEG occupancy or PCD point map and switch the engine
+        to localization (the map is frozen and ICP tracks the pose against
+        it).  An image's point map is the sibling ``.npy`` that `save_map`
+        writes, or else the occupied cells' corners.  Other formats raise
+        ``ValueError``."""
         with self.lock:
             lower = filepath.lower()
-            if not lower.endswith((".png", ".pcd")):
+            if not lower.endswith((".png", ".jpg", ".jpeg", ".pcd")):
                 raise ValueError("unsupported map format")
             if self.engine.state is None:
                 self.engine.state = self._blank_state()
-            if lower.endswith(".png"):
+            if not lower.endswith(".pcd"):
                 occ = maps_io.load_occupancy_png(filepath)
                 if occ.shape != (self.cfg.map.height_px, self.cfg.map.width_px):
                     raise ValueError("map image size does not match the configured grid")

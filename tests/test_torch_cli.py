@@ -3,7 +3,8 @@ as a subprocess with ``--device cpu``) against the JAX package's CLI on the
 same inputs, and the port's import rule.
 
 Inputs: a folder of seeded synthetic scans (`chip_smoke.synthetic_sequence`
-saved as ``.npy``) and seeded PNG frames.  Tolerances: trajectories 2 mm /
+saved as ``.npy``), seeded PNG and JPEG frames, label files and a small
+image pool.  Tolerances: trajectories 2 mm /
 2e-3 rad (`test_torch_slam._compare`'s); the map PNG's gray levels equal on
 at least 99.5 % of cells; the map point count within 1 % + 5; detections as
 `test_torch_detect.py` holds them (boxes 0.02 px, scores 1e-4); the
@@ -90,10 +91,11 @@ def test_replay_needs_the_card_unless_told(scan_dir, tmp_path):
 
 def test_detect_matches_the_jax_cli(tmp_path, capsys):
     """The trained detector on synthetic frames (no pallet in them: it scores
-    them near 1e-5, so the threshold is 1e-6 to leave candidates)."""
+    them near 1e-5, so the threshold is 1e-6 to leave candidates), PNG and
+    JPEG (decoded to PIL's pixels on both sides)."""
     paths = []
-    for seed in range(2):
-        path = str(tmp_path / f"frame_{seed}.png")
+    for seed, ext in ((0, "png"), (1, "png"), (0, "jpg")):
+        path = str(tmp_path / f"frame_{seed}.{ext}")
         Image.fromarray(chip_smoke.synthetic_frame(seed)).save(path)
         paths.append(path)
     weights = os.path.join(REPO, chip_smoke.DETECT_CHECKPOINT)
@@ -101,17 +103,64 @@ def test_detect_matches_the_jax_cli(tmp_path, capsys):
     jcli.main(args)
     want = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     got = [json.loads(line) for line in _port_cli(*args, "--device", "cpu").stdout.splitlines()]
-    assert len(got) == len(want) == 2
+    assert len(got) == len(want) == 3
     for g, w in zip(got, want):
         assert g["image"] == w["image"] and set(g) == set(w)
         assert len(g["boxes"]) == len(w["boxes"]) > 0
         np.testing.assert_allclose(g["boxes"], w["boxes"], atol=0.02)
         np.testing.assert_allclose(g["scores"], w["scores"], atol=1e-4)
         assert g["classes"] == w["classes"]
-    jpg = str(tmp_path / "frame.jpg")
-    Image.fromarray(chip_smoke.synthetic_frame(0)).save(jpg)
-    r = _port_cli("detect", jpg, "--weights", weights, "--img-size", "64", "--device", "cpu", check=False)
-    assert r.returncode != 0 and "JPEG" in r.stderr
+
+
+@pytest.mark.parametrize("fix", [False, True])
+def test_label_check_matches_the_jax_cli(fix, tmp_path, capsys):
+    """The report's lines, the exit code (1 on out-of-range coordinates
+    without ``--fix``) and the repaired files equal the JAX CLI's."""
+    for side in ("j", "t"):
+        d = tmp_path / side
+        d.mkdir()
+        (d / "good.txt").write_text("0 0.5 0.5 0.2 0.2\n")
+        (d / "bad.txt").write_text("0 1.5 0.5 0.2 -0.1\n")
+    args = ["label-check"] + (["--fix"] if fix else [])
+    try:
+        jcli.main(args + [str(tmp_path / "j")])
+        jcode = 0
+    except SystemExit as e:
+        jcode = e.code
+    want = capsys.readouterr().out
+    r = _port_cli(*args, str(tmp_path / "t"), check=False)
+    assert r.returncode == jcode == (0 if fix else 1)
+    assert r.stdout.replace(str(tmp_path / "t"), "") == want.replace(str(tmp_path / "j"), "")
+    assert (tmp_path / "t" / "bad.txt").read_bytes() == (tmp_path / "j" / "bad.txt").read_bytes()
+
+
+def test_split_matches_the_jax_cli(tmp_path, capsys):
+    src = tmp_path / "src"
+    (src / "images").mkdir(parents=True)
+    (src / "labels").mkdir()
+    for i in range(7):
+        Image.new("RGB", (8, 8), (i * 30, 0, 0)).save(src / "images" / f"img{i}.jpg")
+        (src / "labels" / f"img{i}.txt").write_text(f"0 0.5 0.5 0.1 0.{i}\n")
+    args = ["--ratio", "0.7", "--seed", "3"]
+    jcli.main(["split", str(src), str(tmp_path / "j"), *args])
+    want = capsys.readouterr().out
+    r = _port_cli("split", str(src), str(tmp_path / "t"), *args)
+    assert r.stdout.replace(str(tmp_path / "t"), "") == want.replace(str(tmp_path / "j"), "")
+    for split in ("train", "val"):
+        for sub in ("images", "labels"):
+            assert sorted(os.listdir(tmp_path / "t" / split / sub)) == sorted(os.listdir(tmp_path / "j" / split / sub))
+
+
+def test_labeler_help_matches_the_jax_cli():
+    """The JAX CLI's arguments and defaults, plus ``--device``."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    want = subprocess.run([sys.executable, "-m", "icp_slam_yolo_tpu.cli", "labeler", "--help"], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    got = _port_cli("labeler", "--help")
+    options = lambda text: set(re.findall(r"(--[a-z-]+|image_dir)", text))  # noqa: E731
+    assert want.returncode == 0 and options(got.stdout) == options(want.stdout) | {"--device"}
+    for default in ("labels_out", "5001", "0.0.0.0"):
+        assert (default in got.stdout) == (default in want.stdout)
 
 
 def test_train_then_eval(tmp_path, capsys):

@@ -1,6 +1,6 @@
 """The port's image codecs (`utils/images.py`) against an independent codec
 (PIL): PNG both ways, the port's baseline JPEG decoded by PIL, and
-`read_image`'s formats.
+`read_image`'s formats (JPEG decoded as PIL decodes it).
 
 Tolerances: decoded PNGs equal bytes; JPEG at quality 90 at least 30 dB
 PSNR on a seeded camera-like frame, and a flat frame within 1 level of its
@@ -133,5 +133,7 @@ def test_read_image_formats(tmp_path, rng):
     Image.fromarray(img).save(tmp_path / "c.jpg")
     assert np.array_equal(images.read_image(str(tmp_path / "a.png")), img)
     assert np.array_equal(images.read_image(str(tmp_path / "b.npy")), img)
-    with pytest.raises(ValueError, match="JPEG"):
-        images.read_image(str(tmp_path / "c.jpg"))
+    assert np.array_equal(images.read_image(str(tmp_path / "c.jpg")), np.asarray(Image.open(tmp_path / "c.jpg")))
+    (tmp_path / "d.gif").write_bytes(b"GIF89a")
+    with pytest.raises(ValueError, match="d.gif"):
+        images.read_image(str(tmp_path / "d.gif"))

@@ -114,7 +114,8 @@ def test_server_state_matches_jax(tmp_path, scans):
 @pytest.mark.parametrize("kind", ["png", "pcd"])
 def test_saved_maps_load_across_servers(kind, tmp_path, scans):
     """A map saved by either server loads into the other and switches it to
-    localization; the two then track the next scans alike."""
+    localization; the two then track the next scans alike.  So does a JPEG
+    of the map, which both servers read."""
     js, ts = _pair(tmp_path)
     for k in range(N_SCANS):
         js.feed_scan(scans[k])
@@ -144,8 +145,29 @@ def test_saved_maps_load_across_servers(kind, tmp_path, scans):
         np.testing.assert_array_equal(tl.engine.map_points(), np.asarray(jl.engine.map_points()))
         tl.resume_mapping()
         assert tl.update_mode == 1 and not tl.engine.cfg.localization_only
-    with pytest.raises(ValueError):
-        ts.load_map(str(tmp_path / "t" / "map.jpg"))
+    # a JPEG map (RGB, so `convert("L")`'s luma runs on both sides): the same
+    # occupancy and point map, the same tracking; "png" keeps the point dump
+    # beside it, "pcd" leaves the occupied cells' corners to stand for it
+    ts.save_map("forjpg")
+    jpg = tmp_path / "jpg_map" / "map.jpg"
+    jpg.parent.mkdir()
+    Image.open(tmp_path / "t" / "forjpg.png").convert("RGB").save(jpg, quality=90)
+    if kind == "png":
+        (jpg.parent / "map.npy").write_bytes((tmp_path / "t" / "forjpg.npy").read_bytes())
+    (tmp_path / "jpg").mkdir()
+    jl, tl = _pair(tmp_path / "jpg")
+    jl.load_map(str(jpg))
+    tl.load_map(str(jpg))
+    assert jl.update_mode == tl.update_mode == 0 and tl.engine.cfg.localization_only
+    np.testing.assert_array_equal(tl.engine.occupancy(), np.asarray(jl.engine.occupancy()))
+    np.testing.assert_array_equal(tl.engine.map_points(), np.asarray(jl.engine.map_points()))
+    for k in range(N_SCANS, N_SCANS + 3):
+        jo, to = jl.feed_scan(scans[k]), tl.feed_scan(scans[k])
+        assert to["accepted"] == bool(jo["accepted"])
+        dp = np.abs(to["pose"] - np.asarray(jo["pose"]))
+        assert dp[:2].max() <= POS_MM and dp[2] <= ANG_RAD, dp
+    with pytest.raises(ValueError, match="unsupported map format"):
+        tl.load_map(str(tmp_path / "t" / "map.gif"))
 
 
 def _serve(state):
@@ -270,6 +292,34 @@ def test_fused_loop_matches_jax(detector, tmp_path, scans):
     for eye in (0, 1):
         assert chip_smoke.jpeg_size(ts.camera_frame_jpeg(eye)) == (480, 640)
         assert np.asarray(Image.open(io.BytesIO(ts.camera_frame_jpeg(eye)))).shape == (480, 640, 3)
+
+
+def test_replay_camera_reads_jpeg_and_save_pair_writes_jpeg(tmp_path):
+    """A folder of JPEG frames (and a PNG and a gray one) replays the same
+    RGB frames through both packages' `ReplayCamera`; `save_pair` writes
+    ``anh_{1,2}_N.jpg`` in both, the port's encoder at PIL's save
+    defaults: decoded, the pixels of PIL's files (within one level on
+    average and 40 dB is the bound; the encoders' arithmetic is the same,
+    so they are equal)."""
+    d = tmp_path / "cams"
+    d.mkdir()
+    for i in range(2):
+        for eye in (1, 2):
+            frame = chip_smoke.synthetic_frame(10 * eye + i)
+            Image.fromarray(frame if i == 0 else frame[..., 0]).save(d / f"anh_{eye}_{i}.jpg", quality=88)
+    Image.fromarray(chip_smoke.synthetic_frame(99)).save(d / "anh_1_2.png")
+    captures = {}
+    for module, side in ((jcamera, "j"), (tcamera, "t")):
+        stereo = module.StereoCapture(module.ReplayCamera(str(d), "anh_1"), module.ReplayCamera(str(d), "anh_2"),
+                                      str(tmp_path / side))
+        stereo.open()
+        frames = [stereo.left.read() for _ in range(3)]
+        assert stereo.save_pair() == (str(tmp_path / side / "anh_1_0.jpg"), str(tmp_path / side / "anh_2_0.jpg"))
+        captures[side] = frames, [np.asarray(Image.open(tmp_path / side / f"anh_{e}_0.jpg")) for e in (1, 2)]
+    for got, want in zip(captures["t"][0], captures["j"][0]):
+        assert got.shape == want.shape and got.shape[2] == 3 and np.array_equal(got, want)
+    for got, want in zip(captures["t"][1], captures["j"][1]):
+        assert got.shape == want.shape == (480, 640, 3) and np.array_equal(got, want)
 
 
 class SpyDetector:

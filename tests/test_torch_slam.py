@@ -195,11 +195,19 @@ def test_device_rule():
 
 
 def test_package_imports_no_jax():
-    code = ("import sys, icp_slam_yolo_tpu_torch; "
-            "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'icp_slam_yolo_tpu.'))"
-            " or m == 'icp_slam_yolo_tpu']; print(bad); sys.exit(1 if bad else 0)")
+    """The package and the modules that copy the JAX package's jax-free ones
+    (``data/``) or stand in for PIL (``utils/images``, the labeler app, the
+    CLI) import neither JAX, nor the JAX package, nor PIL (the card's
+    machine has none of them)."""
+    modules = ["icp_slam_yolo_tpu_torch", "icp_slam_yolo_tpu_torch.utils.images", "icp_slam_yolo_tpu_torch.data.csvutil",
+               "icp_slam_yolo_tpu_torch.data.settings", "icp_slam_yolo_tpu_torch.data.labels",
+               "icp_slam_yolo_tpu_torch.data.split", "icp_slam_yolo_tpu_torch.data.labeler",
+               "icp_slam_yolo_tpu_torch.serve.labeler_app", "icp_slam_yolo_tpu_torch.cli"]
+    code = ("import sys, importlib; [importlib.import_module(m) for m in sys.argv[1:]]; "
+            "bad = [m for m in sys.modules if m in ('jax', 'icp_slam_yolo_tpu', 'PIL')"
+            " or m.startswith(('jax.', 'icp_slam_yolo_tpu.', 'PIL.'))]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=REPO)
-    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True)
+    r = subprocess.run([sys.executable, "-c", code, *modules], cwd=REPO, env=env, capture_output=True, text=True)
     assert r.returncode == 0, r.stdout + r.stderr
     pkg = os.path.join(REPO, "icp_slam_yolo_tpu_torch")
     for root, _, files in os.walk(pkg):

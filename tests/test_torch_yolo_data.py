@@ -207,15 +207,28 @@ def test_masks_and_keypoints_reach_the_batch(dataset):
 
 
 def test_jpeg_is_refused_by_name(tmp_path):
-    """A ``.jpg`` that `find_pairs` lists is read as a ``ValueError`` naming
-    the file: never skipped."""
+    """A JPEG dataset loads as JAX's does (the name is the refusal this test
+    checked before the port decoded JPEG): the examples the port loads
+    from ``.jpg``/``.jpeg`` frames (4:2:0, progressive 4:2:2, gray) equal
+    the JAX package's `load_example` (PIL's decode and letterbox), and the
+    device dataset reads them."""
     (tmp_path / "images").mkdir()
     (tmp_path / "labels").mkdir()
-    (tmp_path / "images" / "frame_7.jpg").write_bytes(b"\xff\xd8\xff\xe0 not decoded")
-    _write_labels(tmp_path / "labels" / "frame_7.txt", ["0 0.5 0.5 0.2 0.2"])
+    rng = np.random.default_rng(8)
+    opts = [dict(quality=90), dict(quality=80, subsampling=1, progressive=True), dict(quality=85)]
+    for i, kw in enumerate(opts):
+        img, corners = chip_smoke.pallet_image(rng, 120, 160)
+        im = Image.fromarray(img).convert("L") if i == 2 else Image.fromarray(img)
+        im.save(tmp_path / "images" / f"frame_{i}.{'jpeg' if i == 1 else 'jpg'}", **kw)
+        lo, hi = corners[0].min(0) / [160, 120], corners[0].max(0) / [160, 120]
+        _write_labels(tmp_path / "labels" / f"frame_{i}.txt",
+                      [f"0 {(lo[0] + hi[0]) / 2:.6f} {(lo[1] + hi[1]) / 2:.6f} {hi[0] - lo[0]:.6f} {hi[1] - lo[1]:.6f}"])
     pairs = tdata.find_pairs(str(tmp_path))
-    assert pairs == jdata.find_pairs(str(tmp_path)) and len(pairs) == 1
-    with pytest.raises(ValueError, match="frame_7.jpg"):
-        tdata.load_example(*pairs[0], 64)
-    with pytest.raises(ValueError, match="frame_7.jpg"):
-        tdata.DeviceYoloDataset(str(tmp_path), img_size=64, batch_size=1, device="cpu")
+    assert pairs == jdata.find_pairs(str(tmp_path)) and len(pairs) == 3
+    for pair in pairs:
+        got, want = tdata.load_example(*pair, 64), jdata.load_example(*pair, 64)
+        assert np.array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_allclose(got[2], want[2], atol=1e-5)
+    batch = next(iter(tdata.DeviceYoloDataset(str(tmp_path), img_size=64, batch_size=3, device="cpu")))
+    assert tuple(batch["images"].shape) == (3, 64, 64, 3)
