@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases (each prints a line; any failed check raises, so the script exits
-non-zero; they run in the order 1-3, 7-13, 4-6, 14, see `main`):
+non-zero; they run in the order 1-3, 7-13, 4-6, 14, 15, see `main`):
   1. require a CUDA device; print the card's name and power limit;
   2. build the CUDA kernels (``nvcc``, first use) and print the build time
      and each kernel's registers, shared memory and spills (``ptxas -v``);
@@ -95,7 +95,11 @@ non-zero; they run in the order 1-3, 7-13, 4-6, 14, see `main`):
      trained checkpoint through the fused detector (K5-K8 launches a
      forward, every launch held against its plain version, fused against
      unfused, mAP on ``val/``); v12 detect, v11 obb, v8 segment and pose
-     steps at 640 px; ``cli train`` and ``cli eval`` in subprocesses;
+     steps at 640 px, bfloat16, with device augmentation; the task scripts
+     (`scripts/torch_train_{obb,segment,pose}.run`, 3 steps each), each
+     checkpoint evaluated through the fused detector with every K5-K8
+     launch held against its plain version; ``cli train`` and ``cli eval``
+     in subprocesses;
   13. JPEG decoding and the labeling toolchain (`label_path`): the committed
      JPEG fixtures decoded and held to the digests of PIL's pixels, decode
      times of 480 x 640 frames; 8 seeded pallet frames written as JPEG,
@@ -107,8 +111,15 @@ non-zero; they run in the order 1-3, 7-13, 4-6, 14, see `main`):
      auto-label; ``cli detect`` on a JPEG; every auto-label launch held
      against its plain version; float32 auto-label polygons, card against
      CPU;
-  14. one JSON line listing the kernels (each kernel's launches summed over
-     the paths of phases 4-6, 8, 10, 11, 12 and 13), then the card line,
+  14. the shared-map fleet (`shared_path`): ``shared_fleet_run`` on the
+     ``fleet`` preset unchanged, 8 robots leaving one depot x 100 scans and
+     64 (the 8 tiled 8 times) x 20 scans, every robot building one map: K1,
+     K3 and K4 launches a step counted, every robot's trajectory checked,
+     five steps under the sync debug mode, a profiler window over each run,
+     the first 8 steps on the CPU against the card, and a 2-robot
+     interleave of one stream against the single-robot ``Slam``;
+  15. one JSON line listing the kernels (each kernel's launches summed over
+     the paths of phases 4-6, 8, 10, 11, 12, 13 and 14), then the card line,
      then the result line ``{"ok": true, "device": {...}}`` last.
 
 The synthetic scan generator (`synthetic_sequence`) lives here so the CPU
@@ -1320,6 +1331,16 @@ def fleet_streams(n_streams: int, n_scans: int, n_max: int):
     return np.stack(scans), np.stack(gts)
 
 
+def depot_streams(n_streams: int, n_scans: int, n_max: int):
+    """Seeded streams that leave one depot: robot ``r`` has its own seed
+    (``20 + r``: noise and dropouts) and step length (``115 + 5 r`` mm), as
+    in `fleet_streams`, but no start offset, so every first scan is taken at
+    one pose (the shared map seeds them all at the identity).  Returns
+    ``(scans (R, T, n_max, 3), ground truth (R, T, 3))``."""
+    pairs = [padded_sequence(n_scans, 20 + r, n_max, step_mm=115.0 + 5.0 * r) for r in range(n_streams)]
+    return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+
+
 def fleet(cfg, n_scans: int = 100, n_wide: int = 30, n_cpu: int = 4) -> dict:
     """Phase 5: the fleet path on ``cfg`` (the ``fleet`` preset).  Returns the
     launch counts of the B = 8 and B = 64 runs, summed."""
@@ -1417,6 +1438,150 @@ def fleet(cfg, n_scans: int = 100, n_wide: int = 30, n_cpu: int = 4) -> dict:
     print(f"[5d] cpu fleet replay B=2 x {n_cpu} scans ({time.perf_counter() - t0:.1f} s): accept flags equal {same}, "
           f"max pose diff {dc[..., :2].max():.3g} mm / {dc[..., 2].max():.3g} rad (tol 2 mm / 2e-3 rad)", flush=True)
     _require(same and dc[..., :2].max() <= 2.0 and dc[..., 2].max() <= 2e-3, "cpu and card fleets differ")
+    return {k: launches[k] + launches_w[k] for k in launches}
+
+
+SHARED_CPU_STEPS = 8  # steps of the R = 8 shared run replayed on the CPU
+
+
+def interleave_stream(n_scans: int, n_max: int):
+    """One seeded stream for two robots to share (even and odd scans): 75
+    mm a scan, so each robot moves 150 mm a step, and its first two scans
+    taken at the start pose (the robot at rest, as the reference's
+    recordings start), since the shared map seeds both first scans at the
+    identity.  Returns ``(scans (n, n_max, 3), ground truth (n, 3))``."""
+    first, g0 = padded_sequence(1, 1, n_max, step_mm=75.0)
+    rest, gt = padded_sequence(n_scans - 1, 0, n_max, step_mm=75.0)
+    return np.concatenate([first, rest]), np.concatenate([g0, gt])
+
+
+def shared_path(cfg, n_scans: int = 100, n_wide: int = 20, n_inter: int = 120) -> dict:
+    """Phase 14: the shared-map fleet (`parallel/shared.shared_fleet_run`) on
+    ``cfg`` (the ``fleet`` preset unchanged): 8 robots leaving one depot
+    (`depot_streams`) x ``n_scans`` scans, then 64 (the 8 tiled 8 times) x
+    ``n_wide``, each between a reset and a reading of the launch counters
+    (K1, K3 and K4 once a step; K4 once more for the seed); every robot's
+    trajectory through `check_quality`; five steps under the sync debug
+    mode; a profiler window over each run; the first ``SHARED_CPU_STEPS``
+    steps of the R = 8 run on the CPU (plain versions) against the card; a
+    2-robot interleave of one stream (`interleave_stream`) on the
+    ``realtime`` preset (4096 map slots, no reseed, as JAX's real-data test)
+    against the single-robot ``Slam`` on the whole stream.  Returns the
+    launches of the two fleet runs, summed."""
+    import types
+
+    import torch
+
+    import icp_slam_yolo_tpu_torch as port
+    from icp_slam_yolo_tpu_torch.ops import pallas
+    from icp_slam_yolo_tpu_torch.parallel import shared as pshared
+
+    names = ("icp_fused", "nn_argmin", "raster_update_grid")
+
+    def run(stack, what):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pallas.reset_launches()
+        t0 = time.perf_counter()
+        out = pshared.shared_fleet_run(stack, cfg)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(pallas.LAUNCHES)
+        n_steps = stack.shape[1] - 1
+        for name in names:
+            _require(launches[name] == n_steps + (name == "raster_update_grid"),
+                     f"{what}: {name} launched {launches[name]} times in {n_steps} steps")
+        _require(launches["raster_update"] == 0, f"{what}: the robots' grid copies are updated in place (K4), not K2")
+        return out, secs, launches, torch.cuda.max_memory_allocated() / 2**30
+
+    def quality(what, out, gts):
+        map_xy, map_valid, occ, _, outs = out
+        acc, rmse, poses = (x.cpu().numpy() for x in (outs.accepted, outs.rmse, outs.pose))
+        shared_map = types.SimpleNamespace(map_valid=map_valid, occ=occ)
+        worst = [0.0, 0.0]
+        for r in range(acc.shape[0]):
+            pos_err, ang_err = check_quality(f"{what} robot {r}", cfg, acc[r], rmse[r], poses[r], gts[r], shared_map)
+            worst = [max(worst[0], pos_err.max()), max(worst[1], ang_err.max())]
+        return (f"accepted {acc.mean():.4f} (least robot {acc.mean(1).min():.3f}), median rmse "
+                f"{np.median(rmse[acc]):.2f} mm, trajectory error max {worst[0]:.1f} mm, heading max {worst[1]:.4f} rad, "
+                f"shared map {int(map_valid.sum())} of {cfg.map_capacity} points, grid cells painted "
+                f"{int((occ != 0.5).sum())}")
+
+    b = 8
+    stack, gts = depot_streams(b, n_scans, cfg.n_max)
+    pshared.shared_fleet_run(stack[:, :4], cfg)  # warm-up
+    out, secs, launches, peak = run(stack, "shared R=8")
+    print(f"[14a] shared map, R={b} depot robots x {n_scans} scans (preset 'fleet' unchanged: map {cfg.map_capacity}, "
+          f"grid {cfg.map.height_px}x{cfg.map.width_px}): {b * n_scans / secs:.1f} robot-scans/s "
+          f"({secs / (n_scans - 1) * 1e3:.2f} ms a step); peak memory {peak:.3f} GiB; {quality('shared R=8', out, gts)}; "
+          f"launches {launches}", flush=True)
+
+    step = pshared.make_shared_step(cfg)
+    scans_dev = torch.from_numpy(stack[:, :6]).to("cuda")
+    st = pshared.shared_init(scans_dev[:, 0], cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(1, 6):
+            st, _ = step(st, scans_dev[:, t], t - 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("[14a] 5 shared steps under torch.cuda.set_sync_debug_mode('error'): no host synchronisation", flush=True)
+    n_win = 21
+    print(f"[14a] R={b} profiled {n_win - 1} shared steps: "
+          + profile_window(torch, lambda: pshared.shared_fleet_run(stack[:, :n_win], cfg), n_win - 1), flush=True)
+
+    # (b) 64 robots: the 8 depot streams tiled 8 times
+    wide = np.tile(stack[:, :n_wide], (8, 1, 1, 1))
+    pshared.shared_fleet_run(wide[:, :3], cfg)
+    out_w, secs_w, launches_w, peak_w = run(wide, "shared R=64")
+    pose_w = out_w[4].pose
+    _require(all(torch.equal(pose_w[r], pose_w[r % b]) for r in range(64)),
+             "shared R=64: robots fed the same stream gave different poses")
+    print(f"[14b] shared map, R=64 x {n_wide} scans: {64 * n_wide / secs_w:.1f} robot-scans/s "
+          f"({secs_w / (n_wide - 1) * 1e3:.2f} ms a step); peak memory {peak_w:.3f} GiB; robots fed the same stream bit "
+          f"equal; {quality('shared R=64', out_w, np.tile(gts[:, :n_wide], (8, 1, 1)))}; launches {launches_w}", flush=True)
+    print(f"[14b] R=64 profiled {n_wide - 1} shared steps: "
+          + profile_window(torch, lambda: pshared.shared_fleet_run(wide, cfg), n_wide - 1), flush=True)
+
+    # (c) the first steps on the CPU (on a longer replay rounding leads some
+    # registration to a neighbouring fixed point of ICP and the runs part by
+    # millimetres, as JAX's own Pallas and XLA paths do, see
+    # `tests/test_torch_shared.py`; this holds while the card and the CPU
+    # end in the same fixed points)
+    t0 = time.perf_counter()
+    _, _, _, _, outs_c = pshared.shared_fleet_run(stack[:, :SHARED_CPU_STEPS + 1], cfg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    card = out[4]
+    same = bool((outs_c.accepted == card.accepted[:, :SHARED_CPU_STEPS].cpu()).all())
+    d = (outs_c.pose - card.pose[:, :SHARED_CPU_STEPS].cpu()).abs().numpy()
+    print(f"[14c] cpu shared run R={b} x {SHARED_CPU_STEPS} steps ({cpu_s:.1f} s): accept flags equal {same}; max pose "
+          f"diff {d[..., :2].max():.3g} mm / {d[..., 2].max():.3g} rad (tol 0.5 mm / 2e-4 rad)", flush=True)
+    _require(same and d[..., :2].max() <= 0.5 and d[..., 2].max() <= 2e-4, "cpu and card shared runs differ")
+
+    # (d) two robots, one stream's even and odd scans, against the single robot
+    icfg = port.REALTIME_CONFIG.replace(map_capacity=4096, local_map_capacity=4096, reseed_after_rejects=0)
+    scans, _ = interleave_stream(n_inter, cfg.n_max)
+    t = n_inter // 2
+    pair = np.stack([scans[0::2][:t], scans[1::2][:t]])
+    _, i_valid, i_occ, _, i_outs = pshared.shared_fleet_run(pair, icfg)
+    _, s_outs = port.Slam(icfg).run(scans)
+    acc = i_outs.accepted.cpu().numpy()
+    n_live = int(i_valid.sum())
+    o = i_occ.cpu().numpy()
+    seq, both = s_outs.pose.cpu().numpy(), i_outs.pose.cpu().numpy()
+    # robot A's k-th processed scan is scan 2k + 2 of the stream (sequential row 2k + 1); robot B's 2k + 3
+    worst = max(float(np.hypot(*(both[r, k, :2] - seq[2 * k + 1 + r, :2])))
+                for r in (0, 1) for k in range(t - 1) if 2 * k + 1 + r < len(seq))
+    print(f"[14d] 2-robot interleave of {n_inter} scans (75 mm a scan, at rest for the first two) on 'realtime' "
+          f"(4096 slots, no reseed): accepted "
+          f"{acc.mean():.4f} (after 5 steps {acc[:, 5:].mean():.4f}, tolerance > 0.85), shared map {n_live} points, grid "
+          f"[{o.min():.3g}, {o.max():.3g}]; largest distance of a robot's pose from the single robot's on the whole stream "
+          f"{worst:.1f} mm (tolerance 300 mm)", flush=True)
+    _require(acc[:, 5:].mean() > 0.85 and 500 < n_live <= icfg.map_capacity, "interleave: tracking or map count")
+    _require(o.min() > 0.0 and o.max() <= 1.0 and (o < 0.3).any() and (o > 0.6).any(), "interleave: grid")
+    _require(worst < 300.0, f"interleave: {worst:.1f} mm from the single robot")
     return {k: launches[k] + launches_w[k] for k in launches}
 
 
@@ -2946,6 +3111,86 @@ def _train_card_against_cpu(root: str, family: str, task: str, labels: str) -> s
             f"statistics within {stat_err:.2e} (tolerance 2e-3)")
 
 
+TASK_STEPS = 3  # each task script's steps on the card
+
+
+def _held_summary(held) -> str:
+    _require(all(held.held[k] > 0 for k in held.held), f"an evaluation did not launch every K5-K8: {held.held}")
+    return (f"{sum(held.held.values())} K5-K8 launches each held against its plain version {held.held}, largest errors "
+            f"{ {k: float(f'{v:.4g}') for k, v in held.worst.items()} }")
+
+
+def task_scripts(root: str, tmp: str) -> None:
+    """The task scripts (`scripts/torch_train_{obb,segment,pose}.py`, their
+    defaults: v8, 640 px) for ``TASK_STEPS`` steps each on `pallet_dataset`'s
+    frames (symlinked into the layouts they read), every loss finite; each
+    trained checkpoint evaluated through a fused `Detector` (bfloat16, its
+    default: K5-K8), every K5-K8 launch held against its plain version: the
+    obb one by `evaluate_obb_detector`, the segment one's masks on the val
+    frames (besides the script's own unfolded float32 mask IoU), the pose
+    one by the script's own evaluation."""
+    import os
+
+    import icp_slam_yolo_tpu_torch as port
+    import torch_train_obb
+    import torch_train_pose
+    import torch_train_segment
+    from icp_slam_yolo_tpu_torch.io.checkpoint import load_checkpoint
+    from icp_slam_yolo_tpu_torch.io.yolo_data import find_pairs
+    from icp_slam_yolo_tpu_torch.models.eval import evaluate_obb_detector
+    from icp_slam_yolo_tpu_torch.utils.images import read_image, to_rgb
+
+    poly = os.path.join(root, "poly")  # obb and segment: <data>/{training,val}/{images,labels} of polygons
+    for split, src in (("training", "train"), ("val", "val")):
+        os.makedirs(os.path.join(poly, split), exist_ok=True)
+        os.symlink(os.path.join(root, src, "images"), os.path.join(poly, split, "images"))
+        os.symlink(os.path.join(root, src, "labels_poly"), os.path.join(poly, split, "labels"))
+
+    def losses(hist, what):
+        vals = [h["loss"] for h in hist]
+        _require(len(vals) == TASK_STEPS and np.isfinite(vals).all(), f"{what}: a loss is not finite")
+        return [round(v, 3) for v in vals]
+
+    def fused(ckpt, task):
+        payload, _, meta = load_checkpoint(ckpt)
+        return port.Detector(num_classes=1, task=task, family=meta.get("family", "v8"), img_size=meta["img_size"],
+                             conf_threshold=0.001, params=payload)
+
+    steps = ["--steps", str(TASK_STEPS)]
+    t0 = time.perf_counter()
+    out = torch_train_obb.run(torch_train_obb.parse_args(["--data", poly, "--out", os.path.join(tmp, "obb"), *steps]))
+    train_s = time.perf_counter() - t0
+    with HeldKernels() as held:
+        ev = evaluate_obb_detector(fused(out["checkpoint"], "obb"), os.path.join(poly, "val"), max_images=8)
+    print(f"[12] torch_train_obb.run (v8, 640 px, batch 8, float32): losses {losses(out['history'], 'obb')}, "
+          f"{train_s:.1f} s with the dataset's upload; evaluate_obb_detector through the fused bfloat16 detector on 8 "
+          f"val frames: { {k: v for k, v in ev.items() if not isinstance(v, list)} }; {_held_summary(held)}", flush=True)
+
+    t0 = time.perf_counter()
+    m = torch_train_segment.run(torch_train_segment.parse_args(["--data", poly, "--out", os.path.join(tmp, "seg"),
+                                                                *steps]))
+    train_s = time.perf_counter() - t0
+    det = fused(os.path.join(tmp, "seg"), "segment")
+    frames = [to_rgb(read_image(ip)) for ip, _ in find_pairs(os.path.join(poly, "val"))[:8]]
+    with HeldKernels() as held:
+        masks = [det(f)["masks"] for f in frames]
+    _require(all(mk.ndim == 3 and mk.shape[1:] == (160, 160) and np.isfinite(mk).all() for mk in masks),
+             "segment: masks of the fused detector")
+    print(f"[12] torch_train_segment.run (v8, 640 px, batch 8, bfloat16): losses {losses(m['history'], 'segment')}, "
+          f"{train_s:.1f} s with its evaluation (unfolded float32): mask IoU mean {m['mask_iou_mean']}, n_val "
+          f"{m['n_val']}; the fused bfloat16 detector on 8 val frames: {sum(len(mk) for mk in masks)} masks of 160 x "
+          f"160; {_held_summary(held)}", flush=True)
+
+    t0 = time.perf_counter()
+    with HeldKernels() as held:  # its evaluation builds the pose `Detector` (the kernels by default)
+        m = torch_train_pose.run(torch_train_pose.parse_args(
+            ["--images", os.path.join(root, "train", "images"), "--labels", os.path.join(root, "train", "labels_pose"),
+             "--out", os.path.join(tmp, "pose"), *steps]))
+    print(f"[12] torch_train_pose.run (v8, 640 px, batch 16, float32, 80/20 split): losses "
+          f"{losses(m['history'], 'pose')}, {time.perf_counter() - t0:.1f} s with its evaluation through the fused "
+          f"bfloat16 detector: { {k: v for k, v in m.items() if k != 'history'} }; {_held_summary(held)}", flush=True)
+
+
 def train_path() -> dict:
     """Phase 12: training and evaluation of the pallet detector on the card.
     A seeded synthetic dataset (`pallet_dataset`: 48 + 16 PNG frames of 480
@@ -2958,7 +3203,8 @@ def train_path() -> dict:
     detector (K5-K8 launches a forward, each held against its plain
     version, fused against unfused, `evaluate_detector` on ``val/``); v12
     detect and v11 obb (5 steps) and v8 segment and pose (3 steps) at 640 px,
-    batch 16, bfloat16; ``cli train`` and ``cli eval`` in subprocesses.
+    batch 16, bfloat16; the task scripts (`task_scripts`); ``cli train`` and
+    ``cli eval`` in subprocesses.
     Returns the launch counts of the run (counters zeroed at its start)."""
     import os
     import shutil
@@ -3063,7 +3309,7 @@ def train_path() -> dict:
           f"P {ev['precision']:.4f}, R {ev['recall']:.4f} (reported, not gated: {TRAIN_STEPS} steps from scratch)",
           flush=True)
 
-    # 5. the reference's other families and tasks at full width
+    # 5. the reference's other families at full width, with device augmentation (the task scripts follow)
     for family, task, labels, steps in (("v12", "detect", "labels", 5), ("v11", "obb", "labels_poly", 5),
                                         ("v8", "segment", "labels_poly", 3), ("v8", "pose", "labels_pose", 3)):
         pairs = find_pairs(f"{root}/train/images", label_root=f"{root}/train/{labels}")
@@ -3085,7 +3331,10 @@ def train_path() -> dict:
               f"{[round(h['loss'], 3) for h in hist]}, last terms { {k: round(v, 4) for k, v in hist[-1].items()} }; "
               f"step wall {ms[-1]:.1f} ms (first {ms[0]:.0f} ms)", flush=True)
 
-    # 6. the command line in subprocesses
+    # 6. the task scripts, each evaluated through the hand-written kernels
+    task_scripts(root, tmp)
+
+    # 7. the command line in subprocesses
     cli_ckpt = os.path.join(tmp, "cli_ckpt")
     t0 = time.perf_counter()
     out, _ = _cli(["train", os.path.join(root, "train"), "--steps", "4", "--output", cli_ckpt], "cli train")
@@ -3348,12 +3597,12 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", choices=("all", "slam", "detector", "tick", "serve", "train", "label"),
+    parser.add_argument("--phases", choices=("all", "slam", "detector", "tick", "serve", "train", "label", "shared"),
                         default="all",
                         help="run every phase (the default: the only run that ends in the result line), or only "
                              "the SLAM and fleet phases 3-6, only the detector phases 7-9, only the tick (10), "
-                             "only the entry points (11: server, CLI, .pt import), only training (12) or only "
-                             "JPEG decoding and the labeling path (13)")
+                             "only the entry points (11: server, CLI, .pt import), only training (12), only "
+                             "JPEG decoding and the labeling path (13) or only the shared-map fleet (14)")
     phases = parser.parse_args(argv).phases
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3409,13 +3658,15 @@ def main(argv=None) -> int:
         paths.append(label_path())
     if phases in ("all", "slam"):
         paths += [replay(cfg)[0], fleet(port.FLEET_CONFIG), presets(port.OFFLINE_CONFIG, port.REALTIME_CONFIG)]
+    if phases in ("all", "shared"):
+        paths.append(shared_path(port.FLEET_CONFIG))
 
     rows = []
     order = ("icp_fused", "raster_update", "nn_argmin", "raster_update_grid", *DETECTOR_KERNELS)
     _require(phases != "all" or set(kernels) == set(order), f"kernels checked: {sorted(kernels)}")
     for name in (n for n in order if n in kernels):
         row = kernels[name]
-        row["launches"] = sum(p[name] for p in paths)  # over the slice, fleet, preset, detector, tick, serve, train and label paths
+        row["launches"] = sum(p[name] for p in paths)  # over the slice, fleet, preset, detector, tick, serve, train, label and shared paths
         _require(row["launches"] > 0, f"no path launched {name}")
         rows.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches", "max_abs_err",
                                          "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})

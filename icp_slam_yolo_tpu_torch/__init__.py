@@ -3,7 +3,8 @@
 The PyTorch port of ``icp_slam_yolo_tpu`` (which stays the JAX reference).
 It holds the whole per-scan SLAM step (`slam/pipeline`: offline and realtime
 semantics, the GICP rescue, the outlier filter, the reseed), written over a
-robot axis, and the fleet path above it (`parallel/fleet`), with four
+robot axis, and the fleet paths above it (`parallel/fleet`: a map a robot;
+`parallel/shared`: R robots building one map), with four
 hand-written CUDA kernels for Hopper (``csrc/*.cu``): the fused ICP loop, the
 two occupancy raster updates and the nearest-neighbour argmin, each taking
 all robots in one launch.  It also holds the pallet detector
@@ -16,14 +17,17 @@ pose geometry (`perception`) and the landmark map (`fusion`) close the
 fused SLAM + detect loop: a scan step, a stereo pair's detect, and the
 detection projected at the new pose (`fusion.fuse_stereo_pair`).  The
 entry points users run sit on top: the command line (`cli`: replay, serve,
-detect, register, train, eval, label-check, labeler, split), the
-control-panel server (`serve`) with its camera (`acquisition`), the map
+detect, register, train, eval, label-check, labeler, split, comm-hub,
+comm-send), the control-panel server (`serve`), the sensors
+(`acquisition`: the LiDAR scanner and its recorder, the cameras), the robot
+link and the batched scan loader (`native`: ctypes over ``g++``-built
+C++), the profiling scopes (`utils.profiling`), the map
 and image files (`io.maps`, `io.render`, `utils.images`: PNG and JPEG in
 and out without an imaging package, JPEG decoded to PIL's pixels), the
 Ultralytics ``.pt`` import (`io.torch_import`) and the dataset-labeling
 toolchain (`data`, `serve.labeler_app`).
 
-Entry points (`Slam`, `run_sequence`, `fleet_run_sequence`, `register`,
+Entry points (`Slam`, `run_sequence`, `fleet_run_sequence`, `shared_fleet_run`, `register`,
 `gicp`, `Detector`, `detector_from_checkpoint`) take ``device=None``, which means the card; without one they raise
 unless the caller passes ``device="cpu"``.
 """
@@ -57,6 +61,7 @@ from icp_slam_yolo_tpu_torch.parallel.fleet import (  # noqa: E402
     fleet_run_sharded,
     make_fleet_step,
 )
+from icp_slam_yolo_tpu_torch.parallel.shared import SharedOutputs, shared_fleet_run  # noqa: E402
 from icp_slam_yolo_tpu_torch.slam.api import Slam  # noqa: E402
 from icp_slam_yolo_tpu_torch.slam.pipeline import (  # noqa: E402
     SlamState,
@@ -73,7 +78,7 @@ __all__ = [
     "GateConfig", "IcpConfig", "MapConfig", "OccupancyConfig", "SlamConfig",
     "Detector", "detector_from_checkpoint", "Landmark", "LandmarkMap", "fuse_stereo_pair", "pallet_alignment",
     "project_detection",
-    "Slam", "SlamState", "StepOutput", "fleet_init", "fleet_run_sequence", "fleet_run_sharded",
+    "SharedOutputs", "Slam", "SlamState", "StepOutput", "fleet_init", "fleet_run_sequence", "fleet_run_sharded",
     "gicp", "icp", "icp_masked", "init_state", "make_batched_step", "make_fleet_step",
     "make_step", "register", "run_sequence", "update_map",
 ]

@@ -6,14 +6,16 @@ The reference opens two cameras and saves paired frames ``anh_1_N`` /
 (`ReplayCamera` serves recorded JPEG, PNG or ``.npy`` frames through
 `utils.images.read_image`), and the reference's camera-worker behaviour
 (event-gated lazy open, frame-pair grab, release when the trigger clears)
-as `TriggeredCameraWorker`.  The live-camera backend needs OpenCV, which the
-port does not use; it is not ported.
+as `TriggeredCameraWorker`.  `OpenCVCamera` is the live camera: it imports
+OpenCV (``cv2``) only when it opens, retries the open, and turns OpenCV's
+BGR frames into RGB; nothing else here needs OpenCV.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 
 import numpy as np
 
@@ -60,6 +62,42 @@ class ReplayCamera(CameraBackend):
         frame = to_rgb(np.asarray(read_image(self.paths[self.idx % len(self.paths)]), np.uint8))
         self.idx += 1
         return frame
+
+
+class OpenCVCamera(CameraBackend):
+    """A live camera through ``cv2.VideoCapture`` (hardware), opened with up
+    to ``retries`` attempts half a second apart, as the reference retries."""
+
+    def __init__(self, device: int, retries: int = 3):
+        self.device = device
+        self.retries = retries
+        self._cap = None
+
+    def open(self) -> None:
+        import cv2  # type: ignore
+
+        for _ in range(self.retries):
+            cap = cv2.VideoCapture(self.device)
+            if cap.isOpened():
+                self._cap = cap
+                return
+            time.sleep(0.5)
+        raise RuntimeError(f"camera {self.device} failed to open")
+
+    @property
+    def is_open(self) -> bool:
+        return self._cap is not None
+
+    def read(self) -> np.ndarray | None:
+        if self._cap is None:
+            return None
+        ok, frame = self._cap.read()
+        return frame[..., ::-1] if ok else None  # BGR -> RGB
+
+    def release(self) -> None:
+        if self._cap is not None:
+            self._cap.release()
+            self._cap = None
 
 
 class StereoCapture:

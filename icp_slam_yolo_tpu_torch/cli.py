@@ -14,6 +14,9 @@
                unless --fix)
   labeler      the web labeler (polygons, paintbrush, detector assist)
   split        shuffled train/val copy of an images + labels pool
+  comm-hub     the robot-side comm hub (the native link's server): prints
+               inbound lines, echoes them with --echo
+  comm-send    the station client: a handshake and/or one line, with the reply
 
 Every subcommand that runs a model runs on the CUDA card unless ``--device
 cpu`` is given (the kernels' plain PyTorch versions).  Frames and maps are
@@ -244,6 +247,39 @@ def cmd_register(args):
         print(f"overlay saved to {args.output}")
 
 
+def cmd_comm_hub(args):
+    """Run the robot-side comm hub (the ESP_AP role): print inbound command
+    lines, and with ``--echo`` send each back (the handshake's partner)."""
+    from icp_slam_yolo_tpu_torch.native.robotlink import RobotLinkServer
+
+    with RobotLinkServer(args.port) as hub:
+        print(f"comm hub on 127.0.0.1:{args.port} (max 2 clients); echoing handshakes", flush=True)
+        try:
+            while True:
+                line = hub.read_command()
+                if line is not None:
+                    print(f"<- {line}", flush=True)
+                    if args.echo:
+                        hub.broadcast(line)
+                time.sleep(0.01)
+        except KeyboardInterrupt:
+            pass
+
+
+def cmd_comm_send(args):
+    """Station role: connect, handshake, send one line, print the reply."""
+    from icp_slam_yolo_tpu_torch.native.robotlink import RobotLinkClient
+
+    with RobotLinkClient(args.host, args.port) as client:
+        if args.handshake:
+            retries = client.handshake(args.handshake)
+            print(f"handshake '{args.handshake}' ok ({retries} retries)", flush=True)
+        if args.message:
+            client.send(args.message)
+            reply = client.read_line(args.timeout_ms)
+            print(f"-> {args.message}\n<- {reply}", flush=True)
+
+
 def cmd_label_check(args):
     import sys
 
@@ -368,6 +404,19 @@ def main(argv=None):
     rg.add_argument("--output", default=None, help="overlay PNG path")
     device_arg(rg)
     rg.set_defaults(fn=cmd_register)
+
+    ch = sub.add_parser("comm-hub", help="run the robot comm hub (ESP_AP role)")
+    ch.add_argument("--port", type=int, default=8900)
+    ch.add_argument("--echo", action="store_true", help="echo lines back (handshake partner)")
+    ch.set_defaults(fn=cmd_comm_hub)
+
+    cs = sub.add_parser("comm-send", help="station client: handshake/send a line")
+    cs.add_argument("--host", default="127.0.0.1")
+    cs.add_argument("--port", type=int, default=8900)
+    cs.add_argument("--handshake", default=None)
+    cs.add_argument("--message", default=None)
+    cs.add_argument("--timeout-ms", type=int, default=1000)
+    cs.set_defaults(fn=cmd_comm_send)
 
     lc = sub.add_parser("label-check", help="validate YOLO label files")
     lc.add_argument("directory")

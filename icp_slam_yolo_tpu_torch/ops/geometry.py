@@ -87,6 +87,12 @@ def mat44_to_se2(m: torch.Tensor) -> torch.Tensor:
     return torch.stack([m[0, 3], m[1, 3], torch.atan2(m[1, 0], m[0, 0])]).to(torch.float32)
 
 
+def transform_points(points: torch.Tensor, rotation: torch.Tensor, translation: torch.Tensor) -> torch.Tensor:
+    """``points @ R.T + t`` for ``(N, D)`` points, a ``(D, D)`` rotation and
+    a ``(D,)`` translation (any dimension)."""
+    return points @ rotation.T + translation
+
+
 def masked_mean(xy: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Mean over the valid points of ``(..., N, 2)``; zero when none is valid."""
     w = valid.to(xy.dtype)

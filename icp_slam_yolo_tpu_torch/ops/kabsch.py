@@ -1,7 +1,10 @@
-"""Weighted 2-D rigid-transform solve (closed-form Kabsch).
+"""Weighted rigid-transform solves (Kabsch).
 
-Counterpart of ``best_fit_se2`` in the JAX package's ``ops/kabsch.py``: the
-per-iteration solve of the general ICP loop (`core/registration`).
+Counterpart of the JAX package's ``ops/kabsch.py``: ``best_fit_se2``, the
+closed-form 2-D solve of each iteration of the general ICP loop
+(`core/registration`), and ``best_fit_transform_svd``, the reference's
+centroid + SVD solve with its reflection fix in any dimension (API parity
+and an oracle; no step of the pipeline calls it).
 """
 
 from __future__ import annotations
@@ -32,3 +35,26 @@ def best_fit_se2(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor):
     r_ca = torch.stack([c * ca[..., 0] - s * ca[..., 1], s * ca[..., 0] + c * ca[..., 1]], dim=-1)
     t = torch.where(degenerate[..., None], torch.zeros_like(r_ca), cb - r_ca)
     return theta, t
+
+
+def best_fit_transform_svd(a: torch.Tensor, b: torch.Tensor, weights: torch.Tensor | None = None):
+    """Weighted Kabsch in any dimension: ``(N, D)`` points ``a`` onto ``b``.
+
+    ``H = (w (a - ca))^T (b - cb)``, ``R = V U^T``; when ``det(R) < 0`` the
+    last row of ``Vt`` is negated (the reflection fix).  Returns ``(R (D,
+    D), t (D,))`` with ``b ~= a @ R.T + t``, float32.
+    """
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    n, d = a.shape
+    w = torch.ones(n, dtype=torch.float32, device=a.device) if weights is None else weights.to(torch.float32)
+    wsum = torch.clamp(w.sum(), min=1e-9)
+    ca = (a * w[:, None]).sum(0) / wsum
+    cb = (b * w[:, None]).sum(0) / wsum
+    h = ((a - ca) * w[:, None]).T @ (b - cb)
+    u, _, vt = torch.linalg.svd(h)
+    r = vt.T @ u.T
+    fix = torch.ones(d, dtype=torch.float32, device=a.device)
+    fix[-1] = torch.sign(torch.linalg.det(r))
+    r = (vt.T * fix[None, :]) @ u.T
+    return r, cb - r @ ca

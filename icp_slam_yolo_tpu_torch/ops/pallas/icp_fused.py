@@ -175,10 +175,29 @@ def icp_fused_plain(src_xy, src_valid, tgt_xy, tgt_valid, params, *, iters: int,
     """Plain version of the kernel's loop on recentred problems: ``(B, S, 2),
     (B, S), (B, T, 2), (B, T), (B, 4) -> (B, 8)``.
 
-    Runs all ``iters`` iterations and freezes each registration's pose once
-    it has converged (the kernel stops there instead; the results are the
-    same), so no step needs a host read.
+    Freezes each registration's pose once it has converged (the kernel
+    stops there instead; the results are the same).  On the card it runs all
+    ``iters`` iterations over every target slot, so no step needs a host
+    read.  On the CPU, where a read costs nothing, it first packs the valid
+    targets to the front in their order (the nearest valid target, first on
+    ties, is the same point) and stops once every registration has
+    converged; both give the same bits (`tests/test_torch_ops.py`).
     """
+    on_cpu = tgt_valid.device.type == "cpu"
+    if on_cpu:
+        n_live = max(int(tgt_valid.sum(-1).max()), 1)
+        order = torch.sort((~tgt_valid).to(torch.int8), dim=-1, stable=True).indices[:, :n_live]
+        tgt_xy = torch.gather(tgt_xy, 1, order[..., None].expand(-1, -1, 2))
+        tgt_valid = torch.gather(tgt_valid, 1, order)
+    return _plain_loop(src_xy, src_valid, tgt_xy, tgt_valid, params, iters=iters, thr2=thr2,
+                       tolerance=tolerance, anderson=anderson, stop_when_done=on_cpu)
+
+
+def _plain_loop(src_xy, src_valid, tgt_xy, tgt_valid, params, *, iters: int, thr2: float,
+                tolerance: float, anderson: bool, stop_when_done: bool) -> torch.Tensor:
+    """`icp_fused_plain`'s loop on the targets as given; ``stop_when_done``
+    ends it (one host read an iteration) once every registration has
+    converged."""
     sx, sy = src_xy[..., 0], src_xy[..., 1]
     tx, ty = tgt_xy[..., 0], tgt_xy[..., 1]
 
@@ -253,6 +272,8 @@ def icp_fused_plain(src_xy, src_valid, tgt_xy, tgt_valid, params, *, iters: int,
         pty = torch.where(done, pty, nty)
         n_iters = n_iters + torch.where(done, zero, zero + 1.0)
         prev_err, done = err, new_done
+        if stop_when_done and bool(done.all()):
+            break
 
     _, _, w, d2, _, _ = correspond(cth, sth, ptx, pty)
     n_in = wsum(w, torch.ones_like(d2))

@@ -1,1 +1,2 @@
-"""Fleet-batched SLAM: many robots in one step."""
+"""Fleets on one card: many robots in one step, each with its own map (`fleet`) or all
+building one map (`shared`)."""

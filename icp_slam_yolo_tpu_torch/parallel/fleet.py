@@ -72,9 +72,9 @@ def fleet_run_sequence(scans, cfg: SlamConfig = SlamConfig(), device=None):
 
 def fleet_run_sharded(scans, cfg: SlamConfig, mesh=None):
     """Not ported: sharding the robot axis over several cards needs
-    ``torch.distributed`` (ROADMAP.md 'Open items' 1, item 7:
-    ``parallel/shared.py``, ``mesh.py``, ``distributed.py``)."""
+    ``torch.distributed`` (ROADMAP.md 'Open items' 1, item 7b:
+    ``mesh.py``, ``distributed.py``)."""
     raise NotImplementedError(
-        "fleet_run_sharded waits for ROADMAP.md 'Open items' 1, item 7: the "
+        "fleet_run_sharded waits for ROADMAP.md 'Open items' 1, item 7b: the "
         "multi-card mesh on torch.distributed; use fleet_run_sequence on one card"
     )

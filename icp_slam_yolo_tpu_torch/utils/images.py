@@ -6,16 +6,18 @@ The machine the port serves from may have no imaging package, so the server's
 ``image/png`` and ``image/jpeg`` responses, the saved occupancy maps, the
 replayed camera frames and the labeler's images all go through this module.
 
-* `encode_png` / `decode_png`: 8-bit gray, RGB and RGBA, no interlace; the
-  decoder undoes all five row filters (what other writers' adaptive
-  filtering produces).
+* `encode_png` / `decode_png`: the encoder writes 8-bit gray, RGB and RGBA
+  without interlace; the decoder reads every colour type at every depth up
+  to 8 bits (palettes with their ``tRNS`` alphas, 1-, 2- and 4-bit gray),
+  Adam7 interlacing and all five row filters.
 * `encode_jpeg`: baseline sequential JPEG (ITU T.81), 4:2:0 or 4:4:4, the
   Annex K quantisation tables scaled by ``quality`` as libjpeg scales them
   and the Annex K Huffman tables, with libjpeg's integer arithmetic
   (fixed-point colour, biased 2 x 2 downsampling, the ISLOW DCT, rounded
   division): PIL decodes the pixels of its own save at that quality.
-* `decode_jpeg`: baseline, extended and progressive Huffman JPEG, decoded
-  bit for bit as libjpeg-turbo decodes it for PIL; `image_size` reads a
+* `decode_jpeg`: baseline, extended and progressive Huffman JPEG, gray,
+  YCbCr, RGB and Adobe CMYK, decoded bit for bit as libjpeg-turbo decodes
+  it for PIL (CMYK then as PIL's ``convert("RGB")``); `image_size` reads a
   PNG's or JPEG's size from its header.
 * `resize_bilinear` / `resize_bicubic`: ``Image.resize`` of uint8 images.
 * `read_image` / `write_image`: a file by its extension (PNG, JPEG,
@@ -37,7 +39,8 @@ import numpy as np
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_COLOR_TYPES = {1: 0, 3: 2, 4: 6}  # channels -> colour type (gray, RGB, RGBA)
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
+_PNG_DEPTHS = {0: (1, 2, 4, 8), 2: (8,), 3: (1, 2, 4, 8), 4: (8,), 6: (8,)}  # the depths read
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -86,48 +89,21 @@ def _average_row(raw: np.ndarray, up: np.ndarray, bpp: int) -> np.ndarray:
     return np.array(out, np.uint8)
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> uint8 ``(H, W)`` gray, ``(H, W, 2)`` gray + alpha,
-    ``(H, W, 3)`` RGB or ``(H, W, 4)`` RGBA.  Takes 8-bit samples without
-    interlace and any of the five row filters; raises ``ValueError`` for
-    anything else (palette, 16-bit, interlaced)."""
-    if data[:8] != _PNG_SIGNATURE:
-        raise ValueError("not a PNG file")
-    pos, idat, header = 8, [], None
-    while pos + 8 <= len(data):
-        (n,) = struct.unpack(">I", data[pos:pos + 4])
-        kind = data[pos + 4:pos + 8]
-        body = data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    if header is None:
-        raise ValueError("PNG without an IHDR chunk")
-    w, h, depth, color, _, _, interlace = header
-    if depth != 8 or color not in _PNG_CHANNELS:
-        raise ValueError(f"PNG with bit depth {depth} and colour type {color}: only 8-bit gray, gray + alpha, "
-                         "RGB and RGBA are read")
-    if interlace:
-        raise ValueError("interlaced PNG is not read")
-    bpp = _PNG_CHANNELS[color]
-    stride = w * bpp
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (stride + 1):
-        raise ValueError(f"PNG data holds {raw.size} bytes, the header asks for {h * (stride + 1)}")
-    raw = raw.reshape(h, stride + 1)
+def _unfilter(raw: np.ndarray, stride: int, bpp: int) -> np.ndarray:
+    """Undo the row filters of ``raw (H, 1 + stride)`` (a filter byte ahead
+    of each row) -> ``(H, stride)`` bytes; ``bpp`` is the filters' byte
+    distance to the left neighbour (at least 1)."""
+    h = raw.shape[0]
     out = np.zeros((h, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
     for y in range(h):
         kind, row = raw[y, 0], raw[y, 1:]
         if kind == 0:
             cur = row
-        elif kind == 1:  # Sub: a running sum of each channel along the row
-            lanes = row.astype(np.int64).reshape(w, bpp)
-            cur = (np.cumsum(lanes, axis=0) & 0xFF).astype(np.uint8).reshape(stride)
+        elif kind == 1:  # Sub: a running sum of each byte lane along the row
+            lanes = np.zeros(-(-stride // bpp) * bpp, np.int64)
+            lanes[:stride] = row
+            cur = (np.cumsum(lanes.reshape(-1, bpp), axis=0) & 0xFF).astype(np.uint8).reshape(-1)[:stride]
         elif kind == 2:  # Up
             cur = row + prev
         elif kind == 3:
@@ -138,7 +114,88 @@ def decode_png(data: bytes) -> np.ndarray:
             raise ValueError(f"PNG row {y} has filter type {kind}")
         out[y] = cur
         prev = out[y]
-    return out.reshape(h, w) if bpp == 1 else out.reshape(h, w, bpp)
+    return out
+
+
+def _samples(rows: np.ndarray, n: int, depth: int) -> np.ndarray:
+    """The first ``n`` samples of each row of ``depth``-bit samples packed
+    most significant bit first -> ``(H, n)`` uint8 values."""
+    if depth == 8:
+        return rows[:, :n]
+    bits = np.unpackbits(rows, axis=1).reshape(rows.shape[0], -1, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(-1, dtype=np.uint8)[:, :n]
+
+
+# Adam7's passes: (x0, y0, dx, dy) of the pixels each one carries
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> the pixels PIL's ``convert("RGB")`` and ``convert("L")``
+    start from, uint8: ``(H, W)`` gray (1-, 2- and 4-bit gray scaled to
+    0-255 as PIL scales it), ``(H, W, 2)`` gray + alpha, ``(H, W, 3)`` RGB
+    or ``(H, W, 4)`` RGBA; a palette image (1, 2, 4 or 8 bits) comes back
+    as its colours, RGB, or RGBA with the ``tRNS`` alphas (an index past
+    the palette is black, as PIL reads it).  Takes any of the five row
+    filters and Adam7 interlacing; refuses 16-bit samples by name (PIL's
+    ``convert`` clamps them to 255)."""
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError("not a PNG file")
+    pos, idat, header, palette, trns = 8, [], None, None, None
+    while pos + 8 <= len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8)[: len(body) // 3 * 3].reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = np.frombuffer(body, np.uint8)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError("PNG without an IHDR chunk")
+    w, h, depth, color, _, _, interlace = header
+    if depth == 16:
+        raise ValueError(f"16-bit PNG (colour type {color}) is not read: PIL's convert clamps its samples to 255")
+    if color not in _PNG_CHANNELS or depth not in _PNG_DEPTHS[color]:
+        raise ValueError(f"PNG with bit depth {depth} and colour type {color} is not a valid PNG")
+    if color == 3 and palette is None:
+        raise ValueError("palette PNG without a PLTE chunk")
+    if interlace > 1:
+        raise ValueError(f"PNG interlace method {interlace} is not a valid PNG")
+    chans = _PNG_CHANNELS[color]
+    bpp = max(1, chans * depth // 8)
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    sizes = [(-(-(w - x0) // dx), -(-(h - y0) // dy)) for x0, y0, dx, dy in passes]
+    need = sum(ph * (1 + -(-pw * chans * depth // 8)) for pw, ph in sizes if pw and ph)
+    if raw.size != need:
+        raise ValueError(f"PNG data holds {raw.size} bytes, the header asks for {need}")
+    out = np.zeros((h, w * chans), np.uint8)
+    at = 0
+    for (x0, y0, dx, dy), (pw, ph) in zip(passes, sizes):
+        if not pw or not ph:  # a pass with no pixels has no rows, not even filter bytes
+            continue
+        stride = -(-pw * chans * depth // 8)
+        rows = _unfilter(raw[at:at + ph * (stride + 1)].reshape(ph, stride + 1), stride, bpp)
+        at += ph * (stride + 1)
+        out.reshape(h, w, chans)[y0::dy, x0::dx] = _samples(rows, pw * chans, depth).reshape(ph, pw, chans)
+    if color == 3:
+        colours = np.zeros((256, 4), np.uint8)
+        colours[:, 3] = 255
+        colours[:len(palette), :3] = palette[:256]
+        if trns is not None:
+            colours[:len(trns[:256]), 3] = trns[:256]
+        return colours[out][..., :3 if trns is None else 4]
+    if depth < 8:  # gray at 1, 2 or 4 bits
+        out = out * np.uint8(255 // ((1 << depth) - 1))
+    return out.reshape(h, w) if chans == 1 else out.reshape(h, w, chans)
 
 
 # --------------------------------------------------------------------- JPEG
@@ -649,10 +706,10 @@ class _JpegDecoder:
         precision, h, w, nc = body[0], (body[1] << 8) | body[2], (body[3] << 8) | body[4], body[5]
         if precision != 8:
             raise ValueError(f"{precision}-bit JPEG is not decoded (8-bit samples only)")
-        if nc == 4:
-            raise ValueError("four-component (CMYK/YCCK) JPEG is not decoded")
-        if nc not in (1, 3):
-            raise ValueError(f"JPEG with {nc} components is not decoded (1 or 3)")
+        if nc == 4 and self.adobe not in (None, 0):
+            raise ValueError(_YCCK_REFUSAL)
+        if nc not in (1, 3, 4):
+            raise ValueError(f"JPEG with {nc} components is not decoded (1, 3 or 4)")
         if h == 0:
             raise ValueError("JPEG with a DNL-defined height is not decoded")
         self.height, self.width = h, w
@@ -978,6 +1035,12 @@ class _JpegDecoder:
             planes.append(_upsample(plane, self.hmax // c.h, self.vmax // c.v)[:self.height, :self.width])
         if len(planes) == 1:
             return planes[0]
+        if len(planes) == 4:
+            # libjpeg: four components are CMYK unless an Adobe marker says
+            # YCCK (transform 1 or 2); PIL reads them inverted (Adobe's inks)
+            if self.adobe not in (None, 0):
+                raise ValueError(_YCCK_REFUSAL)
+            return _cmyk_to_rgb(*planes)
         # libjpeg's colour space rule: JFIF means YCbCr, else an Adobe marker's
         # transform (0 RGB, else YCbCr), else component ids R, G, B mean RGB
         if self.jfif:
@@ -1043,15 +1106,30 @@ def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
 
 
+_YCCK_REFUSAL = ("four-component YCCK JPEG (Adobe transform 1 or 2) is not decoded: only Adobe CMYK "
+                 "(transform 0 or no Adobe marker) is")
+
+
+def _cmyk_to_rgb(c: np.ndarray, m: np.ndarray, y: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """PIL's ``convert("RGB")`` of the stored (inverted) inks: with ``nk =
+    255 - K = k``, each channel is ``nk - nk * (255 - ink) / 255`` in
+    Pillow's rounded ``MULDIV255``."""
+    nk = k.astype(np.int32)[..., None]
+    ink = 255 - np.stack([c, m, y], axis=-1).astype(np.int32)
+    t = ink * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
+
 def decode_jpeg(data: bytes) -> np.ndarray:
     """JPEG bytes -> the pixels PIL reads from them: ``(H, W)`` uint8 for a
     one-component file, ``(H, W, 3)`` RGB for three (YCbCr converted; an
     Adobe transform-0 or an ``R``,``G``,``B`` file is RGB as stored, as
-    libjpeg decides it).  Takes baseline and extended sequential and
-    progressive Huffman JPEG with restart intervals and any sampling factors
-    1-4; raises ``ValueError`` naming what it refuses: arithmetic coding,
-    12-bit samples, lossless and hierarchical files, four components (CMYK,
-    YCCK), DNL, and a truncated file."""
+    libjpeg decides it) and for an Adobe CMYK file (four components, PIL's
+    ``convert("RGB")`` of its inks).  Takes baseline and extended sequential
+    and progressive Huffman JPEG with restart intervals and any sampling
+    factors 1-4; raises ``ValueError`` naming what it refuses: arithmetic
+    coding, 12-bit samples, lossless and hierarchical files, YCCK, DNL, a
+    progressive file left unrefined, and a truncated file."""
     return _JpegDecoder(bytes(data)).run()
 
 

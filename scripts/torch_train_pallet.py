@@ -114,9 +114,19 @@ def run(args: argparse.Namespace, step_hook=None) -> dict:
     print("VAL METRICS: " + json.dumps(m), flush=True)
     with open(args.out + ".metrics.json", "w") as f:
         json.dump(m, f, indent=2)
-    keys = list(history[0]) if history else []
-    table = torch.stack([torch.stack([h[k].float() for k in keys]) for h in history]).cpu().tolist() if history else []
-    return dict(m, history=[dict(zip(keys, row)) for row in table])
+    return dict(m, history=history_rows(history))
+
+
+def history_rows(history: list) -> list:
+    """Each step's metrics (dicts of device tensors) as plain floats, read
+    from the device in one transfer."""
+    import torch
+
+    if not history:
+        return []
+    keys = list(history[0])
+    table = torch.stack([torch.stack([h[k].float() for k in keys]) for h in history]).cpu().tolist()
+    return [dict(zip(keys, row)) for row in table]
 
 
 def main(argv=None) -> None:

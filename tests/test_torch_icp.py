@@ -24,7 +24,7 @@ from icp_slam_yolo_tpu.ops import voxel as jvoxel
 from icp_slam_yolo_tpu.ops.pallas.icp_fused import icp_fused_pallas
 from icp_slam_yolo_tpu_torch.config import IcpConfig
 from icp_slam_yolo_tpu_torch.core import registration as treg
-from icp_slam_yolo_tpu_torch.ops.pallas.icp_fused import icp_fused
+from icp_slam_yolo_tpu_torch.ops.pallas.icp_fused import _plain_loop, _prepare, icp_fused, icp_fused_plain
 
 torch.set_num_threads(2)
 
@@ -101,6 +101,35 @@ def test_no_inliers():
     j, t = _both(sxy, sv, txy, tv, np.zeros(3, np.float32), iters=5, threshold_mm=10.0, tolerance=1e-5)
     _close(j, t, iters_slack=0)
     assert not np.isfinite(t[1]) and int(t[2]) == 0
+
+
+@pytest.mark.parametrize("anderson", [False, True])
+def test_cpu_packed_early_exit_equals_full_sweep(anderson):
+    """On the CPU the plain version packs the valid targets first and stops
+    once every registration has converged; the card's plain version sweeps
+    every slot for all iterations.  Both give the same bits, here on a
+    sparse map (the room's targets scattered over 4096 slots, each problem
+    with its own holes) with three registrations that converge at different
+    iterations."""
+    src, sv, tgt, tv = _room_pair(t_slots=1024)
+    rng = np.random.default_rng(4)
+    b, slots = 3, 4096
+    n = int(tv.sum())
+    txy, tval = np.zeros((b, slots, 2), np.float32), np.zeros((b, slots), bool)
+    for r in range(b):
+        at = np.sort(rng.choice(slots, n, replace=False))
+        txy[r, at], tval[r, at] = tgt[:n], True
+        txy[r, ~tval[r]] = rng.normal(0.0, 3000.0, (slots - n, 2))  # junk under the mask
+    init = np.array([[30.0, -20.0, 0.01], [-80.0, 55.0, -0.03], [5.0, 5.0, 0.0]], np.float32)
+    s_t, sv_t = (torch.from_numpy(np.repeat(x[None], b, 0)) for x in (src, sv))
+    t_t, tv_t = torch.from_numpy(txy), torch.from_numpy(tval)
+    params, tgt_c, _ = _prepare(t_t, tv_t, torch.from_numpy(init))
+    kw = dict(iters=50, thr2=200.0 ** 2, tolerance=1e-5, anderson=anderson)
+    packed = icp_fused_plain(s_t, sv_t, tgt_c, tv_t, params, **kw)
+    full = _plain_loop(s_t, sv_t, tgt_c, tv_t, params, stop_when_done=False, **kw)
+    iters = packed[:, 6]
+    assert len(set(iters.tolist())) > 1 and float(iters.max()) < 50  # staggered, and the loop stopped early
+    assert torch.equal(packed, full)
 
 
 def test_anderson_matches_pallas_interpret():

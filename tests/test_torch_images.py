@@ -96,11 +96,173 @@ def test_png_refusals():
     with pytest.raises(ValueError, match="not a PNG"):
         images.decode_png(b"GIF89a....")
     buf = io.BytesIO()
-    Image.new("P", (4, 4)).save(buf, format="PNG")
-    with pytest.raises(ValueError, match="colour type 3"):
+    Image.fromarray(np.full((4, 4), 300, np.uint16)).save(buf, format="PNG")  # PIL writes I;16 as 16-bit gray
+    with pytest.raises(ValueError, match="16-bit PNG"):
         images.decode_png(buf.getvalue())
     with pytest.raises(ValueError, match="uint8"):
         images.encode_png(np.zeros((2, 2), np.float32))
+
+
+# ------------------------------------------------ what PIL's convert reads
+#
+# Each file below is read by the port (`read_image` -> `to_rgb`, and the
+# map loader) and by PIL (``convert("RGB")``, ``convert("L")``), and the
+# pixels must be equal.  PIL writes the palette, 1-bit, tRNS and CMYK
+# files; PIL writes no 2- or 4-bit gray and no interlaced PNG, so `_png`
+# below writes those, and PIL's reading of its bytes is the judge.
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    import struct
+    import zlib
+
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def _filtered(rows: np.ndarray, bpp: int) -> bytes:
+    """Rows of packed bytes, filtered with types 0-4 in turn."""
+    out, prev = [], np.zeros(rows.shape[1], np.int64)
+    for y, cur in enumerate(rows.astype(np.int64)):
+        kind = y % 5
+        left = np.concatenate([np.zeros(bpp, np.int64), cur[:-bpp]])[:len(cur)]
+        upleft = np.concatenate([np.zeros(bpp, np.int64), prev[:-bpp]])[:len(cur)]
+        if kind == 0:
+            pred = np.zeros_like(cur)
+        elif kind == 1:
+            pred = left
+        elif kind == 2:
+            pred = prev
+        elif kind == 3:
+            pred = (left + prev) // 2
+        else:
+            p = left + prev - upleft
+            pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - upleft)
+            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, upleft))
+        out.append(bytes([kind]) + ((cur - pred) & 0xFF).astype(np.uint8).tobytes())
+        prev = cur
+    return b"".join(out)
+
+
+def _png(samples: np.ndarray, color: int, depth: int, interlace: bool, palette=None, trns=None) -> bytes:
+    """A PNG of ``samples (H, W, C)`` (values below ``2**depth``), written
+    with Adam7's seven passes when ``interlace``."""
+    import struct
+    import zlib
+
+    h, w, c = samples.shape
+    passes = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2)) \
+        if interlace else ((0, 0, 1, 1),)
+    body = b""
+    for x0, y0, dx, dy in passes:
+        sub = samples[y0::dy, x0::dx]
+        if not sub.size:
+            continue
+        flat = sub.reshape(sub.shape[0], -1)
+        if depth < 8:
+            bits = ((flat[..., None] >> np.arange(depth - 1, -1, -1)) & 1).astype(np.uint8)
+            rows = np.packbits(bits.reshape(flat.shape[0], -1), axis=1)
+        else:
+            rows = flat.astype(np.uint8)
+        body += _filtered(rows, max(1, c * depth // 8))
+    data = b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, int(interlace)))
+    if palette is not None:
+        data += _png_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    if trns is not None:
+        data += _png_chunk(b"tRNS", np.asarray(trns, np.uint8).tobytes())
+    return data + _png_chunk(b"IDAT", zlib.compress(body)) + _png_chunk(b"IEND", b"")
+
+
+def _frame(shape, seed: int) -> np.ndarray:
+    """A seeded RGB frame of any size: gradients and noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:shape[0], 0:shape[1]]
+    base = np.stack([yy * 7 + xx * 3, 200 - yy * 2, xx * 5 + 40], axis=-1)
+    return ((base + rng.integers(0, 40, (*shape, 3))) % 256).astype(np.uint8)
+
+
+def _assert_reads_as_pil(path) -> None:
+    """`read_image` + `to_rgb` give PIL's ``convert("RGB")``; the port's
+    map loader gives the JAX package's (PIL's ``convert("L")``)."""
+    from icp_slam_yolo_tpu_torch.io import maps as pmaps
+
+    path = str(path)
+    with Image.open(path) as im:
+        rgb = np.asarray(im.convert("RGB"))
+    assert np.array_equal(images.to_rgb(images.read_image(path)), rgb)
+    assert np.array_equal(pmaps.load_occupancy_png(path), jmaps.load_occupancy_png(path))
+
+
+@pytest.mark.parametrize("colors", [2, 4, 16, 200])
+@pytest.mark.parametrize("transparency", [None, "index", "table"])
+def test_pil_palette_pngs_read_as_pil(tmp_path, colors, transparency, rng):
+    """PIL writes 1-, 2-, 4- and 8-bit palette PNGs (2, 4, 16 and 200
+    colours), with no ``tRNS``, one transparent index, or an alpha table."""
+    frame = _frame((37, 53), 3)
+    im = Image.fromarray(frame).quantize(colors)
+    kw = {}
+    if transparency == "index":
+        kw["transparency"] = 1
+    elif transparency == "table":
+        kw["transparency"] = bytes(rng.integers(0, 256, colors // 2 + 1, dtype=np.uint8))
+    im.save(tmp_path / "p.png", **kw)
+    data = (tmp_path / "p.png").read_bytes()
+    assert data[24] == {2: 1, 4: 2, 16: 4, 200: 8}[colors] and data[25] == 3  # IHDR: depth, colour type 3
+    assert (b"tRNS" in data) == (transparency is not None)
+    _assert_reads_as_pil(tmp_path / "p.png")
+
+
+def test_short_palette_and_indices_past_it(tmp_path):
+    """An index past a 3-colour palette reads black, as in PIL."""
+    data = _png(np.arange(16, dtype=np.uint8).reshape(2, 8, 1), 3, 4, False,
+                palette=[[10, 20, 30], [200, 100, 50], [7, 8, 9]], trns=[128])
+    (tmp_path / "s.png").write_bytes(data)
+    _assert_reads_as_pil(tmp_path / "s.png")
+
+
+def test_pil_one_bit_png_reads_as_pil(tmp_path, rng):
+    Image.fromarray(rng.random((29, 43)) > 0.5).save(tmp_path / "b.png")
+    assert (tmp_path / "b.png").read_bytes()[24:26] == bytes([1, 0])
+    _assert_reads_as_pil(tmp_path / "b.png")
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+@pytest.mark.parametrize("with_trns", [False, True])
+def test_low_bit_gray_pngs_read_as_pil(tmp_path, depth, with_trns, rng):
+    samples = rng.integers(0, 1 << depth, (17, 31, 1), dtype=np.uint8)
+    (tmp_path / "g.png").write_bytes(_png(samples, 0, depth, False, trns=[0, 1] if with_trns else None))
+    _assert_reads_as_pil(tmp_path / "g.png")
+
+
+_ADAM7_CASES = [(0, 1), (0, 2), (0, 4), (0, 8), (2, 8), (3, 1), (3, 2), (3, 4), (3, 8), (4, 8), (6, 8)]
+
+
+@pytest.mark.parametrize("color,depth", _ADAM7_CASES, ids=[f"type{c}-{d}bit" for c, d in _ADAM7_CASES])
+@pytest.mark.parametrize("shape", [(1, 1), (3, 5), (9, 17), (23, 40)])
+def test_adam7_interlaced_pngs_read_as_pil(tmp_path, color, depth, shape, rng):
+    """Every colour type at every depth the port reads, Adam7-interlaced
+    (sizes that leave some passes empty), each pass's rows filtered with
+    types 0-4 in turn."""
+    chans = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
+    samples = rng.integers(0, 1 << depth, (*shape, chans), dtype=np.uint8)
+    palette = rng.integers(0, 256, (1 << depth, 3), dtype=np.uint8) if color == 3 else None
+    trns = rng.integers(0, 256, 1 << (depth - 1), dtype=np.uint8) if color == 3 else None
+    data = _png(samples, color, depth, True, palette=palette, trns=trns)
+    (tmp_path / "i.png").write_bytes(data)
+    _assert_reads_as_pil(tmp_path / "i.png")
+    flat = images.decode_png(_png(samples, color, depth, False, palette=palette, trns=trns))
+    assert np.array_equal(images.decode_png(data), flat)
+
+
+@pytest.mark.parametrize("quality", [75, 95])
+@pytest.mark.parametrize("shape", [(5, 7), (37, 53), (120, 160)])
+def test_pil_cmyk_jpegs_read_as_pil(tmp_path, quality, shape, rng):
+    """PIL writes CMYK JPEGs with an Adobe marker of transform 0 and the
+    inks inverted; the port gives PIL's ``convert("RGB")`` and ``("L")``."""
+    frame = _frame(shape, 5)
+    ink = np.concatenate([255 - frame, rng.integers(0, 256, (*shape, 1), dtype=np.uint8)], axis=-1)
+    Image.fromarray(ink, "CMYK").save(tmp_path / "c.jpg", quality=quality)
+    with Image.open(tmp_path / "c.jpg") as im:
+        assert im.mode == "CMYK" and im.info.get("adobe_transform") == 0
+    _assert_reads_as_pil(tmp_path / "c.jpg")
 
 
 def _psnr(a, b) -> float:

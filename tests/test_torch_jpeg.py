@@ -116,9 +116,10 @@ def _segment(marker: int, body: bytes) -> bytes:
     return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
 
 
-def _frame_header(marker: int, precision: int = 8, n: int = 3) -> bytes:
+def _frame_header(marker: int, precision: int = 8, n: int = 3, adobe: int | None = None) -> bytes:
     comps = b"".join(bytes([i + 1, 0x11, 0]) for i in range(n))
-    return b"\xff\xd8" + _segment(marker, struct.pack(">BHHB", precision, 16, 16, n) + comps) + b"\xff\xd9"
+    app14 = b"" if adobe is None else _segment(0xEE, b"Adobe" + bytes([0, 100, 0, 0, 0, 0, adobe]))
+    return b"\xff\xd8" + app14 + _segment(marker, struct.pack(">BHHB", precision, 16, 16, n) + comps) + b"\xff\xd9"
 
 
 @pytest.mark.parametrize("data,match", [
@@ -126,8 +127,9 @@ def _frame_header(marker: int, precision: int = 8, n: int = 3) -> bytes:
     (_frame_header(0xC3), "lossless"),
     (_frame_header(0xC5), "hierarchical"),
     (_frame_header(0xC1, precision=12), "12-bit"),
-    (_frame_header(0xC0, n=4), "CMYK"),
-], ids=["sof9", "sof3", "sof5", "12-bit", "cmyk"])
+    (_frame_header(0xC0, n=4, adobe=2), "YCCK"),
+    (_frame_header(0xC0, n=4, adobe=1), "YCCK"),
+], ids=["sof9", "sof3", "sof5", "12-bit", "cmyk", "ycck-transform-1"])
 def test_refused_by_name(data, match):
     with pytest.raises(ValueError, match=match):
         images.decode_jpeg(data)

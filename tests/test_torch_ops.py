@@ -121,6 +121,60 @@ def test_best_fit_se2(seed):
     assert float(zt) == 0.0 and ztr.abs().max() == 0
 
 
+def _rot(theta):
+    c, s = np.cos(theta), np.sin(theta)
+    return np.array([[c, -s], [s, c]])
+
+
+def test_svd_matches_se2_and_jax(rng):
+    """`tests/test_kabsch.py`'s planar case: the SVD solve recovers the
+    transform, as JAX's does (R to 1e-4, t to 0.5 mm)."""
+    src = rng.normal(size=(80, 2)) * 1500
+    theta, t = 1.2, np.array([500.0, 100.0])
+    dst = src @ _rot(theta).T + t
+    a, b = (src * 1e-3).astype(np.float32), (dst * 1e-3).astype(np.float32)
+    r, tt = tkabsch.best_fit_transform_svd(_t(a), _t(b))
+    jr, jtt = jkabsch.best_fit_transform_svd(jnp.asarray(a), jnp.asarray(b))
+    np.testing.assert_allclose(r.numpy(), _rot(theta), atol=1e-4)
+    np.testing.assert_allclose(tt.numpy() * 1e3, t, atol=0.5)
+    np.testing.assert_allclose(r.numpy(), np.asarray(jr), atol=1e-5)
+    np.testing.assert_allclose(tt.numpy(), np.asarray(jtt), atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_svd_reflection_fix_as_jax(seed):
+    """`tests/test_kabsch.py`'s noisy correspondences: a proper rotation
+    (det > 0.99), the JAX solve's R and t."""
+    rng = np.random.default_rng(seed)
+    src = rng.normal(size=(30, 2)).astype(np.float32)
+    dst = rng.normal(size=(30, 2)).astype(np.float32)
+    r, tt = tkabsch.best_fit_transform_svd(_t(src), _t(dst))
+    jr, jtt = jkabsch.best_fit_transform_svd(jnp.asarray(src), jnp.asarray(dst))
+    assert float(torch.linalg.det(r)) > 0.99
+    np.testing.assert_allclose(r.numpy(), np.asarray(jr), atol=1e-4)
+    np.testing.assert_allclose(tt.numpy(), np.asarray(jtt), atol=1e-4)
+
+
+def test_weighted_3d_svd_and_transform_points(rng):
+    """Three dimensions with weights (outliers weighted out), and
+    `transform_points` against JAX's."""
+    q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    q *= np.sign(np.linalg.det(q))
+    t = np.array([0.3, -1.2, 0.7])
+    src = rng.normal(size=(50, 3)).astype(np.float32)
+    dst = (src @ q.T + t).astype(np.float32)
+    dst[40:] += rng.normal(size=(10, 3)).astype(np.float32) * 5
+    w = np.concatenate([np.ones(40), np.zeros(10)]).astype(np.float32)
+    r, tt = tkabsch.best_fit_transform_svd(_t(src), _t(dst), _t(w))
+    jr, jtt = jkabsch.best_fit_transform_svd(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(w))
+    np.testing.assert_allclose(r.numpy(), q, atol=1e-4)
+    np.testing.assert_allclose(r.numpy(), np.asarray(jr), atol=1e-5)
+    np.testing.assert_allclose(tt.numpy(), np.asarray(jtt), atol=1e-5)
+    moved = tgeo.transform_points(_t(src), r, tt).numpy()
+    np.testing.assert_allclose(moved, np.asarray(jgeo.transform_points(jnp.asarray(src), jr, jtt)), atol=1e-4)
+    np.testing.assert_allclose(moved[:40], dst[:40], atol=1e-4)
+
+
 def test_voxel_keys_exact(rng):
     xy = rng.uniform(-200000, 200000, (512, 2)).astype(np.float32)
     valid = rng.random(512) < 0.8

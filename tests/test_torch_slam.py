@@ -196,16 +196,22 @@ def test_device_rule():
 
 def test_package_imports_no_jax():
     """The package and the modules that copy the JAX package's jax-free ones
-    (``data/``) or stand in for PIL (``utils/images``, the labeler app, the
-    CLI) import neither JAX, nor the JAX package, nor PIL (the card's
-    machine has none of them)."""
+    (``data/``, ``acquisition/``, ``native/``) or stand in for PIL
+    (``utils/images``, the labeler app, the CLI), the shared-map fleet and
+    the profiling helpers import neither JAX, nor the JAX package, nor PIL,
+    nor OpenCV (the card's machine has none of them; the live camera imports
+    OpenCV only when it opens)."""
     modules = ["icp_slam_yolo_tpu_torch", "icp_slam_yolo_tpu_torch.utils.images", "icp_slam_yolo_tpu_torch.data.csvutil",
                "icp_slam_yolo_tpu_torch.data.settings", "icp_slam_yolo_tpu_torch.data.labels",
                "icp_slam_yolo_tpu_torch.data.split", "icp_slam_yolo_tpu_torch.data.labeler",
-               "icp_slam_yolo_tpu_torch.serve.labeler_app", "icp_slam_yolo_tpu_torch.cli"]
+               "icp_slam_yolo_tpu_torch.serve.labeler_app", "icp_slam_yolo_tpu_torch.cli",
+               "icp_slam_yolo_tpu_torch.parallel.shared", "icp_slam_yolo_tpu_torch.acquisition",
+               "icp_slam_yolo_tpu_torch.acquisition.lidar", "icp_slam_yolo_tpu_torch.acquisition.camera",
+               "icp_slam_yolo_tpu_torch.native", "icp_slam_yolo_tpu_torch.native.robotlink",
+               "icp_slam_yolo_tpu_torch.native.scanloader", "icp_slam_yolo_tpu_torch.utils.profiling"]
     code = ("import sys, importlib; [importlib.import_module(m) for m in sys.argv[1:]]; "
-            "bad = [m for m in sys.modules if m in ('jax', 'icp_slam_yolo_tpu', 'PIL')"
-            " or m.startswith(('jax.', 'icp_slam_yolo_tpu.', 'PIL.'))]; print(bad); sys.exit(1 if bad else 0)")
+            "bad = [m for m in sys.modules if m in ('jax', 'icp_slam_yolo_tpu', 'PIL', 'cv2')"
+            " or m.startswith(('jax.', 'icp_slam_yolo_tpu.', 'PIL.', 'cv2.'))]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code, *modules], cwd=REPO, env=env, capture_output=True, text=True)
     assert r.returncode == 0, r.stdout + r.stderr
