@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases (each prints a line; any failed check raises, so the script exits
-non-zero; they run in the order 1-3, 7-13, 4-6, 14, 15, see `main`):
+non-zero; they run in the order 1-3, 7-13, 4-6, 14, 15, 16, see `main`):
   1. require a CUDA device; print the card's name and power limit;
   2. build the CUDA kernels (``nvcc``, first use) and print the build time
      and each kernel's registers, shared memory and spills (``ptxas -v``);
@@ -118,9 +118,21 @@ non-zero; they run in the order 1-3, 7-13, 4-6, 14, 15, see `main`):
      five steps under the sync debug mode, a profiler window over each run,
      the first 8 steps on the CPU against the card, and a 2-robot
      interleave of one stream against the single-robot ``Slam``;
-  15. one JSON line listing the kernels (each kernel's launches summed over
-     the paths of phases 4-6, 8, 10, 11, 12, 13 and 14), then the card line,
-     then the result line ``{"ok": true, "device": {...}}`` last.
+  15. several processes on ``torch.distributed`` (`dist_path`): (a) one
+     rank, NCCL, in this process: ``fleet_run_sharded`` (8 x 100) and the
+     shared map (R = 8 x 100) over the group, each bit-equal to its
+     one-card run, with K1, K3 and K4 launches a step counted; five fleet
+     and five shared steps over the group under the sync debug mode; a
+     profiler window over each, the NCCL kernels listed apart; the pallet
+     recipe's data-parallel step (yolo-n v8, 640 px, batch 16, bf16) for
+     20 steps against the step without a mesh on the same batches; (b) two
+     spawned ranks sharing the card over gloo: the shared map (R = 8, 4 a
+     rank, x 20), the fleet (8 x 30) and two data-parallel steps of 2 x 8
+     against 1 x 16, the replicated map and grid bit-identical across the
+     ranks at every step; then a line saying NCCL across cards was not run;
+  16. one JSON line listing the kernels (each kernel's launches summed over
+     the paths of phases 4-6, 8, 10, 11, 12, 13, 14 and 15), then the card
+     line, then the result line ``{"ok": true, "device": {...}}`` last.
 
 The synthetic scan generator (`synthetic_sequence`) lives here so the CPU
 tests can import it; it is not part of the package.
@@ -466,9 +478,10 @@ def check_quality(what: str, cfg, acc, rmse, poses, gt, state, forced_rejects=No
 RASTER_KERNELS = ("raster_update", "raster_update_grid")
 
 
-def profile_window(torch, fn, n_steps: int) -> str:
+def profile_window(torch, fn, n_steps: int, apart: str | None = None) -> str:
     """Run ``fn`` (``n_steps`` steps ending in a synchronise) under the
-    profiler and describe where the device time went (`window_summary`)."""
+    profiler and describe where the device time went (`window_summary`);
+    the kernels whose names hold ``apart`` are also listed on their own."""
     from icp_slam_yolo_tpu_torch.ops import pallas
 
     before = dict(pallas.LAUNCHES)
@@ -481,7 +494,13 @@ def profile_window(torch, fn, n_steps: int) -> str:
         wall.append(time.perf_counter() - t0)
 
     prof = _traced(torch, timed)
-    return window_summary(torch, prof, wall[0], n_steps, before)
+    summary = window_summary(torch, prof, wall[0], n_steps, before)
+    if apart is None:
+        return summary
+    own = [e for e in _kernel_events(torch, prof) if apart in e.key.lower()]
+    listed = "; ".join(f"{e.key[:60]} {e.self_device_time_total / n_steps:.1f} ({e.count} events)" for e in own)
+    return (f"{summary}; {apart} kernels (included above) "
+            f"{sum(e.self_device_time_total for e in own) / n_steps:.1f} us/step: {listed or 'none'}")
 
 
 def window_summary(torch, prof, wall: float, n_steps: int, before: dict) -> str:
@@ -1583,6 +1602,486 @@ def shared_path(cfg, n_scans: int = 100, n_wide: int = 20, n_inter: int = 120) -
     _require(o.min() > 0.0 and o.max() <= 1.0 and (o < 0.3).any() and (o > 0.6).any(), "interleave: grid")
     _require(worst < 300.0, f"interleave: {worst:.1f} mm from the single robot")
     return {k: launches[k] + launches_w[k] for k in launches}
+
+
+# ---------------------------------------------------------------- phase 15: several processes
+
+DIST_TRAIN_STEPS = 20  # the recipe's data-parallel steps on the one-rank group (15a)
+DIST_SHARED = (8, 20)  # 15b's shared map: robots, scans
+DIST_FLEET = (8, 30)   # 15b's fleet: robots, scans
+DIST_TIMEOUT_S = 300.0  # the two ranks of 15b answer within this or are killed
+TRAIN_FLOOR = (2.0 ** -7, 0.05)  # the least bf16 tolerance of a step: its loss's relative gap, its update's
+
+
+def _equal_runs(a, b) -> bool:
+    """Two runs' tensors (nested tuples, NamedTuples) bit-equal."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return len(a) == len(b) and all(_equal_runs(x, y) for x, y in zip(a, b))
+
+
+def _digest(*tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _train_batches(root: str, n: int, device=None) -> list:
+    """``n`` batches of the recipe (640 px, 16 images, zoom-out and flips)
+    from the dataset's seeded draws: the same on every process."""
+    from icp_slam_yolo_tpu_torch.io.yolo_data import DeviceYoloDataset
+
+    ds = DeviceYoloDataset(root, img_size=640, batch_size=16, max_gt=16, augment=True, seed=15,
+                           scale_aug=(0.5, 0.67, 0.83, 1.0), device=device)
+    it = iter(ds)
+    return [{k: v.clone() for k, v in next(it).items()} for _ in range(n)]
+
+
+class _Recipe:
+    """The recipe's model (yolo-n v8, seed 0, ``dtype`` compute, float32
+    parameters) and its ``make_train_step`` (with a ``mesh``: each step on
+    this rank's block of the batch), for ``total_steps`` steps' schedule.
+    `snapshot` and `load` carry the parameters, statistics and optimizer
+    state from one recipe to another, so that two steps start alike."""
+
+    def __init__(self, total_steps: int, dtype: str = "bfloat16", mesh=None, device=None):
+        import torch
+
+        from icp_slam_yolo_tpu_torch.models.train import create_train_state, make_train_step
+        from icp_slam_yolo_tpu_torch.models.yolo import YOLO
+
+        self.model = YOLO(num_classes=1, compute_dtype=getattr(torch, dtype))
+        self.state = create_train_state(self.model, 640, total_steps=total_steps, device=device)
+        self.fn = make_train_step(self.model, self.state.optimizer, 640, mesh=mesh)
+        self.mesh = mesh
+
+    def params(self):
+        import torch
+
+        return torch.cat([p.detach().reshape(-1) for p in self.model.parameters()])
+
+    def snapshot(self) -> dict:
+        import copy
+
+        opt = self.state.optimizer
+        return {"model": {k: v.detach().clone() for k, v in self.model.state_dict().items()},
+                "sgd": copy.deepcopy(opt.sgd.state_dict()), "count": opt.count}
+
+    def load(self, snap: dict) -> None:
+        opt = self.state.optimizer
+        self.model.load_state_dict(snap["model"])
+        opt.sgd.load_state_dict(snap["sgd"])
+        opt.count = snap["count"]
+
+    def step(self, batch: dict):
+        """One step on ``batch``: its metrics (floats) and synchronised wall (ms)."""
+        import torch
+
+        from icp_slam_yolo_tpu_torch.parallel.mesh import rank_block
+
+        if self.mesh is not None:
+            rows = rank_block(batch["images"].shape[0], self.mesh)
+            batch = {k: v[rows] for k, v in batch.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.state, m = self.fn(self.state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return {k: float(v) for k, v in m.items()}, ms
+
+
+def _step_gap(loss: float, update, loss_ref: float, update_ref) -> tuple[float, float]:
+    """How far a step is from a reference step taken from the same state on
+    the same batch: its loss's relative gap, and its update's distance from
+    the reference's over the reference's norm."""
+    return abs(loss - loss_ref) / abs(loss_ref), float((update - update_ref).norm() / update_ref.norm())
+
+
+def _within_bf16(what: str, gaps: list, scales: list) -> str:
+    """Each step's `_step_gap` within bf16 rounding: no further from the
+    bf16 step without a mesh than the float32 step from the same state is
+    (``scales``), or than ``TRAIN_FLOOR``."""
+    for i, (gap, scale) in enumerate(zip(gaps, scales)):
+        tol = [max(s, f) for s, f in zip(scale, TRAIN_FLOOR)]
+        _require(gap[0] <= tol[0] and gap[1] <= tol[1], f"{what}, step {i + 1}: loss apart {gap[0]:.4g} (tol "
+                 f"{tol[0]:.4g}) or update apart {gap[1]:.4g} (tol {tol[1]:.4g})")
+    worst = [max(g[k] for g in gaps) for k in (0, 1)]
+    scale = [max(g[k] for g in scales) for k in (0, 1)]
+    return (f"each step from the same state as the bf16 step without a mesh: loss apart at most {worst[0]:.3g} "
+            f"relative, update apart at most {worst[1]:.3g} of its norm (tolerance a step: the float32 step's "
+            f"distance from the bf16 one, at most {scale[0]:.3g} and {scale[1]:.3g}, and at least "
+            f"{TRAIN_FLOOR[0]:.3g} and {TRAIN_FLOOR[1]:.3g})")
+
+
+def _dist_rank(rank: int, store: str, root: str, batch_digest: str, results) -> None:
+    """One of 15b's two ranks (spawned): a gloo group whose ranks share
+    card 0; the shared map, the fleet and two data-parallel steps over a
+    mesh of both (the dataset and the reference's state under ``root``).
+    Puts ``(rank, ok, result or traceback)`` on ``results``."""
+    import traceback
+
+    import torch
+
+    try:
+        results.put((rank, True, _dist_rank_work(rank, store, root, batch_digest)))
+    except Exception:  # reported to the parent, which fails the phase
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _dist_rank_work(rank: int, store: str, root: str, batch_digest: str) -> dict:
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    import icp_slam_yolo_tpu_torch as port
+    from icp_slam_yolo_tpu_torch.ops import pallas
+    from icp_slam_yolo_tpu_torch.parallel import distributed, mesh as pmesh, shared as pshared
+
+    dev = distributed.initialize(store, 2, rank, backend="gloo", device="cuda:0")
+    mesh = pmesh.make_mesh(device_type="cuda")
+    cfg = port.FLEET_CONFIG
+    spent = {"s": 0.0, "calls": 0}
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            spent["s"] += time.perf_counter() - t0
+            spent["calls"] += 1
+            return out
+        return call
+
+    dist.all_reduce, dist.all_gather_into_tensor = timed(dist.all_reduce), timed(dist.all_gather_into_tensor)
+    out = {"device": str(dev), "backend": dist.get_backend()}
+
+    # the shared map: the entry point timed, then its step loop with a digest of the replicated state a step
+    r, n = DIST_SHARED
+    stack, _ = depot_streams(r, n, cfg.n_max)
+    pshared.shared_fleet_run(stack[:, :3], cfg, mesh=mesh)  # warm-up
+    torch.cuda.synchronize()
+    pallas.reset_launches()
+    spent.update(s=0.0, calls=0)
+    t0 = time.perf_counter()
+    run = pshared.shared_fleet_run(stack, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    out["shared_s"], out["shared_coll"] = time.perf_counter() - t0, dict(spent)
+    out["shared_launches"] = dict(pallas.LAUNCHES)
+    block = torch.from_numpy(stack[pmesh.rank_block(r, mesh)]).to(dev)
+    step = pshared.make_shared_step(cfg, mesh)
+    state = pshared.shared_init(block[:, 0], cfg, mesh)
+    digests, outs = [_digest(state.map_xy, state.map_valid, state.occ)], []
+    for t in range(1, n):
+        state, o = step(state, block[:, t], t - 1)
+        digests.append(_digest(state.map_xy, state.map_valid, state.occ))
+        outs.append(o)
+    pose, rmse, acc = (torch.stack(f, dim=1) for f in zip(*outs))
+    out["shared_loop_same"] = _equal_runs((state.map_xy, state.map_valid, state.occ, state.pose, pose, rmse, acc),
+                                          (*run[:4], *run[4]))
+    out["shared_digests"] = digests
+    out["shared"] = {k: v.cpu().numpy() for k, v in zip(("map_xy", "map_valid", "occ", "poses"), run[:4])}
+    out["shared"].update({k: v.cpu().numpy() for k, v in run[4]._asdict().items()})
+
+    # the fleet, sharded
+    b, n = DIST_FLEET
+    fstack, _ = fleet_streams(b, n, cfg.n_max)
+    port.fleet_run_sharded(fstack[:, :3], cfg, mesh=mesh)  # warm-up
+    torch.cuda.synchronize()
+    pallas.reset_launches()
+    t0 = time.perf_counter()
+    _, fouts = port.fleet_run_sharded(fstack, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    out["fleet_s"], out["fleet_launches"] = time.perf_counter() - t0, dict(pallas.LAUNCHES)
+    out["fleet"] = {k: v.cpu().numpy() for k, v in fouts._asdict().items()}
+
+    # two data-parallel steps, each rank on 8 of the 16: the first from the seed's state, the second from the
+    # reference's state after its first step (`snap1.pt`), as the parent took them
+    batches = _train_batches(os.path.join(root, "pallets", "train"), 2, device=dev)
+    _require(_digest(*(t for bt in batches for t in bt.values())) == batch_digest, "rank: other batches than the parent's")
+    dp = _Recipe(2, mesh=mesh, device=dev)
+    spent.update(s=0.0, calls=0)
+    m1, t1 = dp.step(batches[0])
+    p1 = dp.params()
+    dp.load(torch.load(os.path.join(root, "snap1.pt"), map_location=dev))
+    m2, t2 = dp.step(batches[1])
+    p2 = dp.params()
+    out["train"] = {"metrics": [m1, m2], "ms": [t1, t2], "coll": dict(spent),
+                    "params": [p1.cpu().numpy(), p2.cpu().numpy()], "digest": _digest(p1, p2)}
+    return out
+
+
+def dist_path(cfg) -> dict:
+    """Phase 15: the fleet, the shared map and the train step across
+    processes on ``torch.distributed``.  (a) One rank, NCCL, in this process
+    on card 0 (a FileStore in a temporary directory): `fleet_run_sharded` on
+    ``cfg`` (the ``fleet`` preset unchanged) at 8 x 100, bit-equal to
+    `fleet_run_sequence`; the shared map over the group, R = 8 x 100,
+    bit-equal to the one-card `shared_fleet_run`; five fleet and five shared
+    steps over the group under the sync debug mode; a profiler window over
+    each, the NCCL kernels listed apart; the recipe's data-parallel step
+    (yolo-n v8, 640 px, batch 16, bf16 compute) for ``DIST_TRAIN_STEPS``
+    steps against the step without a mesh on the same batches, within bf16
+    rounding (`_within_bf16`; each step from the state of the run without a
+    mesh), and three profiled steps.  (b) Two spawned ranks sharing the card
+    over gloo: the shared map at ``DIST_SHARED``, the fleet at
+    ``DIST_FLEET``, two data-parallel steps of 2 x 8 against 1 x 16 (each
+    from the reference's state); the replicated map and grid
+    bit-identical across the ranks at every step; each rank's K1, K3 and K4
+    counters above 0.  Returns the launches of (a)'s runs over the group
+    and of (b)'s ranks, summed."""
+    import multiprocessing
+    import os
+    import queue
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import icp_slam_yolo_tpu_torch as port
+    from icp_slam_yolo_tpu_torch.ops import pallas
+    from icp_slam_yolo_tpu_torch.parallel import distributed, fleet as pfleet, mesh as pmesh, shared as pshared
+
+    t_phase = time.perf_counter()
+    names = ("icp_fused", "nn_argmin", "raster_update_grid")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    totals = dict.fromkeys(pallas.LAUNCHES, 0)
+
+    def counted(fn, steps, what):
+        torch.cuda.synchronize()
+        pallas.reset_launches()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(pallas.LAUNCHES)
+        for name in names:
+            _require(launches[name] == steps + (name == "raster_update_grid"),
+                     f"{what}: {name} launched {launches[name]} times in {steps} steps")
+        return got, secs, launches
+
+    def timed_one_card(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0
+
+    # ---- (a) one rank, NCCL
+    dev = distributed.initialize(f"file://{tmp}/store_nccl", 1, 0)
+    _require(dev == torch.device("cuda", 0) and dist.get_backend() == "nccl", f"15a: {dev} {dist.get_backend()}")
+    try:
+        mesh = pmesh.make_mesh()
+        b, n = 8, 100
+        stack, _ = fleet_streams(b, n, cfg.n_max)
+        port.fleet_run_sharded(stack[:, :4], cfg, mesh=mesh)  # warm-up
+        one, one_s = timed_one_card(lambda: port.fleet_run_sequence(stack, cfg))
+        got, secs, launches = counted(lambda: port.fleet_run_sharded(stack, cfg, mesh=mesh), n - 1, "15a fleet")
+        _require(_equal_runs(got, one), "15a: fleet_run_sharded on one rank differs from fleet_run_sequence")
+        totals = {k: totals[k] + launches[k] for k in totals}
+        print(f"[15a] fleet_run_sharded over a one-rank NCCL group on {dev} (preset 'fleet' unchanged), {b} x {n} "
+              f"scans: {b * n / secs:.1f} robot-scans/s ({secs / (n - 1) * 1e3:.2f} ms a step; fleet_run_sequence in "
+              f"this phase {b * n / one_s:.1f}); outputs and states bit-equal to fleet_run_sequence; launches "
+              f"{ {k: launches[k] for k in names} }", flush=True)
+
+        step, plain = pfleet.make_fleet_step(cfg, mesh), pfleet.make_fleet_step(cfg)
+        scans_dev = torch.from_numpy(stack[:, :7]).to(dev)
+        st, st1 = pfleet.fleet_init(scans_dev[:, 0], cfg), pfleet.fleet_init(scans_dev[:, 0], cfg)
+        st, _, stats = step(st, scans_dev[:, 1], 0)  # the first collective sets up NCCL's communicator
+        st1, _, stats1 = plain(st1, scans_dev[:, 1], 0)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for t in range(2, 7):
+                st, _, stats = step(st, scans_dev[:, t], t - 1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        for t in range(2, 7):
+            st1, _, stats1 = plain(st1, scans_dev[:, t], t - 1)
+        same = all(torch.equal(stats[k], stats1[k]) for k in stats)
+        _require(same, f"15a: the fleet statistics over the group {stats} differ from one card's {stats1}")
+        print(f"[15a] 5 fleet steps over the group (statistics all-reduced by NCCL) under "
+              f"torch.cuda.set_sync_debug_mode('error'): no host synchronisation; statistics bit-equal to one card's "
+              f"(accept rate {float(stats['accept_rate']):.2f}, mean rmse {float(stats['mean_rmse']):.2f} mm)", flush=True)
+
+        def fleet_steps(k):
+            s = pfleet.fleet_init(scans_dev[:, 0], cfg)
+            for t in range(1, k + 1):
+                s = step(s, scans_dev[:, t], t - 1)[0]
+
+        print("[15a] 6 fleet steps over the group profiled (the init's K4 in the window): "
+              + profile_window(torch, lambda: fleet_steps(6), 6, apart="nccl"), flush=True)
+
+        # the shared map over the group
+        stack, _ = depot_streams(b, n, cfg.n_max)
+        pshared.shared_fleet_run(stack[:, :4], cfg, mesh=mesh)  # warm-up
+        one, one_s = timed_one_card(lambda: pshared.shared_fleet_run(stack, cfg))
+        got, secs, launches = counted(lambda: pshared.shared_fleet_run(stack, cfg, mesh=mesh), n - 1, "15a shared")
+        _require(_equal_runs(got, one), "15a: the shared map over one rank differs from the one-card shared_fleet_run")
+        totals = {k: totals[k] + launches[k] for k in totals}
+        print(f"[15a] shared map over the one-rank NCCL group, R={b} x {n} scans: {b * n / secs:.1f} robot-scans/s "
+              f"({secs / (n - 1) * 1e3:.2f} ms a step; the one-card shared_fleet_run in this phase "
+              f"{b * n / one_s:.1f}); map, grid, poses and outputs bit-equal to the one-card run; launches "
+              f"{ {k: launches[k] for k in names} }", flush=True)
+        sstep = pshared.make_shared_step(cfg, mesh)
+        scans_dev = torch.from_numpy(stack[:, :7]).to(dev)
+        ss = sstep(pshared.shared_init(scans_dev[:, 0], cfg, mesh), scans_dev[:, 1], 0)[0]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for t in range(2, 7):
+                ss = sstep(ss, scans_dev[:, t], t - 1)[0]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        print("[15a] 5 shared steps over the group (the merge and the candidates through NCCL) under "
+              "torch.cuda.set_sync_debug_mode('error'): no host synchronisation", flush=True)
+
+        def shared_steps(k):
+            s = pshared.shared_init(scans_dev[:, 0], cfg, mesh)
+            for t in range(1, k + 1):
+                s = sstep(s, scans_dev[:, t], t - 1)[0]
+
+        print("[15a] 6 shared steps over the group profiled (the seed's merge in the window): "
+              + profile_window(torch, lambda: shared_steps(6), 6, apart="nccl"), flush=True)
+
+        # the recipe's data-parallel step against PR 9's step, the same batches
+        root = pallet_dataset(os.path.join(tmp, "pallets"), seed=12, n_train=16, n_val=1)
+        batches = _train_batches(os.path.join(root, "train"), DIST_TRAIN_STEPS)
+        plain, dp = _Recipe(DIST_TRAIN_STEPS), _Recipe(DIST_TRAIN_STEPS, mesh=mesh)
+        full = _Recipe(DIST_TRAIN_STEPS, dtype="float32")
+        gaps, scales, ms, ms_plain, losses = [], [], [], [], []
+        for batch in batches:  # every step of the three from the plain run's state
+            snap, p0 = plain.snapshot(), plain.params()
+            m_plain, t_plain = plain.step(batch)
+            dp.load(snap)
+            m_dp, t_dp = dp.step(batch)
+            full.load(snap)
+            m_full, _ = full.step(batch)
+            ref = plain.params() - p0
+            gaps.append(_step_gap(m_dp["loss"], dp.params() - p0, m_plain["loss"], ref))
+            scales.append(_step_gap(m_full["loss"], full.params() - p0, m_plain["loss"], ref))
+            ms.append(t_dp)
+            ms_plain.append(t_plain)
+            losses.append(m_plain["loss"])
+        agree = _within_bf16("15a train", gaps, scales)
+        med, med1 = float(np.median(ms[1:])), float(np.median(ms_plain[1:]))
+        print(f"[15a] the recipe's data-parallel step over the one-rank group (yolo-n v8, 640 px, batch 16, bf16 "
+              f"compute), {DIST_TRAIN_STEPS} steps against make_train_step without a mesh on the same batches, "
+              f"{agree}; step wall median {med:.2f} ms ({16e3 / med:.1f} images/s), without a mesh {med1:.2f} ms; "
+              f"losses {[round(v, 3) for v in losses[::5]]} (steps 1, 6, 11, 16)", flush=True)
+        window = batches[:3]
+        print("[15a] 3 data-parallel steps profiled: " + profile_window(
+            torch, lambda: [dp.step(bt) for bt in window], 3, apart="nccl"), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+    # ---- (b) two ranks sharing the card over gloo
+    # the two steps of 1 x 16 (the reference), and in float32 from the same states (the scale)
+    batch_digest = _digest(*(t for bt in batches[:2] for t in bt.values()))
+    ref, full = _Recipe(2), _Recipe(2, dtype="float32")
+    snaps, ref_steps, scales = [], [], []
+    for batch in batches[:2]:
+        snaps.append(ref.snapshot())
+        p0 = ref.params()
+        m_ref, t_ref = ref.step(batch)
+        full.load(snaps[-1])
+        m_full, _ = full.step(batch)
+        ref_steps.append((m_ref, t_ref, p0, ref.params() - p0))
+        scales.append(_step_gap(m_full["loss"], full.params() - p0, m_ref["loss"], ref.params() - p0))
+    torch.save(snaps[1], os.path.join(tmp, "snap1.pt"))
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_dist_rank, args=(r, f"file://{tmp}/store_gloo", tmp, batch_digest, results))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got, failed = {}, {}
+    try:
+        while len(got) + len(failed) < 2:
+            rank, ok, value = results.get(timeout=max(DIST_TIMEOUT_S - (time.perf_counter() - t0), 1.0))
+            (got if ok else failed)[rank] = value
+    except queue.Empty:
+        failed["timeout"] = f"the ranks did not answer within {DIST_TIMEOUT_S} s"
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    _require(not failed, "15b: " + "\n".join(f"rank {k}: {v}" for k, v in failed.items()))
+    ranks_s = time.perf_counter() - t0
+    r0, r1 = got[0], got[1]
+    for r in (r0, r1):
+        _require(r["backend"] == "gloo" and r["device"] == "cuda:0", f"15b: {r['backend']} on {r['device']}")
+        for key in ("shared_launches", "fleet_launches"):
+            _require(all(r[key][k] > 0 for k in names), f"15b: a rank's {key} {r[key]}")
+        _require(r["shared_loop_same"], "15b: shared_fleet_run(mesh=...) differs from its step loop")
+    _require(r0["shared_digests"] == r1["shared_digests"], "15b: the ranks' maps or grids differ at some step")
+    for k in ("map_xy", "map_valid", "occ"):
+        _require(np.array_equal(r0["shared"][k], r1["shared"][k]), f"15b: the ranks' {k} differ")
+
+    # the gathered runs against one rank (the shared map: test_torch_shared's tolerances; the fleet: bit-equal)
+    r, n = DIST_SHARED
+    one = pshared.shared_fleet_run(depot_streams(r, n, cfg.n_max)[0], cfg)
+    gathered = {k: np.concatenate([r0["shared"][k], r1["shared"][k]]) for k in ("pose", "rmse", "accepted")}
+    _require(np.array_equal(gathered["accepted"], one[4].accepted.cpu().numpy()), "15b: accept flags differ")
+    d = np.abs(gathered["pose"] - one[4].pose.cpu().numpy())
+    cells = float((np.abs(r0["shared"]["occ"] - one[2].cpu().numpy()) <= 1e-4).mean())
+    _require(d[..., :2].max() <= 0.5 and d[..., 2].max() <= 2e-4 and cells >= 0.999,
+             f"15b: shared map against one rank: {d[..., :2].max()} mm, {d[..., 2].max()} rad, grid {cells}")
+    # the fleet: each rank steps 4 robots, one rank 8, and on the card some reductions of the batched step
+    # (their launch shapes) follow the batch, so the lanes agree as phase 5's B = 64 and B = 8 runs do
+    b, n = DIST_FLEET
+    _, fone = port.fleet_run_sequence(fleet_streams(b, n, cfg.n_max)[0], cfg)
+    fleet = {k: np.concatenate([r0["fleet"][k], r1["fleet"][k]]) for k in ("accepted", "pose", "n_points")}
+    _require(np.array_equal(fleet["accepted"], fone.accepted.cpu().numpy())
+             and np.array_equal(fleet["n_points"], fone.n_points.cpu().numpy()), "15b: the fleet's flags or counts differ")
+    df = np.abs(fleet["pose"] - fone.pose.cpu().numpy())
+    _require(df[..., :2].max() <= 2.0 and df[..., 2].max() <= 2e-3,
+             f"15b: the fleet's poses {df[..., :2].max()} mm / {df[..., 2].max()} rad from one rank's")
+    _require(r0["train"]["digest"] == r1["train"]["digest"], "15b: the ranks' parameters differ after the steps")
+    rt = r0["train"]
+    gaps = []
+    for (m_ref, _, p0, update), m, p in zip(ref_steps, rt["metrics"], rt["params"]):
+        gaps.append(_step_gap(m["loss"], torch.from_numpy(p).to(p0.device) - p0, m_ref["loss"], update))
+    agree = _within_bf16("15b train", gaps, scales)
+    for r in (r0, r1):
+        totals = {k: totals[k] + r["shared_launches"][k] + r["fleet_launches"][k] for k in totals}
+    ms_shared = max(r0["shared_s"], r1["shared_s"]) / (DIST_SHARED[1] - 1) * 1e3
+    ms_fleet = max(r0["fleet_s"], r1["fleet_s"]) / (DIST_FLEET[1] - 1) * 1e3
+    print(f"[15b] two ranks on one card over gloo: not a scaling number. Shared map R={DIST_SHARED[0]} ({DIST_SHARED[0] // 2} a rank) x "
+          f"{DIST_SHARED[1]} scans: {DIST_SHARED[0] * DIST_SHARED[1] / max(r0['shared_s'], r1['shared_s']):.1f} "
+          f"robot-scans/s ({ms_shared:.2f} ms a step), in gloo collectives (host) {r0['shared_coll']['s'] * 1e3:.1f} / "
+          f"{r1['shared_coll']['s'] * 1e3:.1f} ms over {r0['shared_coll']['calls']} calls a rank; map and grid "
+          f"bit-identical across the ranks at every step (digests) and at the end; against one rank: flags equal, "
+          f"poses within {d[..., :2].max():.3g} mm / {d[..., 2].max():.3g} rad (tol 0.5 mm / 2e-4 rad), grid cells "
+          f"within 1e-4 {cells:.5f} (tol 0.999)", flush=True)
+    print(f"[15b] two ranks on one card over gloo: not a scaling number. Fleet {DIST_FLEET[0]} x {DIST_FLEET[1]}: "
+          f"{DIST_FLEET[0] * DIST_FLEET[1] / max(r0['fleet_s'], r1['fleet_s']):.1f} robot-scans/s ({ms_fleet:.2f} ms "
+          f"a step); against one rank (8 robots a step): flags and gated counts equal, poses within "
+          f"{df[..., :2].max():.3g} mm / {df[..., 2].max():.3g} rad (tol 2 mm / 2e-3 rad, phase 5's); launches rank 0 "
+          f"{ {k: r0['shared_launches'][k] + r0['fleet_launches'][k] for k in names} }, rank 1 "
+          f"{ {k: r1['shared_launches'][k] + r1['fleet_launches'][k] for k in names} }", flush=True)
+    print(f"[15b] two ranks on one card over gloo: not a scaling number. Two data-parallel steps of 2 x 8 against "
+          f"1 x 16: {agree}; parameters bit-identical across the ranks; step wall {rt['ms'][0]:.1f} / "
+          f"{rt['ms'][1]:.1f} ms (1 x 16: {ref_steps[0][1]:.1f} / {ref_steps[1][1]:.1f}), in gloo collectives (host) "
+          f"{rt['coll']['s'] * 1e3:.1f} ms over {rt['coll']['calls']} calls; the ranks' wall {ranks_s:.1f} s",
+          flush=True)
+    print("[15] NCCL across cards was not run: this machine has one card, and NCCL refuses two ranks on one GPU",
+          flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[15] phase 15 in {time.perf_counter() - t_phase:.1f} s; launches {totals}", flush=True)
+    return totals
 
 
 def paused_sequence(n_before: int, n_garbage: int, n_hold: int, n_after: int, seed: int, n_max: int):
@@ -3597,12 +4096,14 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", choices=("all", "slam", "detector", "tick", "serve", "train", "label", "shared"),
+    parser.add_argument("--phases", choices=("all", "slam", "detector", "tick", "serve", "train", "label", "shared",
+                                             "dist"),
                         default="all",
                         help="run every phase (the default: the only run that ends in the result line), or only "
                              "the SLAM and fleet phases 3-6, only the detector phases 7-9, only the tick (10), "
                              "only the entry points (11: server, CLI, .pt import), only training (12), only "
-                             "JPEG decoding and the labeling path (13) or only the shared-map fleet (14)")
+                             "JPEG decoding and the labeling path (13), only the shared-map fleet (14) or only "
+                             "the paths across processes (15)")
     phases = parser.parse_args(argv).phases
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3660,13 +4161,15 @@ def main(argv=None) -> int:
         paths += [replay(cfg)[0], fleet(port.FLEET_CONFIG), presets(port.OFFLINE_CONFIG, port.REALTIME_CONFIG)]
     if phases in ("all", "shared"):
         paths.append(shared_path(port.FLEET_CONFIG))
+    if phases in ("all", "dist"):
+        paths.append(dist_path(port.FLEET_CONFIG))
 
     rows = []
     order = ("icp_fused", "raster_update", "nn_argmin", "raster_update_grid", *DETECTOR_KERNELS)
     _require(phases != "all" or set(kernels) == set(order), f"kernels checked: {sorted(kernels)}")
     for name in (n for n in order if n in kernels):
         row = kernels[name]
-        row["launches"] = sum(p[name] for p in paths)  # over the slice, fleet, preset, detector, tick, serve, train, label and shared paths
+        row["launches"] = sum(p[name] for p in paths)  # over the slice, fleet, preset, detector, tick, serve, train, label, shared and dist paths
         _require(row["launches"] > 0, f"no path launched {name}")
         rows.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches", "max_abs_err",
                                          "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})

@@ -4,7 +4,9 @@ The PyTorch port of ``icp_slam_yolo_tpu`` (which stays the JAX reference).
 It holds the whole per-scan SLAM step (`slam/pipeline`: offline and realtime
 semantics, the GICP rescue, the outlier filter, the reseed), written over a
 robot axis, and the fleet paths above it (`parallel/fleet`: a map a robot;
-`parallel/shared`: R robots building one map), with four
+`parallel/shared`: R robots building one map), on one card or sharded over
+the ranks of a ``torch.distributed`` mesh (`parallel/distributed`,
+`parallel/mesh`: one process a card, NCCL between cards), with four
 hand-written CUDA kernels for Hopper (``csrc/*.cu``): the fused ICP loop, the
 two occupancy raster updates and the nearest-neighbour argmin, each taking
 all robots in one launch.  It also holds the pallet detector
@@ -27,9 +29,10 @@ and out without an imaging package, JPEG decoded to PIL's pixels), the
 Ultralytics ``.pt`` import (`io.torch_import`) and the dataset-labeling
 toolchain (`data`, `serve.labeler_app`).
 
-Entry points (`Slam`, `run_sequence`, `fleet_run_sequence`, `shared_fleet_run`, `register`,
-`gicp`, `Detector`, `detector_from_checkpoint`) take ``device=None``, which means the card; without one they raise
-unless the caller passes ``device="cpu"``.
+Entry points (`Slam`, `run_sequence`, `fleet_run_sequence`, `fleet_run_sharded`, `shared_fleet_run`,
+`register`, `gicp`, `Detector`, `detector_from_checkpoint`) take ``device=None``, which means the card (over a
+mesh: the rank's card); without one they raise unless the caller passes ``device="cpu"``.  The training
+step (`models.train.make_train_step`) also runs data-parallel over a mesh.
 """
 
 import torch
@@ -51,7 +54,7 @@ from icp_slam_yolo_tpu_torch.config import (  # noqa: E402
     OccupancyConfig,
     SlamConfig,
 )
-from icp_slam_yolo_tpu_torch.core.registration import gicp, icp, icp_masked, register  # noqa: E402
+from icp_slam_yolo_tpu_torch.core.registration import RegistrationResult, gicp, icp, icp_masked, register  # noqa: E402
 from icp_slam_yolo_tpu_torch.fusion import Landmark, LandmarkMap, fuse_stereo_pair, project_detection  # noqa: E402
 from icp_slam_yolo_tpu_torch.models.detect import Detector, detector_from_checkpoint  # noqa: E402
 from icp_slam_yolo_tpu_torch.perception.stereo import pallet_alignment  # noqa: E402
@@ -61,6 +64,7 @@ from icp_slam_yolo_tpu_torch.parallel.fleet import (  # noqa: E402
     fleet_run_sharded,
     make_fleet_step,
 )
+from icp_slam_yolo_tpu_torch.parallel import distributed, mesh  # noqa: E402
 from icp_slam_yolo_tpu_torch.parallel.shared import SharedOutputs, shared_fleet_run  # noqa: E402
 from icp_slam_yolo_tpu_torch.slam.api import Slam  # noqa: E402
 from icp_slam_yolo_tpu_torch.slam.pipeline import (  # noqa: E402
@@ -73,6 +77,8 @@ from icp_slam_yolo_tpu_torch.slam.pipeline import (  # noqa: E402
     update_map,
 )
 
+__version__ = "0.1.0"
+
 __all__ = [
     "FLEET_CONFIG", "OFFLINE_CONFIG", "PRESETS", "REALTIME_CONFIG",
     "GateConfig", "IcpConfig", "MapConfig", "OccupancyConfig", "SlamConfig",
@@ -81,4 +87,5 @@ __all__ = [
     "SharedOutputs", "Slam", "SlamState", "StepOutput", "fleet_init", "fleet_run_sequence", "fleet_run_sharded",
     "gicp", "icp", "icp_masked", "init_state", "make_batched_step", "make_fleet_step",
     "make_step", "register", "run_sequence", "update_map",
+    "RegistrationResult", "distributed", "mesh", "__version__",
 ]

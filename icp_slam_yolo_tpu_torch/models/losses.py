@@ -9,6 +9,13 @@ alignment metric, CIoU on the boxes and distribution-focal loss on the ltrb
 bins.  Ground truths are padded to ``max_gt`` a image with a validity mask,
 so every shape is static.  The assigner's outputs are targets: it runs
 without autograd, as the JAX package stops their gradient.
+
+Inside `parallel.distributed.data_parallel` every reduction over the batch
+is over the global batch, as under JAX's ``jit`` with the batch sharded:
+the normaliser ``sum(target scores)`` (and so every term divided by it) and
+the segment loss's mean over the images.  Each rank's loss is then its
+share of the global loss, and the sum of the ranks' gradients is the
+global gradient.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from icp_slam_yolo_tpu_torch.models.yolo import decode_keypoints, dfl_decode, make_anchors
+from icp_slam_yolo_tpu_torch.parallel import distributed
 
 
 class LossWeights(NamedTuple):
@@ -145,7 +153,7 @@ def detection_loss(outs, gt_boxes, gt_classes, gt_valid, img_size: int, num_clas
     fg = fg & representable
     tgt_scores = tgt_scores * fg[..., None]
 
-    norm = torch.clamp(torch.sum(tgt_scores), min=1.0)
+    norm = torch.clamp(distributed.global_sum(torch.sum(tgt_scores)), min=1.0)
 
     # classification: BCE against the soft target scores over every anchor
     bce = -(tgt_scores * F.logsigmoid(cls_l) + (1 - tgt_scores) * F.logsigmoid(-cls_l))
@@ -189,6 +197,16 @@ def detection_loss(outs, gt_boxes, gt_classes, gt_valid, img_size: int, num_clas
     return total, metrics
 
 
+def _batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of per-image values ``x (B,)``; inside `data_parallel`,
+    this rank's share of the mean over the global batch (every rank holds
+    ``B`` images)."""
+    group = distributed.data_parallel_group()
+    if group is None:
+        return torch.mean(x)
+    return torch.sum(x) / (x.shape[0] * torch.distributed.get_world_size(group))
+
+
 def top_k_stable(x: torch.Tensor, k: int):
     """``lax.top_k`` on the last axis: the ``k`` largest values, descending,
     equal values in index order (a stable descending sort; ``torch.topk``
@@ -229,7 +247,7 @@ def segmentation_loss(outs, protos, gt_boxes, gt_classes, gt_valid, gt_masks, im
     area = torch.clamp((box[..., 2] - box[..., 0]) * (box[..., 3] - box[..., 1]), min=1.0)
     per_inst = torch.sum(bce, dim=(2, 3)) / area  # (B, K)
     w = (w_top > 0).float()
-    loss_mask = torch.mean(torch.sum(per_inst * w, dim=1) / torch.clamp(torch.sum(w, dim=1), min=1.0))
+    loss_mask = _batch_mean(torch.sum(per_inst * w, dim=1) / torch.clamp(torch.sum(w, dim=1), min=1.0))
     total = det_total + mask_weight * loss_mask
     return total, dict(metrics, loss_mask=loss_mask, loss=total)
 

@@ -14,6 +14,17 @@ schedule gives for the update count before the step.
 
 The step keeps everything on the device: its metrics are tensors, the
 gradient norm included; `fit` reads them on the logged steps only.
+
+Data-parallel training (``make_train_step(..., mesh=...)``, one process a
+card): each rank takes its block of the global batch, its BatchNorm
+statistics and loss normalisers are the global batch's
+(`parallel.distributed.data_parallel`), and one all-reduce sums the
+gradients in one flat buffer before the optimizer, so the clip sees the
+global gradient and every rank applies the same update.  Not
+``DistributedDataParallel``: it averages the gradients (wrong once the
+normalisers are global) and broadcasts rank 0's buffers at each forward,
+which would hide a divergence between the ranks; not ``SyncBatchNorm``: it
+stores the unbiased variance.
 """
 
 from __future__ import annotations
@@ -27,6 +38,8 @@ import torch
 from icp_slam_yolo_tpu_torch import convert
 from icp_slam_yolo_tpu_torch.models.losses import LossWeights, detection_loss, pose_loss, segmentation_loss
 from icp_slam_yolo_tpu_torch.models.yolo import YOLO, A2C2f, DetectHead
+from icp_slam_yolo_tpu_torch.parallel import distributed
+from icp_slam_yolo_tpu_torch.parallel.mesh import make_mesh, mesh_device, rank_block
 
 TRUNC_STD = 0.87962566103423978  # the std of a standard normal cut at +-2 (flax's lecun_normal divides by it)
 
@@ -168,23 +181,50 @@ def compute_loss(model: YOLO, out, batch: dict, img_size: int, weights: LossWeig
                           model.reg_max, weights, gt_angles=batch.get("angles"))
 
 
-def make_train_step(model: YOLO, tx: Optimizer, img_size: int, weights: LossWeights = LossWeights()):
+def _sum_gradients(params: list, group) -> None:
+    """Each parameter's ``.grad`` summed over the ranks of ``group``: one
+    all-reduce of one flat buffer (a parameter the loss did not reach
+    contributes zeros, as `Optimizer.step` would fill in)."""
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+    flat = distributed.all_sum_(torch.cat([g.reshape(-1) for g in grads]), group)
+    for p, g in zip(params, flat.split([p.numel() for p in params])):
+        p.grad = g.view_as(p).to(p.dtype)
+
+
+def _sum_metrics(metrics: dict, group) -> dict:
+    """The ranks' shares of each metric summed (in float64, one all-reduce):
+    the global batch's losses and ``num_fg``."""
+    total = distributed.all_sum_(torch.stack([v.detach().to(torch.float64) for v in metrics.values()]), group)
+    return {k: t.to(v.dtype) for (k, v), t in zip(metrics.items(), total)}
+
+
+def make_train_step(model: YOLO, tx: Optimizer, img_size: int, weights: LossWeights = LossWeights(), mesh=None):
     """Returns ``step(state, batch) -> (state, metrics)``: a training-mode
     forward, the loss, the gradients, one optimizer update.  ``batch``:
     ``images (B, S, S, 3)``, ``boxes (B, M, 4)`` xyxy pixels, ``classes (B,
     M)``, ``valid (B, M)`` and the task's ``angles``, ``masks`` or ``kpts``,
     on the model's device.  The metrics (the losses, ``num_fg`` and the
-    unclipped gradients' ``grad_norm``) are device tensors."""
+    unclipped gradients' ``grad_norm``) are device tensors.
+
+    With a ``mesh``, ``batch`` is this rank's block of the global batch
+    (`parallel.mesh.rank_block`), the step is the global batch's (module
+    docstring) and the metrics are the global batch's on every rank."""
+    group = None if mesh is None else mesh.get_group("data")
 
     def step(state: TrainState, batch: dict):
         model.train()
         tx.zero_grad()
-        out = model(batch["images"])
-        total, metrics = compute_loss(model, out, batch, img_size, weights)
+        with distributed.data_parallel(group):
+            out = model(batch["images"])
+            total, metrics = compute_loss(model, out, batch, img_size, weights)
         total.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if group is not None:
+            _sum_gradients(tx.params, group)
+            metrics = _sum_metrics(metrics, group)
         g_norm = tx.step()
         state.step += 1
-        return state, {**{k: v.detach() for k, v in metrics.items()}, "grad_norm": g_norm}
+        return state, {**metrics, "grad_norm": g_norm}
 
     return step
 
@@ -218,3 +258,39 @@ def write_results_csv(history: list[dict], path: str) -> None:
         w = csv.DictWriter(f, fieldnames=cols)
         w.writeheader()
         w.writerows(history)
+
+
+def dryrun_train_step(n_devices: int, img_size: int = 64, batch: int | None = None, device=None) -> dict:
+    """One data-parallel train step over a mesh of ``n_devices`` ranks, on
+    the JAX package's tiny shapes: a 1-class v8 detector from seed 0,
+    ``batch`` (default ``n_devices``) uniform images and one 32 px box an
+    image; each rank takes its block of the batch.  Needs an initialised
+    process group of ``n_devices`` ranks (ValueError otherwise); every rank
+    calls it.  Checks that the loss is finite and that the parameters after
+    the step are equal on every rank (AssertionError otherwise); returns
+    the step's metrics as floats.  ``device``: default the mesh's device on
+    this rank."""
+    if not torch.distributed.is_initialized() or distributed.process_count() != n_devices:
+        raise ValueError(f"dryrun_train_step({n_devices}) needs an initialised process group of {n_devices} ranks, "
+                         f"not {distributed.process_count()}")
+    mesh = make_mesh(n_devices, device_type=None if device is None else torch.device(device).type)
+    dev = mesh_device(mesh) if device is None else torch.device(device)
+    b, m = batch or n_devices, 4
+    model = YOLO(num_classes=1)
+    state = create_train_state(model, img_size, total_steps=10, device=dev)
+    rng = np.random.default_rng(0)
+    full = {"images": rng.uniform(0, 1, (b, img_size, img_size, 3)).astype(np.float32),
+            "boxes": np.tile(np.array([[8.0, 8, 40, 40]], np.float32), (b, m, 1)),
+            "classes": np.zeros((b, m), np.int32),
+            "valid": np.tile(np.array([True] + [False] * (m - 1)), (b, 1))}
+    rows = rank_block(b, mesh)
+    step = make_train_step(model, state.optimizer, img_size, mesh=mesh)
+    state, metrics = step(state, {k: torch.from_numpy(v[rows]).to(dev) for k, v in full.items()})
+    values = {k: float(v) for k, v in metrics.items()}
+    if not math.isfinite(values["loss"]):
+        raise AssertionError(f"dryrun_train_step: the loss is not finite ({values['loss']})")
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    every = distributed.all_concat(flat[None], mesh.get_group("data"))
+    if not bool((every == every[:1]).all()):
+        raise AssertionError("dryrun_train_step: the ranks' parameters differ after the step")
+    return values

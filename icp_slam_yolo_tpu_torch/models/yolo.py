@@ -54,6 +54,7 @@ from torch import nn
 
 from icp_slam_yolo_tpu_torch.ops.pallas import c2f_fused as c2f_kernel
 from icp_slam_yolo_tpu_torch.ops.pallas import conv_fused as conv_kernels
+from icp_slam_yolo_tpu_torch.parallel import distributed
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.97  # flax's: running = 0.97 * running + 0.03 * batch
@@ -99,13 +100,25 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, channel_dim: int) -> t
     - E[x]^2`` clipped at 0, ``(x - mean) * (rsqrt(var + eps) * scale) +
     bias`` in float32, cast back to ``x``'s type; the running statistics
     move to ``0.97 * running + 0.03 * batch`` (the biased variance:
-    ``F.batch_norm`` would store the unbiased one)."""
+    ``F.batch_norm`` would store the unbiased one).
+
+    Inside `distributed.data_parallel`, the batch is the global one, as
+    under JAX's ``jit`` with the batch sharded: one all-reduce (in the
+    autograd graph) of the per-channel sums of ``x`` and ``x^2`` and of the
+    count, then the same moments, the same on every rank."""
     dims = tuple(d for d in range(x.dim()) if d != channel_dim)
     shape = [1] * x.dim()
     shape[channel_dim] = -1
     xf = x.to(torch.promote_types(x.dtype, torch.float32))  # float32 at least, as flax computes them
-    mean = xf.mean(dims)
-    var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+    if distributed.data_parallel_group() is None:
+        mean = xf.mean(dims)
+        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+    else:
+        c = x.shape[channel_dim]
+        sums = distributed.global_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                                                 xf.new_full((1,), float(x.numel() // c))]))
+        mean = sums[:c] / sums[2 * c]
+        var = torch.clamp(sums[c: 2 * c] / sums[2 * c] - mean * mean, min=0.0)
     with torch.no_grad():
         bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1.0 - BN_MOMENTUM) * mean)
         bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var)

@@ -1,19 +1,31 @@
-"""Collaborative shared-map SLAM: R robots building ONE map on one card.
+"""Collaborative shared-map SLAM: R robots building ONE map, on one card or
+over the ranks of a mesh.
 
 Counterpart of the JAX package's ``parallel/shared.py``.  There the robot
 axis is sharded over a device mesh (one robot a device), the map and the
 occupancy grid are replicated, and each step merges the robots'
 contributions with collectives: a ``psum`` of log-odds deltas and an
 ``all_gather`` of insert candidates.  The layout here is the port's own: the
-robots are the batch axis of the batched ops and kernels on one card, so
+robots are the batch axis of the batched ops and kernels, so
 
-* the ``all_gather(..., tiled=True)`` of the candidates is a concatenation
-  in robot order, and the ``psum`` is a sum over the robot axis;
-* a step launches each kernel once for the whole fleet: K1 (every robot
+* a step launches each kernel once for a card's robots: K1 (every robot
   registers against the same shared map), K3 (the dynamic-points filter
   against each robot's previous scan) and K4 (each robot's occupancy update,
   in place on its own copy of the shared base grid);
-* any ``R >= 1`` is taken (JAX wants R equal to the mesh size).
+* on one card (no mesh) the ``all_gather(..., tiled=True)`` of the
+  candidates is a concatenation in robot order, the ``psum`` a sum over the
+  robot axis, and any ``R >= 1`` is taken;
+* over a mesh, R robots divide over the W ranks of its ``data`` axis, R / W
+  a rank in rank-major blocks (R = W is JAX's layout), and three
+  collectives, in JAX's order, replace the sums and the concatenation: the
+  occupancy merge (each rank sums its robots' log-ratio deltas, one
+  all-reduce sums the ranks'), the insert candidates (concatenated in robot
+  order over the ranks) and, on maintenance steps, the prune's anchor (the
+  sum of every robot's position over R).  Every rank calls them in the same
+  order: the tick is the same on all ranks, and the rescue's host read
+  decides only the rank's own robots.  The map and the grid are replicated
+  and stay bit-identical across the ranks, since every rank runs the same
+  merge, maintenance and compaction on the same bits.
 
 The step follows JAX's ``_robot_step`` and ``body``, not the single-map
 pipeline (`slam/pipeline.make_batched_step`), which differs: it registers
@@ -42,6 +54,8 @@ from icp_slam_yolo_tpu_torch.ops import geometry as geo
 from icp_slam_yolo_tpu_torch.ops.outliers import dynamic_points_mask, statistical_outlier_mask
 from icp_slam_yolo_tpu_torch.ops.raster import occupancy_keep_mask, prune_keep_mask, update_occupancy
 from icp_slam_yolo_tpu_torch.ops.voxel import compact, voxel_downsample
+from icp_slam_yolo_tpu_torch.parallel.distributed import all_concat, all_sum_
+from icp_slam_yolo_tpu_torch.parallel.mesh import mesh_device, rank_block
 from icp_slam_yolo_tpu_torch.slam.pipeline import _rescue_icp_cfg, _where, check_supported_config
 
 P_EPS = 1e-6  # occupancy probabilities are clipped into [P_EPS, 1] before the log
@@ -58,7 +72,8 @@ class SharedOutputs(NamedTuple):
 
 
 class SharedState(NamedTuple):
-    """The shared map and grid, and each robot's tracking state."""
+    """The shared map and grid (replicated over a mesh's ranks), and each of
+    this process's robots' tracking state."""
 
     map_xy: torch.Tensor      # (CAP, 2) f32
     map_valid: torch.Tensor   # (CAP,) bool
@@ -69,16 +84,29 @@ class SharedState(NamedTuple):
     prev_valid: torch.Tensor  # (R, N) bool
 
 
-def merge_occupancy(base: torch.Tensor, per_robot: torch.Tensor) -> torch.Tensor:
+def merge_occupancy(base: torch.Tensor, per_robot: torch.Tensor, group=None) -> torch.Tensor:
     """Log-space simultaneous composition of every robot's grid update:
     ``base (H, W)`` and ``per_robot (R, H, W)``, each robot's grid updated
     alone from ``base``.  The log-ratios to ``base`` are summed over the
-    robots (JAX's ``psum``), so free-space decay composes exactly and
-    endpoint reinforcement as the product of the robots' ratios; clipped
-    into ``[P_EPS, 1]`` before the log and after the exp, in float32."""
+    robots (JAX's ``psum``), then over the ranks of ``group`` when one is
+    given, so free-space decay composes exactly and endpoint reinforcement
+    as the product of the robots' ratios; clipped into ``[P_EPS, 1]``
+    before the log and after the exp, in float32."""
     log_base = torch.log(torch.clamp(base, P_EPS, 1.0))
     d = (torch.log(torch.clamp(per_robot, P_EPS, 1.0)) - log_base).sum(0)
+    if group is not None:
+        all_sum_(d, group)
     return torch.clamp(torch.exp(log_base + d), P_EPS, 1.0)
+
+
+def _candidates(xy: torch.Tensor, valid: torch.Tensor, group):
+    """Insert candidates ``(N, 2)``, ``(N,)`` of this process's robots, in
+    robot order, then over the ranks of ``group`` in rank order (one
+    gather, the flags riding as a third column)."""
+    if group is None:
+        return xy, valid
+    both = all_concat(torch.cat([xy, valid[:, None].to(xy.dtype)], dim=1), group)
+    return both[:, :2], both[:, 2] > 0
 
 
 def _robot_grids(occ: torch.Tensor, r: int) -> torch.Tensor:
@@ -87,31 +115,37 @@ def _robot_grids(occ: torch.Tensor, r: int) -> torch.Tensor:
     return occ.expand(r, *occ.shape).clone()
 
 
-def shared_init(first_scans: torch.Tensor, cfg: SlamConfig) -> SharedState:
-    """Seed the shared state from every robot's first scan ``(R, n_max, 3)``:
-    the gated points of all of them, in robot order, compacted into the map;
-    the grid is the merge of each robot's update of a fresh grid from the
-    origin; every pose is the identity and no previous scan is held."""
+def shared_init(first_scans: torch.Tensor, cfg: SlamConfig, mesh=None) -> SharedState:
+    """Seed the shared state from every robot's first scan ``(R, n_max, 3)``
+    (with a ``mesh``, this rank's block of them): the gated points of all of
+    them, in robot order, compacted into the map; the grid is the merge of
+    each robot's update of a fresh grid from the origin; every pose is the
+    identity and no previous scan is held."""
+    group = None if mesh is None else mesh.get_group("data")
     r = first_scans.shape[0]
     dev = first_scans.device
     xy0, valid0 = geo.polar_to_cartesian(first_scans, cfg.gate)
-    map_xy, map_valid = compact(xy0.reshape(-1, 2), valid0.reshape(-1), cfg.map_capacity)
+    map_xy, map_valid = compact(*_candidates(xy0.reshape(-1, 2), valid0.reshape(-1), group), cfg.map_capacity)
     occ0 = torch.full((cfg.map.height_px, cfg.map.width_px), 0.5, dtype=torch.float32, device=dev)
     zeros = torch.zeros((r, 3), dtype=torch.float32, device=dev)
     occ_r = update_occupancy(_robot_grids(occ0, r), xy0, valid0, zeros[:, :2], cfg.map, cfg.occupancy,
                              in_place=True)
-    return SharedState(map_xy=map_xy, map_valid=map_valid, occ=merge_occupancy(occ0, occ_r),
+    return SharedState(map_xy=map_xy, map_valid=map_valid, occ=merge_occupancy(occ0, occ_r, group),
                        pose=zeros, prev_pose=zeros.clone(), prev_xy=torch.zeros_like(xy0),
                        prev_valid=torch.zeros_like(valid0))
 
 
-def make_shared_step(cfg: SlamConfig = SlamConfig()):
+def make_shared_step(cfg: SlamConfig = SlamConfig(), mesh=None):
     """Build ``step(state, scans (R, n_max, 3), tick) -> (state, (pose (R,
     3), rmse (R,), accepted (R,)))``; ``tick`` is the host step index from 0
     (the maintenance runs when ``(tick + 1) % MAP_MAINTENANCE_INTERVAL ==
-    0``).  ``state`` is not modified."""
+    0``).  With a ``mesh``, ``state`` and ``scans`` hold this rank's block
+    of the robots and every rank calls the step with the same ``tick``.
+    ``state`` is not modified."""
     check_supported_config(cfg)
     r2 = float(np.float32(cfg.local_map_radius_mm) ** 2)  # the f32 square, a host scalar
+    group = None if mesh is None else mesh.get_group("data")
+    ranks = 1 if group is None else torch.distributed.get_world_size(group)
 
     def step(state: SharedState, scans: torch.Tensor, tick: int):
         r = scans.shape[0]
@@ -153,14 +187,18 @@ def make_shared_step(cfg: SlamConfig = SlamConfig()):
         occ_xy, occ_valid = voxel_downsample(cur_xy, cur_valid, 2.0 * cfg.map.resolution_mm_per_px)
         occ_r = update_occupancy(_robot_grids(state.occ, r), occ_xy, occ_valid & enough[:, None],
                                  new_pose[:, :2], cfg.map, cfg.occupancy, in_place=True)
-        new_occ = merge_occupancy(state.occ, occ_r)
+        new_occ = merge_occupancy(state.occ, occ_r, group)
         new_pose = torch.where(enough[:, None], new_pose, pose)
 
-        big_xy = torch.cat([state.map_xy, dd_xy.reshape(-1, 2)])
-        big_valid = torch.cat([state.map_valid, add_valid.reshape(-1)])
+        cand_xy, cand_valid = _candidates(dd_xy.reshape(-1, 2), add_valid.reshape(-1), group)
+        big_xy = torch.cat([state.map_xy, cand_xy])
+        big_valid = torch.cat([state.map_valid, cand_valid])
         if (tick + 1) % MAP_MAINTENANCE_INTERVAL == 0:
             # the prune's window is anchored at the fleet's mean position
-            anchor = new_pose[:, :2].sum(0) / r
+            anchor = new_pose[:, :2].sum(0)
+            if group is not None:
+                all_sum_(anchor, group)
+            anchor = anchor / (r * ranks)
             pruned = prune_keep_mask(big_xy, big_valid, new_occ, anchor, cfg.map, cfg.occupancy)
             ds2_xy, ds2_valid = voxel_downsample(big_xy, pruned, cfg.map_downsample_voxel_mm)
             over = pruned.sum() > cfg.map_downsample_trigger
@@ -174,23 +212,33 @@ def make_shared_step(cfg: SlamConfig = SlamConfig()):
     return step
 
 
-def shared_fleet_run(scans, cfg: SlamConfig = SlamConfig(), device=None):
+def shared_fleet_run(scans, cfg: SlamConfig = SlamConfig(), device=None, mesh=None):
     """Replay ``(R, T, n_max, 3)`` scan stacks for R robots building ONE map
     on ``device`` (``None`` means the card).  Scan 0 of every stream seeds
     the shared map (all first scans are taken at one pose, the identity);
     scans 1..T-1 run through the shared step.
 
+    With a ``mesh``, every rank is given the whole stack and runs its block
+    of the robots (`mesh.rank_block`: R must divide by the ranks of the
+    ``data`` axis) on its device (``device``: default the mesh's device on
+    this rank), merging with the other ranks each step.
+
     Returns ``(map_xy (CAP, 2), map_valid (CAP,), occ (H, W), poses (R, 3),
-    SharedOutputs)``, as JAX's ``shared_fleet_run`` does.
+    SharedOutputs)``, as JAX's ``shared_fleet_run`` does; over a mesh the
+    map and the grid are the replicated ones and the poses and outputs are
+    those of the rank's robots.
     """
+    if mesh is not None:
+        scans = scans[rank_block(scans.shape[0], mesh)]
+        device = device or mesh_device(mesh)
     dev = resolve_device(device)
     if not isinstance(scans, torch.Tensor):
         scans = torch.from_numpy(np.ascontiguousarray(scans, dtype=np.float32))
     scans = scans.to(device=dev, dtype=torch.float32)
     if scans.dim() != 4 or scans.shape[1] < 2:
         raise ValueError(f"shared_fleet_run takes (R, T >= 2, n_max, 3) scans, not {tuple(scans.shape)}")
-    step = make_shared_step(cfg)
-    state = shared_init(scans[:, 0], cfg)
+    step = make_shared_step(cfg, mesh)
+    state = shared_init(scans[:, 0], cfg, mesh)
     outs = []
     for t in range(1, scans.shape[1]):
         state, out = step(state, scans[:, t], t - 1)

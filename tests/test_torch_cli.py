@@ -208,7 +208,8 @@ def _sources():
     pkg = os.path.join(REPO, "icp_slam_yolo_tpu_torch")
     files = [os.path.join(root, f) for root, _, names in os.walk(pkg) for f in names if f.endswith(".py")]
     scripts = [os.path.join(REPO, "scripts", f"torch_train_{n}.py") for n in ("pallet", "obb", "pose", "segment")]
-    return sorted(files) + [os.path.join(REPO, "chip_smoke.py")] + scripts
+    workers = [os.path.join(REPO, "tests", "torch_dist_workers.py")]  # every rank of the multi-process tests imports it
+    return sorted(files) + [os.path.join(REPO, "chip_smoke.py")] + scripts + workers
 
 
 FORBIDDEN = ("jax", "flax", "optax", "PIL", "cv2", "icp_slam_yolo_tpu")

@@ -114,8 +114,14 @@ def _runs(stack: np.ndarray, jcfg_, tcfg_, backends=("fused",)) -> dict:
 
 def _compare(stack: np.ndarray, jcfg_, tcfg_, grid_share: float = 0.999) -> None:
     runs = _runs(stack, jcfg_, tcfg_)
-    m_xy, m_valid, occ, poses, outs = runs["port"]
-    jm_xy, jm_valid, jocc, jposes, jouts = runs["fused"]
+    check_against_jax(runs["port"], runs["fused"], stack, tcfg_, grid_share)
+
+
+def check_against_jax(port, jax_run, stack: np.ndarray, tcfg_, grid_share: float) -> None:
+    """The module's tolerances between a port run and JAX's, each ``(map_xy,
+    map_valid, occ, poses, SharedOutputs)``."""
+    m_xy, m_valid, occ, poses, outs = port
+    jm_xy, jm_valid, jocc, jposes, jouts = jax_run
 
     jacc = np.asarray(jouts.accepted)
     assert outs.accepted.shape == jacc.shape == (stack.shape[0], stack.shape[1] - 1)
