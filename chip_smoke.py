@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases (each prints a line; any failed check raises, so the script exits
-non-zero; they run in the order 1-3, 7-13, 4-6, 14, 15, 16, see `main`):
+non-zero; they run in the order 1-3, 7-13, 4-6, 14, 15, 16, 17, see `main`):
   1. require a CUDA device; print the card's name and power limit;
   2. build the CUDA kernels (``nvcc``, first use) and print the build time
      and each kernel's registers, shared memory and spills (``ptxas -v``);
@@ -130,12 +130,22 @@ non-zero; they run in the order 1-3, 7-13, 4-6, 14, 15, 16, see `main`):
      rank, x 20), the fleet (8 x 30) and two data-parallel steps of 2 x 8
      against 1 x 16, the replicated map and grid bit-identical across the
      ranks at every step; then a line saying NCCL across cards was not run;
-  16. one JSON line listing the kernels (each kernel's launches summed over
-     the paths of phases 4-6, 8, 10, 11, 12, 13, 14 and 15), then the card
+  16. `cli bench`, the registration benchmark (`bench_path`): the entry point
+     in a subprocess (headline only, the root ``bench.py``'s keys on its last
+     line); K1 at the bench pair's shapes (B = 64, 50 iterations) against
+     its plain version; then ``bench.run`` with every reading (what ``cli
+     bench --all`` calls: the headline, the single pair, the SLAM loop on
+     three configurations, the detector at batch 8 and 128, the fleet and
+     its matched single stream, the fused tick, the train step) with launch
+     counters: every key present and finite, every reading within its
+     bound, the bench's own checks passed, K1-K8 each launched;
+  17. one JSON line listing the kernels (each kernel's launches summed over
+     the paths of phases 4-6, 8, 10, 11, 12, 13, 14, 15 and 16), then the card
      line, then the result line ``{"ok": true, "device": {...}}`` last.
 
-The synthetic scan generator (`synthetic_sequence`) lives here so the CPU
-tests can import it; it is not part of the package.
+The synthetic scan generator (`synthetic_sequence`) lives in
+``icp_slam_yolo_tpu_torch/io/synthetic.py``; this script imports it, so the
+CPU tests can take it from here.
 """
 
 from __future__ import annotations
@@ -150,99 +160,10 @@ import time
 
 import numpy as np
 
+# the synthetic warehouse (`io/synthetic.py`); the CPU tests take these names from here
+from icp_slam_yolo_tpu_torch.io.synthetic import synthetic_sequence, warehouse_segments
+
 # ---------------------------------------------------------------- synthetic data
-
-
-def _box(x0, y0, x1, y1):
-    return [(x0, y0, x1, y0), (x1, y0, x1, y1), (x1, y1, x0, y1), (x0, y1, x0, y0)]
-
-
-def warehouse_segments(half_x: float, half_y: float) -> np.ndarray:
-    """Walls of a ``2 half_x x 2 half_y`` mm hall, a central rack row and two
-    side rows of rack bays (1.2 m bays, 0.3 m gaps), plus pillars: wall
-    segments ``(M, 4)`` as ``[x0, y0, x1, y1]``."""
-    segs = _box(-half_x, -half_y, half_x, half_y)
-    bay, gap, depth = 1200.0, 300.0, 900.0
-    for yc in (0.0, -0.6 * half_y, 0.6 * half_y):
-        x = -0.55 * half_x
-        while x + bay <= 0.55 * half_x:
-            segs += _box(x, yc - depth / 2, x + bay, yc + depth / 2)
-            x += bay + gap
-    for px, py in ((-0.8 * half_x, -0.3 * half_y), (0.8 * half_x, 0.3 * half_y),
-                   (0.3 * half_x, -0.85 * half_y), (-0.35 * half_x, 0.85 * half_y)):
-        segs += _box(px - 200, py - 200, px + 200, py + 200)
-    return np.asarray(segs, np.float64)
-
-
-def loop_path(n: int, half_x: float, half_y: float, radius: float, step_mm: float) -> np.ndarray:
-    """Ground-truth poses ``(n, 3)`` every ``step_mm`` along a rounded
-    rectangle around the central rack row, heading along the path."""
-    straight_x, straight_y = 2 * (half_x - radius), 2 * (half_y - radius)
-    arc = 0.5 * np.pi * radius
-    legs = [straight_x, arc, straight_y, arc, straight_x, arc, straight_y, arc]
-    total = float(sum(legs))
-    out = []
-    for k in range(n):
-        s = (k * step_mm) % total
-        x, y, th = -half_x + radius, -half_y, 0.0  # start of the bottom straight
-        for leg, length in enumerate(legs):
-            if s <= length:
-                break
-            s -= length
-            x, y, th = _advance(x, y, th, leg, length, radius)
-        x, y, th = _advance(x, y, th, leg, s, radius)
-        out.append((x, y, th))
-    return np.asarray(out, np.float64)
-
-
-def _advance(x, y, th, leg, s, radius):
-    if leg % 2 == 0:  # straight
-        return x + s * np.cos(th), y + s * np.sin(th), th
-    a = s / radius  # left turn about the centre on the left of the heading
-    cx, cy = x - radius * np.sin(th), y + radius * np.cos(th)
-    th2 = th + a
-    return cx + radius * np.sin(th2), cy - radius * np.cos(th2), th2
-
-
-def raycast(pose, segs: np.ndarray, angles_deg: np.ndarray, y_sign: float = -1.0) -> np.ndarray:
-    """Range (mm) to the nearest wall along each beam; ``inf`` for no hit.
-    A beam at angle ``a`` points along ``(cos a, y_sign sin a)`` in the
-    sensor frame, the gate's conversion (`GateConfig.y_sign`)."""
-    x, y, th = pose
-    a = np.deg2rad(angles_deg)
-    lx, ly = np.cos(a), y_sign * np.sin(a)
-    dx = np.cos(th) * lx - np.sin(th) * ly
-    dy = np.sin(th) * lx + np.cos(th) * ly
-    ax, ay = segs[:, 0] - x, segs[:, 1] - y
-    ex, ey = segs[:, 2] - segs[:, 0], segs[:, 3] - segs[:, 1]
-    den = dx[:, None] * ey[None] - dy[:, None] * ex[None]
-    with np.errstate(divide="ignore", invalid="ignore"):
-        t = (ax[None] * ey[None] - ay[None] * ex[None]) / den
-        u = (ax[None] * dy[:, None] - ay[None] * dx[:, None]) / den
-    hit = (np.abs(den) > 1e-9) & (t > 1.0) & (u >= 0.0) & (u <= 1.0)
-    return np.where(hit, t, np.inf).min(axis=1)
-
-
-def synthetic_sequence(n_scans: int, seed: int, *, half_x: float = 10000.0, half_y: float = 6000.0,
-                       path_half_x: float = 7000.0, path_half_y: float = 1800.0,
-                       radius: float = 1800.0, step_mm: float = 150.0, beams: int = 360,
-                       noise_mm: float = 10.0, dropout: float = 0.05, max_range_mm: float = 10000.0):
-    """Seeded synthetic warehouse replay: ``(scans (n, beams, 3) float32
-    [quality, angle_deg, distance_mm], ground-truth poses (n, 3))``.  Beams
-    with no return within ``max_range_mm`` and random dropouts come back as
-    all-zero rows quality 0 (the gates drop them)."""
-    rng = np.random.default_rng(seed)
-    segs = warehouse_segments(half_x, half_y)
-    poses = loop_path(n_scans, path_half_x, path_half_y, radius, step_mm)
-    angles = np.arange(beams) * (360.0 / beams)
-    scans = np.zeros((n_scans, beams, 3), np.float32)
-    for k, pose in enumerate(poses):
-        rng_mm = raycast(pose, segs, angles) + rng.normal(0.0, noise_mm, beams)
-        ok = np.isfinite(rng_mm) & (rng_mm < max_range_mm) & (rng.random(beams) >= dropout)
-        scans[k, :, 0] = np.where(ok, 15.0 + rng.integers(0, 40, beams), 0.0)
-        scans[k, :, 1] = angles
-        scans[k, :, 2] = np.where(ok, rng_mm, 0.0)
-    return scans, poses
 
 
 def relative_poses(poses: np.ndarray) -> np.ndarray:
@@ -570,10 +491,10 @@ def k1_registration(cfg, n_map: int, rng) -> tuple:
 
 
 def k1_against_plain(what: str, one: tuple, kw: dict) -> tuple:
-    """``icp_fused`` against ``icp_fused_plain`` on the same registration:
+    """``icp_fused`` against ``icp_fused_plain`` on the same registrations:
     poses within 1 mm / 2e-3 rad, rmse within 1 mm, iterations within 5.
     Returns (the kernel's four outputs, (mm, rad, rmse mm, the plain
-    version's iterations), the plain version as a function)."""
+    version's most iterations), the plain version as a function)."""
     import torch
 
     from icp_slam_yolo_tpu_torch.ops.pallas.icp_fused import _finish, _prepare, icp_fused, icp_fused_plain
@@ -590,8 +511,9 @@ def k1_against_plain(what: str, one: tuple, kw: dict) -> tuple:
     drm = float((rmse_k - rmse_p).abs().max())
     _require(dpos <= 1.0 and dang <= 2e-3 and drm <= 1.0,
              f"{what}: kernel vs plain pose {dpos} mm / {dang} rad, rmse {drm} mm")
-    _require(abs(int(it_k) - int(it_p)) <= 5, f"{what}: iterations {int(it_k)} vs {int(it_p)}")
-    return got, (dpos, dang, drm, int(it_p)), plain_fn
+    gap = int((it_k - it_p).abs().max())
+    _require(gap <= 5, f"{what}: iterations {it_k.tolist()} vs {it_p.tolist()}")
+    return got, (dpos, dang, drm, int(it_p.max())), plain_fn
 
 
 def check_kernels(cfg) -> dict:
@@ -4090,6 +4012,107 @@ def label_path() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 16: cli bench
+
+# the JSON line's keys, as the root ``bench.py`` prints them (`bench.py:533-637`), and the port's own
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "secondary", "protocol", "data", "device")
+BENCH_READINGS = (
+    "single_pair_latency_ms", "single_pair_fixed50_ms", "sequence_scans_per_sec",
+    "sequence_scans_per_sec_offline_preset", "sequence_scans_per_sec_realtime_preset", "detect_fps_640",
+    "detect_gflop_per_image", "detect_achieved_tflops", "detect_mfu", "detect_fps_640_b128", "detect_mfu_b128",
+    "fleet_scans_per_sec", "fleet_matched_single_scans_per_sec", "fused_ticks_per_sec",
+    "fused_ticks_per_sec_triggered", "fused_slam_only_ticks_per_sec", "fused_detect_b2_only_ticks_per_sec",
+    "train_steps_per_sec_b16_640", "train_steps_per_sec_f32_b16_640", "baseline_cpu_reg_per_sec",
+)
+BENCH_KERNELS = ("icp_fused", "raster_update", "nn_argmin", "raster_update_grid", "conv1x1_silu", "conv3x3_silu",
+                 "conv3x3s2_silu", "c2f_fused")
+
+
+def _bench_numbers(line: dict) -> dict:
+    """The line's readings as numbers: the headline, ``vs_baseline`` and every
+    secondary reading (the matched single stream's point and range)."""
+    out = {"value": line["value"], "vs_baseline": line["vs_baseline"]}
+    for k, v in line["secondary"].items():
+        if isinstance(v, dict):
+            out.update({f"{k}.point": v["point"], f"{k}.min": v["range"][0], f"{k}.max": v["range"][1]})
+        elif not isinstance(v, str):
+            out[k] = v
+    return out
+
+
+def bench_path() -> dict:
+    """Phase 16: `cli bench`, the port's registration benchmark.  The entry
+    point once in a subprocess (headline only: its last line holds the root
+    ``bench.py``'s keys); K1 at the bench pair's shapes (B = 64, 50
+    iterations, no convergence test) against its plain version; then
+    `bench.run` with every reading (what ``cli bench --all`` calls) between a
+    reset and a reading of the launch counters: every key present and
+    finite, every reading on its side of its bound, the bench's own checks
+    passed, and K1-K8 each launched.  Returns the launches."""
+    from icp_slam_yolo_tpu_torch import bench
+    from icp_slam_yolo_tpu_torch.ops import pallas
+
+    t_phase = time.perf_counter()
+    out, sub_launches = _cli(["bench"], "cli bench")
+    line = json.loads(out.splitlines()[-1])
+    _require(all(k in line for k in BENCH_KEYS) and line["metric"] == "icp_registrations_per_sec"
+             and line["protocol"] == bench.PROTOCOL, f"cli bench: keys {sorted(line)}")
+    _require(all(np.isfinite(v) for v in _bench_numbers(line).values()), f"cli bench: a reading not finite: {line}")
+    _require(sub_launches["icp_fused"] > 0, "cli bench: K1 never launched")
+    print(f"[16] cli bench (subprocess, headline only; its K1 launches {sub_launches['icp_fused']}): "
+          f"{json.dumps(line)}", flush=True)
+
+    src, tgt, data = bench.load_pair()
+    cfg = bench.icp_config(early_exit=False)
+    one = bench.batched_inputs(src, tgt, 64, "cuda")
+    kw = dict(iters=cfg.max_iterations, threshold_mm=cfg.threshold_mm, tolerance=cfg.tolerance)
+    _, (dpos, dang, drm, iters), _ = k1_against_plain("bench pair, B = 64", one, kw)
+    print(f"[16] K1 at the bench pair's shapes ({data}: 64 x {one[0].shape[1]} source slots ({len(src)} live) x "
+          f"{one[2].shape[1]} target slots ({len(tgt)} live), {iters} iterations, no convergence test) against its "
+          f"plain version: poses within {dpos:.3g} mm / {dang:.3g} rad, rmse within {drm:.3g} mm (tolerance 1 mm / "
+          f"2e-3 rad / 1 mm)", flush=True)
+    import torch
+
+    from icp_slam_yolo_tpu_torch.ops.pallas.icp_fused import icp_fused
+
+    one1 = tuple(x[:1].contiguous() for x in one)
+    kw1 = dict(kw, tolerance=bench.icp_config(early_exit=True).tolerance)
+    # CUDA events over back-to-back launches (the profiler degrades after phases 4-6 and 14-15)
+    times = [_cuda_ms(torch, lambda: icp_fused(*x, **k), 50) * 1e3 for x, k in ((one, kw), (one1, kw), (one1, kw1))]
+    print(f"[16] K1 us a call at the bench pair's shapes (CUDA events over 50 back-to-back launches): B = 64, 50 "
+          f"iterations {times[0]:.2f}; B = 1, 50 iterations {times[1]:.2f}; B = 1 to its convergence "
+          f"{times[2]:.2f}", flush=True)
+
+    pallas.reset_launches()
+    t0 = time.perf_counter()
+    res = bench.run(all_readings=True)
+    secs = time.perf_counter() - t0
+    launches = dict(pallas.LAUNCHES)
+    line, detail = res["line"], res["detail"]
+    readings = line["secondary"]
+    _require(all(k in line for k in BENCH_KEYS), f"bench --all: keys {sorted(line)}")
+    _require(all(k in readings for k in BENCH_READINGS), f"bench --all: readings missing: "
+             f"{sorted(set(BENCH_READINGS) - set(readings))}")
+    _require("implausible_readings" not in readings, f"bench --all: past their bounds: "
+             f"{readings.get('implausible_readings')}")
+    numbers = _bench_numbers(line)
+    _require(all(np.isfinite(v) for v in numbers.values()), f"bench --all: a reading not finite: {numbers}")
+    for name, bound in detail["bounds"].items():
+        v = line["value"] if name == "icp_registrations_per_sec" else readings[name]
+        v = v["point"] if isinstance(v, dict) else v
+        _require(v >= bound if name.endswith("_ms") else v <= bound, f"bench --all: {name} {v} past its bound {bound}")
+    _require(all(c["ok"] for c in detail["checks"].values()), f"bench --all: checks {detail['checks']}")
+    for name in BENCH_KERNELS:
+        _require(launches[name] > 0, f"bench --all never launched {name}")
+    for name, v in numbers.items():
+        bound = detail["bounds"].get(name.split(".")[0] if name.endswith(".point") else name)
+        print(f"[16] {name} = {v!r}" + ("" if bound is None else f" (bound {bound!r})"), flush=True)
+    print(f"[16] bench --all ({line['data']} scans, {line['device']}): {secs:.1f} s; checks "
+          f"{json.dumps(detail['checks'])}; samples {json.dumps(line['samples'])}; launches {launches}", flush=True)
+    print(f"[16] phase 16 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4097,14 +4120,19 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--phases", choices=("all", "slam", "detector", "tick", "serve", "train", "label", "shared",
-                                             "dist"),
+                                             "dist", "bench"),
                         default="all",
                         help="run every phase (the default: the only run that ends in the result line), or only "
                              "the SLAM and fleet phases 3-6, only the detector phases 7-9, only the tick (10), "
                              "only the entry points (11: server, CLI, .pt import), only training (12), only "
-                             "JPEG decoding and the labeling path (13), only the shared-map fleet (14) or only "
-                             "the paths across processes (15)")
+                             "JPEG decoding and the labeling path (13), only the shared-map fleet (14), only "
+                             "the paths across processes (15) or only cli bench (16)")
     phases = parser.parse_args(argv).phases
+    t_run = time.perf_counter()
+
+    def lap(what: str) -> None:  # where the script's time goes, phase by phase
+        print(f"[t] {what} done at {time.perf_counter() - t_run:.1f} s", flush=True)
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -4140,6 +4168,7 @@ def main(argv=None) -> int:
         check_edge_cases(cfg)
         check_large_window(cfg)
         print(json.dumps({"batched": batched}))
+        lap("phase 3")
     if phases in ("all", "detector"):
         kernels.update(check_detector_kernels())
         for name, err in check_family_sites().items():
@@ -4149,27 +4178,39 @@ def main(argv=None) -> int:
         detector_times()
         for path in FAMILY_CHECKPOINTS:
             detector_times(path)
+        lap("phases 7-9")
     if phases in ("all", "tick"):
         paths.append(tick_path())
+        lap("phase 10")
     if phases in ("all", "serve"):
         paths.append(serve_path(build_s))
+        lap("phase 11")
     if phases in ("all", "train"):
         paths.append(train_path())
+        lap("phase 12")
     if phases in ("all", "label"):
         paths.append(label_path())
+        lap("phase 13")
     if phases in ("all", "slam"):
         paths += [replay(cfg)[0], fleet(port.FLEET_CONFIG), presets(port.OFFLINE_CONFIG, port.REALTIME_CONFIG)]
+        lap("phases 4-6")
     if phases in ("all", "shared"):
         paths.append(shared_path(port.FLEET_CONFIG))
+        lap("phase 14")
     if phases in ("all", "dist"):
         paths.append(dist_path(port.FLEET_CONFIG))
+        lap("phase 15")
+    if phases in ("all", "bench"):
+        paths.append(bench_path())
+        lap("phase 16")
 
     rows = []
     order = ("icp_fused", "raster_update", "nn_argmin", "raster_update_grid", *DETECTOR_KERNELS)
     _require(phases != "all" or set(kernels) == set(order), f"kernels checked: {sorted(kernels)}")
     for name in (n for n in order if n in kernels):
         row = kernels[name]
-        row["launches"] = sum(p[name] for p in paths)  # over the slice, fleet, preset, detector, tick, serve, train, label, shared and dist paths
+        # over the slice, fleet, preset, detector, tick, serve, train, label, shared, dist and bench paths
+        row["launches"] = sum(p[name] for p in paths)
         _require(row["launches"] > 0, f"no path launched {name}")
         rows.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches", "max_abs_err",
                                          "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})

@@ -17,6 +17,10 @@
   comm-hub     the robot-side comm hub (the native link's server): prints
                inbound lines, echoes them with --echo
   comm-send    the station client: a handshake and/or one line, with the reply
+  bench        benchmark: ICP registrations/s on the card against the float64
+               NumPy oracle on the CPU (one JSON line); --all adds every
+               BASELINE.json configuration's readings and writes
+               chiprun_out/bench_detail_torch.json
 
 Every subcommand that runs a model runs on the CUDA card unless ``--device
 cpu`` is given (the kernels' plain PyTorch versions).  Frames and maps are
@@ -316,6 +320,12 @@ def cmd_split(args):
     print(f"split {n_train + n_val} examples -> {n_train} train / {n_val} val under {args.output}")
 
 
+def cmd_bench(args):
+    from icp_slam_yolo_tpu_torch import bench
+
+    bench.main(args.all, device=args.device, scan_dir=args.scan_dir)
+
+
 def main(argv=None):
     from icp_slam_yolo_tpu_torch.config import PRESETS
 
@@ -440,6 +450,15 @@ def main(argv=None):
     sp.add_argument("--ratio", type=float, default=0.8)
     sp.add_argument("--seed", type=int, default=42)
     sp.set_defaults(fn=cmd_split)
+
+    b = sub.add_parser("bench", help="benchmark: ICP registrations/s (one JSON line)")
+    b.add_argument("--all", action="store_true",
+                   help="also run the secondary benchmarks and write chiprun_out/bench_detail_torch.json")
+    b.add_argument("--scan-dir", default=None,
+                   help="the reference's Scan_data_1 directory (scans 350/355 are the pair); default: seeded "
+                        "synthetic scans")
+    device_arg(b)
+    b.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     args.fn(args)

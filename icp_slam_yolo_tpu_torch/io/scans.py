@@ -20,6 +20,11 @@ from typing import Sequence
 
 import numpy as np
 
+# a raw scan's gated cartesian points and SE(2) moves on the host (float64):
+# the server's scan overlay and the pairwise-registration command read these;
+# the pipeline gates on the device
+from icp_slam_yolo_tpu_torch.reference_impl.oracle import polar_gate, se2_apply  # noqa: F401
+
 # the two naming schemes in the bundled datasets:
 #   Scan_data_1/Scan_data_{i}.npy   (i from 1)
 #   scan_data_3/scan_{i}.npy        (i from 0)
@@ -101,22 +106,3 @@ def collate(scans: Sequence[np.ndarray], n_max: int = 512) -> np.ndarray:
     for i, s in enumerate(scans):
         out[i] = pad_scan(s, n_max)
     return out
-
-
-def polar_gate(scan: np.ndarray, gate) -> np.ndarray:
-    """A raw scan's gated cartesian points ``(M, 2)`` float64 (compacted),
-    on the host: the server's scan overlay and the pairwise-registration
-    command read these; the pipeline gates on the device."""
-    q, a, d = scan[:, 0], scan[:, 1], scan[:, 2]
-    keep = (d > gate.min_dist_mm) & (d < gate.max_dist_mm) & (q > gate.min_quality)
-    if gate.front_arc_only:
-        keep &= (a <= gate.front_arc_lo_deg) | (a >= gate.front_arc_hi_deg)
-    rad = np.deg2rad(a[keep])
-    y_sign = getattr(gate, "y_sign", -1.0)
-    return np.stack([d[keep] * np.cos(rad), y_sign * d[keep] * np.sin(rad)], axis=1)
-
-
-def se2_apply(pose: np.ndarray, xy: np.ndarray) -> np.ndarray:
-    """Points ``(M, 2)`` moved by the SE(2) pose ``(x, y, theta)`` (float64)."""
-    c, s = np.cos(pose[2]), np.sin(pose[2])
-    return xy @ np.array([[c, -s], [s, c]]).T + pose[:2]
