@@ -220,8 +220,11 @@ def _traced(torch, fn):
     """Run ``fn`` under ``torch.profiler`` and return the profile.  The
     tracer may miss device work of the first milliseconds after it is
     switched on and of the last before it is switched off, so ``fn`` runs
-    between two idle spins of the card (`_kernel_events` leaves them out)."""
+    between two idle spins of the card (`_kernel_events` leaves them out).
+    The port's stage span records are dropped after it."""
     from torch.profiler import ProfilerActivity, profile
+
+    from icp_slam_yolo_tpu_torch.utils.profiling import clear_spans
 
     def spin():
         torch.cuda._sleep(20_000_000)  # ~10 ms of a kernel that does nothing
@@ -232,6 +235,7 @@ def _traced(torch, fn):
         fn()
         torch.cuda.synchronize()
         spin()
+    clear_spans()  # the stage spans recorded: nothing here reads them
     return prof
 
 

@@ -23,7 +23,7 @@ detect, register, train, eval, label-check, labeler, split, comm-hub,
 comm-send), the control-panel server (`serve`), the sensors
 (`acquisition`: the LiDAR scanner and its recorder, the cameras), the robot
 link and the batched scan loader (`native`: ctypes over ``g++``-built
-C++), the profiling scopes (`utils.profiling`), the map
+C++), the stage spans and trace (`utils.profiling`), the map
 and image files (`io.maps`, `io.render`, `utils.images`: PNG and JPEG in
 and out without an imaging package, JPEG decoded to PIL's pixels), the
 Ultralytics ``.pt`` import (`io.torch_import`) and the dataset-labeling

@@ -21,6 +21,7 @@ from icp_slam_yolo_tpu_torch.convert import detector_params_from_numpy
 from icp_slam_yolo_tpu_torch.device import resolve_device
 from icp_slam_yolo_tpu_torch.models.yolo import BN_EPS, YOLO, decode_topk, fold_batchnorm
 from icp_slam_yolo_tpu_torch.ops.nms import Detections, suppress
+from icp_slam_yolo_tpu_torch.utils.profiling import span
 
 LETTERBOX_FILL = 114.0 / 255.0  # Ultralytics pad gray
 
@@ -98,14 +99,21 @@ class Detector:
 
     @torch.no_grad()
     def _predict(self, images: torch.Tensor):
-        outs = self.model(images)
-        protos = None
-        if self.task == "segment":
-            outs, protos = outs
-        n_anchors = sum(o[0].shape[1] * o[0].shape[2] for o in outs)
-        k = min(self.max_detections, n_anchors)
-        boxes, scores, classes, idx, extras = decode_topk(outs, self.img_size, k, task=self.task)
-        dets = suppress(boxes, scores, classes, idx, scores >= self.conf_threshold, self.iou_threshold)
+        """The device half of a batch, under the root span ``detect.batch``
+        and its stages ``detect.forward``, ``detect.decode`` and
+        ``detect.nms`` (`utils/profiling.span`)."""
+        with span("detect.batch", images.device):
+            with span("detect.forward"):
+                outs = self.model(images)
+            with span("detect.decode"):
+                protos = None
+                if self.task == "segment":
+                    outs, protos = outs
+                n_anchors = sum(o[0].shape[1] * o[0].shape[2] for o in outs)
+                k = min(self.max_detections, n_anchors)
+                boxes, scores, classes, idx, extras = decode_topk(outs, self.img_size, k, task=self.task)
+            with span("detect.nms"):
+                dets = suppress(boxes, scores, classes, idx, scores >= self.conf_threshold, self.iou_threshold)
         return dets, extras, protos
 
     def preprocess(self, frame: np.ndarray):

@@ -21,6 +21,8 @@ from typing import NamedTuple
 
 import torch
 
+from icp_slam_yolo_tpu_torch.utils.profiling import span
+
 ROUNDS_PER_CHECK = 4
 
 
@@ -67,7 +69,9 @@ def nms(boxes, scores, classes, conf_threshold: float = 0.5, iou_threshold: floa
 def suppress(top_boxes, top_scores, top_classes, top_idx, cand_valid, iou_threshold: float = 0.45) -> Detections:
     """Greedy suppression over score-descending candidates ``(B, K, ...)``
     (row 0 of an image is its best score); rows that are no candidates have
-    ``cand_valid`` false.  Exact: see the module docstring."""
+    ``cand_valid`` false.  Exact: see the module docstring.  Adds the
+    rounds run and the host reads made to the enclosing span's ``rounds``
+    and ``reads`` counts (`utils/profiling.span.count`)."""
     k = top_scores.shape[-1]
     iou = box_iou(top_boxes, top_boxes)
     same_class = top_classes[..., :, None] == top_classes[..., None, :]
@@ -75,14 +79,17 @@ def suppress(top_boxes, top_scores, top_classes, top_idx, cand_valid, iou_thresh
     # sup[.., j, i]: an earlier (higher-score) kept j removes i
     sup = (iou > iou_threshold) & same_class & (order[:, None] < order[None, :])
     keep = cand_valid
-    rounds = 0
+    rounds = reads = 0
     while rounds < k:
         for _ in range(min(ROUNDS_PER_CHECK, k - rounds)):
             prev = keep
             keep = cand_valid & ~(prev[..., :, None] & sup).any(dim=-2)
             rounds += 1
+        reads += 1
         if torch.equal(keep, prev):  # the one host read per group of rounds
             break
+    span.count("rounds", rounds)
+    span.count("reads", reads)
     zero = torch.zeros((), dtype=top_boxes.dtype, device=top_boxes.device)
     return Detections(
         boxes=torch.where(keep[..., None], top_boxes, zero),

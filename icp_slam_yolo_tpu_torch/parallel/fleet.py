@@ -21,6 +21,7 @@ from icp_slam_yolo_tpu_torch.device import resolve_device
 from icp_slam_yolo_tpu_torch.parallel.distributed import all_sum_
 from icp_slam_yolo_tpu_torch.parallel.mesh import make_mesh, mesh_device, rank_block
 from icp_slam_yolo_tpu_torch.slam import pipeline
+from icp_slam_yolo_tpu_torch.utils.profiling import span
 
 
 def fleet_init(first_scans: torch.Tensor, cfg: SlamConfig) -> pipeline.SlamState:
@@ -43,22 +44,26 @@ def make_fleet_step(cfg: SlamConfig, mesh=None):
     pass a running sequence index to keep the realtime prune/downsample
     cadence a host branch; callers that omit it fall back to the per-robot
     counter on the device (select semantics: correct, slower).
+
+    The step and the statistics lie under the root span ``slam.step``
+    (`utils/profiling.span`), the step's stages under it.
     """
     step = pipeline.make_batched_step(cfg)
     group = None if mesh is None else mesh.get_group("data")
 
     def fleet_step(states, scans, tick=None):
-        states, outs = step(states, scans, tick)
-        finite = torch.isfinite(outs.rmse)
-        rmse_sum = torch.where(finite, outs.rmse, torch.zeros_like(outs.rmse)).sum()
-        if group is None:
-            mean_rmse = rmse_sum / torch.clamp(finite.sum(), min=1)
-            stats = {"mean_rmse": mean_rmse, "accept_rate": outs.accepted.to(torch.float32).mean()}
-        else:
-            sums = all_sum_(torch.stack([rmse_sum, finite.sum().to(torch.float32),
-                                         outs.accepted.sum().to(torch.float32),
-                                         rmse_sum.new_full((), float(outs.accepted.shape[0]))]), group)
-            stats = {"mean_rmse": sums[0] / torch.clamp(sums[1], min=1), "accept_rate": sums[2] / sums[3]}
+        with span("slam.step", scans.device):
+            states, outs = step(states, scans, tick)
+            finite = torch.isfinite(outs.rmse)
+            rmse_sum = torch.where(finite, outs.rmse, torch.zeros_like(outs.rmse)).sum()
+            if group is None:
+                mean_rmse = rmse_sum / torch.clamp(finite.sum(), min=1)
+                stats = {"mean_rmse": mean_rmse, "accept_rate": outs.accepted.to(torch.float32).mean()}
+            else:
+                sums = all_sum_(torch.stack([rmse_sum, finite.sum().to(torch.float32),
+                                             outs.accepted.sum().to(torch.float32),
+                                             rmse_sum.new_full((), float(outs.accepted.shape[0]))]), group)
+                stats = {"mean_rmse": sums[0] / torch.clamp(sums[1], min=1), "accept_rate": sums[2] / sums[3]}
         return states, outs, stats
 
     return fleet_step

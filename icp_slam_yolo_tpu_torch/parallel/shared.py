@@ -38,6 +38,10 @@ downsampled at the identity pose.  The GICP rescue (``cfg.icp.
 rescue_estimator``) is a host branch taken when some robot rejected: the
 step's one host read, as in the batched pipeline; configurations without a
 rescue make none.
+
+The step's stage spans (`utils/profiling.span`) are the batched pipeline's,
+under the root ``slam.step``; ``slam.occupancy`` holds the grid copies, K4
+and the merge.
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ from icp_slam_yolo_tpu_torch.ops.voxel import compact, voxel_downsample
 from icp_slam_yolo_tpu_torch.parallel.distributed import all_concat, all_sum_
 from icp_slam_yolo_tpu_torch.parallel.mesh import mesh_device, rank_block
 from icp_slam_yolo_tpu_torch.slam.pipeline import _rescue_icp_cfg, _where, check_supported_config
+from icp_slam_yolo_tpu_torch.utils.profiling import span
 
 P_EPS = 1e-6  # occupancy probabilities are clipped into [P_EPS, 1] before the log
 
@@ -148,65 +153,78 @@ def make_shared_step(cfg: SlamConfig = SlamConfig(), mesh=None):
     ranks = 1 if group is None else torch.distributed.get_world_size(group)
 
     def step(state: SharedState, scans: torch.Tensor, tick: int):
+        with span("slam.step", scans.device):
+            return body(state, scans, tick)
+
+    def body(state: SharedState, scans: torch.Tensor, tick: int):
         r = scans.shape[0]
         pose, prev_xy, prev_valid = state.pose, state.prev_xy, state.prev_valid
-        xy, valid = geo.polar_to_cartesian(scans, cfg.gate)
+        with span("slam.gate"):
+            xy, valid = geo.polar_to_cartesian(scans, cfg.gate)
         if cfg.use_outlier_filter:
-            valid = statistical_outlier_mask(xy, valid, cfg.outlier_nb_neighbors, cfg.outlier_std_ratio)
-        enough = valid.sum(-1) >= cfg.icp.min_points
+            with span("slam.outlier"):
+                valid = statistical_outlier_mask(xy, valid, cfg.outlier_nb_neighbors, cfg.outlier_std_ratio)
 
-        # every robot registers against the whole shared map, masked to its radius
-        d2 = ((state.map_xy[None] - pose[:, None, :2]) ** 2).sum(-1)
-        local = state.map_valid[None] & (d2 < r2)
-        use_local = local.sum(-1, keepdim=True) >= cfg.min_local_map_points
-        tgt_valid = torch.where(use_local, local, state.map_valid[None]).contiguous()
-        tgt_xy = state.map_xy.expand(r, *state.map_xy.shape).contiguous()
+        with span("slam.target"):
+            # every robot registers against the whole shared map, masked to its radius
+            d2 = ((state.map_xy[None] - pose[:, None, :2]) ** 2).sum(-1)
+            local = state.map_valid[None] & (d2 < r2)
+            use_local = local.sum(-1, keepdim=True) >= cfg.min_local_map_points
+            tgt_valid = torch.where(use_local, local, state.map_valid[None]).contiguous()
+            tgt_xy = state.map_xy.expand(r, *state.map_xy.shape).contiguous()
 
-        ds_xy, ds_valid = voxel_downsample(xy, valid, cfg.icp.voxel_size_mm)
-        init_pose = geo.se2_extrapolate(pose, state.prev_pose) if cfg.motion_model else pose
-        res = icp_masked(ds_xy, ds_valid, tgt_xy, tgt_valid, init_pose, cfg.icp)
-        accepted = enough & (res.rmse <= cfg.icp.max_rmse)
-        if cfg.icp.rescue_estimator and not bool(accepted.all()):  # the step's one host read
-            second = icp_masked(ds_xy, ds_valid, tgt_xy, tgt_valid, init_pose, _rescue_icp_cfg(cfg))
-            res = _where(accepted, res, RegistrationResult(*(y.to(x.dtype) for x, y in zip(res, second))))
+        with span("slam.register"):
+            enough = valid.sum(-1) >= cfg.icp.min_points
+            ds_xy, ds_valid = voxel_downsample(xy, valid, cfg.icp.voxel_size_mm)
+            init_pose = geo.se2_extrapolate(pose, state.prev_pose) if cfg.motion_model else pose
+            res = icp_masked(ds_xy, ds_valid, tgt_xy, tgt_valid, init_pose, cfg.icp)
             accepted = enough & (res.rmse <= cfg.icp.max_rmse)
+            if cfg.icp.rescue_estimator and not bool(accepted.all()):  # the step's one host read
+                second = icp_masked(ds_xy, ds_valid, tgt_xy, tgt_valid, init_pose, _rescue_icp_cfg(cfg))
+                res = _where(accepted, res, RegistrationResult(*(y.to(x.dtype) for x, y in zip(res, second))))
+                accepted = enough & (res.rmse <= cfg.icp.max_rmse)
 
-        new_pose = torch.where(accepted[:, None], res.pose, pose)
-        new_global = geo.se2_apply(res.pose, xy)
-        cur_xy = torch.where(accepted[:, None, None], new_global, prev_xy)
-        cur_valid = torch.where(accepted[:, None], valid, prev_valid)
+        with span("slam.update"):
+            new_pose = torch.where(accepted[:, None], res.pose, pose)
+            new_global = geo.se2_apply(res.pose, xy)
+            cur_xy = torch.where(accepted[:, None, None], new_global, prev_xy)
+            cur_valid = torch.where(accepted[:, None], valid, prev_valid)
 
-        # insert candidates, filtered against the shared state before the update
-        dd_xy, dd_valid = voxel_downsample(new_global, valid, cfg.duplicate_voxel_mm)
-        add_valid = dynamic_points_mask(dd_xy, dd_valid, prev_xy, prev_valid, cfg.dynamic_distance_mm)
-        add_valid = occupancy_keep_mask(dd_xy, add_valid, state.occ.expand(r, *state.occ.shape), cfg.map,
-                                        cfg.occupancy.free_threshold)
-        add_valid = add_valid & (accepted & enough)[:, None]
+            with span("slam.filter"):
+                # insert candidates, filtered against the shared state before the update
+                dd_xy, dd_valid = voxel_downsample(new_global, valid, cfg.duplicate_voxel_mm)
+                add_valid = dynamic_points_mask(dd_xy, dd_valid, prev_xy, prev_valid, cfg.dynamic_distance_mm)
+                add_valid = occupancy_keep_mask(dd_xy, add_valid, state.occ.expand(r, *state.occ.shape), cfg.map,
+                                                cfg.occupancy.free_threshold)
+                add_valid = add_valid & (accepted & enough)[:, None]
+                occ_xy, occ_valid = voxel_downsample(cur_xy, cur_valid, 2.0 * cfg.map.resolution_mm_per_px)
 
-        # each robot's occupancy update of its own copy of the shared grid, merged
-        occ_xy, occ_valid = voxel_downsample(cur_xy, cur_valid, 2.0 * cfg.map.resolution_mm_per_px)
-        occ_r = update_occupancy(_robot_grids(state.occ, r), occ_xy, occ_valid & enough[:, None],
-                                 new_pose[:, :2], cfg.map, cfg.occupancy, in_place=True)
-        new_occ = merge_occupancy(state.occ, occ_r, group)
-        new_pose = torch.where(enough[:, None], new_pose, pose)
+            with span("slam.occupancy"):
+                # each robot's occupancy update of its own copy of the shared grid, merged
+                occ_r = update_occupancy(_robot_grids(state.occ, r), occ_xy, occ_valid & enough[:, None],
+                                         new_pose[:, :2], cfg.map, cfg.occupancy, in_place=True)
+                new_occ = merge_occupancy(state.occ, occ_r, group)
+            new_pose = torch.where(enough[:, None], new_pose, pose)
 
-        cand_xy, cand_valid = _candidates(dd_xy.reshape(-1, 2), add_valid.reshape(-1), group)
-        big_xy = torch.cat([state.map_xy, cand_xy])
-        big_valid = torch.cat([state.map_valid, cand_valid])
-        if (tick + 1) % MAP_MAINTENANCE_INTERVAL == 0:
-            # the prune's window is anchored at the fleet's mean position
-            anchor = new_pose[:, :2].sum(0)
-            if group is not None:
-                all_sum_(anchor, group)
-            anchor = anchor / (r * ranks)
-            pruned = prune_keep_mask(big_xy, big_valid, new_occ, anchor, cfg.map, cfg.occupancy)
-            ds2_xy, ds2_valid = voxel_downsample(big_xy, pruned, cfg.map_downsample_voxel_mm)
-            over = pruned.sum() > cfg.map_downsample_trigger
-            big_xy = torch.where(over, ds2_xy, big_xy)
-            big_valid = torch.where(over, ds2_valid, pruned)
-        map_xy, map_valid = compact(big_xy, big_valid, cfg.map_capacity)
-        new_state = SharedState(map_xy=map_xy, map_valid=map_valid, occ=new_occ, pose=new_pose,
-                                prev_pose=pose, prev_xy=cur_xy, prev_valid=cur_valid)
+            cand_xy, cand_valid = _candidates(dd_xy.reshape(-1, 2), add_valid.reshape(-1), group)
+            big_xy = torch.cat([state.map_xy, cand_xy])
+            big_valid = torch.cat([state.map_valid, cand_valid])
+            if (tick + 1) % MAP_MAINTENANCE_INTERVAL == 0:
+                with span("slam.maintain"):
+                    # the prune's window is anchored at the fleet's mean position
+                    anchor = new_pose[:, :2].sum(0)
+                    if group is not None:
+                        all_sum_(anchor, group)
+                    anchor = anchor / (r * ranks)
+                    pruned = prune_keep_mask(big_xy, big_valid, new_occ, anchor, cfg.map, cfg.occupancy)
+                    ds2_xy, ds2_valid = voxel_downsample(big_xy, pruned, cfg.map_downsample_voxel_mm)
+                    over = pruned.sum() > cfg.map_downsample_trigger
+                    big_xy = torch.where(over, ds2_xy, big_xy)
+                    big_valid = torch.where(over, ds2_valid, pruned)
+            with span("slam.compact"):
+                map_xy, map_valid = compact(big_xy, big_valid, cfg.map_capacity)
+            new_state = SharedState(map_xy=map_xy, map_valid=map_valid, occ=new_occ, pose=new_pose,
+                                    prev_pose=pose, prev_xy=cur_xy, prev_valid=cur_valid)
         return new_state, (new_pose, res.rmse, accepted)
 
     return step

@@ -5,8 +5,8 @@ Counterpart of the JAX package's ``slam/pipeline.py``.  Per scan (offline
 semantics, the reference's `slam_offline.py:344-428`): gate -> optional
 statistical outlier filter -> local-map mask -> voxel-downsample the scan ->
 ICP (K1) -> RMSE gate -> on accept: transform to global -> dynamic-point
-filter (K3) -> occupancy free-space filter -> insert -> downsample the map
-when over the trigger -> occupancy update (K2 or K4) -> prune -> compact.  A
+filter (K3) -> occupancy free-space filter -> occupancy update (K2 or K4)
+-> insert -> downsample the map when over the trigger -> prune -> compact.  A
 rejected scan changes nothing but ``step`` and ``prev_pose``.  Realtime
 semantics (``cfg.realtime_semantics``, `mainn.py:316-361`) keep the pose on
 reject but still update the occupancy grid, and prune and downsample the map
@@ -38,6 +38,15 @@ synchronisation.  Two exceptions:
 The maintenance cadence is a host ``if`` when the caller passes ``tick`` (a
 host integer, the sequence index) and a per-robot select on ``maint_count``
 when it does not.
+
+Stage spans (`utils/profiling.span`, free while no profiler collects): every
+line of the step lies under one of ``slam.gate``, ``slam.outlier``,
+``slam.target`` (the local-map crop), ``slam.register`` (downsample, motion
+model, ICP, rescue, accept test) and ``slam.update``, whose children are
+``slam.filter`` (dedup, dynamic and free-space filters), ``slam.occupancy``,
+``slam.maintain`` (prune and downsample, on the cadence) and
+``slam.compact``.  The fleet step (`parallel/fleet.py`) opens the root,
+``slam.step``, around them.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ from icp_slam_yolo_tpu_torch.ops import geometry as geo
 from icp_slam_yolo_tpu_torch.ops.outliers import dynamic_points_mask, statistical_outlier_mask
 from icp_slam_yolo_tpu_torch.ops.raster import occupancy_keep_mask, prune_keep_mask, update_occupancy
 from icp_slam_yolo_tpu_torch.ops.voxel import compact, voxel_downsample, voxel_downsample_batched
+from icp_slam_yolo_tpu_torch.utils.profiling import span
 
 
 class SlamState(NamedTuple):
@@ -195,20 +205,24 @@ def make_batched_step(cfg: SlamConfig = SlamConfig(), *, in_place: bool = True):
         """The accepted-scan update of the map and the occupancy grid (a
         robot's window is committed only where ``accepted``)."""
         cur_xy = geo.se2_apply(pose, xy)
-        if cfg.use_duplicate_filter:
-            cur_dd, valid_dd = voxel_downsample(cur_xy, valid, cfg.duplicate_voxel_mm)
-        else:
-            cur_dd, valid_dd = cur_xy, valid
-        add_valid = dynamic_points_mask(cur_dd, valid_dd, state.prev_xy, state.prev_valid,
-                                        cfg.dynamic_distance_mm)
-        add_valid = occupancy_keep_mask(cur_dd, add_valid, state.occ, cfg.map,
-                                        cfg.occupancy.free_threshold)
-        big_xy, big_valid = downsample_over_trigger(torch.cat([state.map_xy, cur_dd], dim=1),
-                                                    torch.cat([state.map_valid, add_valid], dim=1))
-        occ = update_occupancy(state.occ, cur_xy, valid, pose[:, :2], cfg.map, cfg.occupancy, accepted,
-                               in_place=in_place)
-        big_valid = prune_keep_mask(big_xy, big_valid, occ, pose[:, :2], cfg.map, cfg.occupancy)
-        map_xy, map_valid = compact(big_xy, big_valid, cfg.map_capacity)
+        with span("slam.filter"):
+            if cfg.use_duplicate_filter:
+                cur_dd, valid_dd = voxel_downsample(cur_xy, valid, cfg.duplicate_voxel_mm)
+            else:
+                cur_dd, valid_dd = cur_xy, valid
+            add_valid = dynamic_points_mask(cur_dd, valid_dd, state.prev_xy, state.prev_valid,
+                                            cfg.dynamic_distance_mm)
+            add_valid = occupancy_keep_mask(cur_dd, add_valid, state.occ, cfg.map,
+                                            cfg.occupancy.free_threshold)
+        with span("slam.occupancy"):
+            occ = update_occupancy(state.occ, cur_xy, valid, pose[:, :2], cfg.map, cfg.occupancy, accepted,
+                                   in_place=in_place)
+        with span("slam.maintain"):  # every step in these semantics
+            big_xy, big_valid = downsample_over_trigger(torch.cat([state.map_xy, cur_dd], dim=1),
+                                                        torch.cat([state.map_valid, add_valid], dim=1))
+            big_valid = prune_keep_mask(big_xy, big_valid, occ, pose[:, :2], cfg.map, cfg.occupancy)
+        with span("slam.compact"):
+            map_xy, map_valid = compact(big_xy, big_valid, cfg.map_capacity)
         return SlamState(
             pose=pose, prev_pose=state.pose, map_xy=map_xy, map_valid=map_valid, occ=occ,
             prev_xy=cur_xy, prev_valid=valid, step=state.step + 1,
@@ -226,18 +240,20 @@ def make_batched_step(cfg: SlamConfig = SlamConfig(), *, in_place: bool = True):
         new_global = geo.se2_apply(res.pose, xy)
         cur_xy = torch.where(accepted[:, None, None], new_global, state.prev_xy)
         cur_valid = torch.where(accepted[:, None], valid, state.prev_valid)
-        # duplicate filter and occupancy dedup as one two-row downsample
-        (dd_xy, occ_xy), (dd_valid, occ_valid) = voxel_downsample_batched(
-            torch.stack([new_global, cur_xy]), torch.stack([valid, cur_valid]),
-            (cfg.duplicate_voxel_mm, 2.0 * cfg.map.resolution_mm_per_px),
-        )
-        add_valid = dynamic_points_mask(dd_xy, dd_valid, state.prev_xy, state.prev_valid,
-                                        cfg.dynamic_distance_mm)
-        add_valid = occupancy_keep_mask(dd_xy, add_valid, state.occ, cfg.map, cfg.occupancy.free_threshold)
+        with span("slam.filter"):
+            # duplicate filter and occupancy dedup as one two-row downsample
+            (dd_xy, occ_xy), (dd_valid, occ_valid) = voxel_downsample_batched(
+                torch.stack([new_global, cur_xy]), torch.stack([valid, cur_valid]),
+                (cfg.duplicate_voxel_mm, 2.0 * cfg.map.resolution_mm_per_px),
+            )
+            add_valid = dynamic_points_mask(dd_xy, dd_valid, state.prev_xy, state.prev_valid,
+                                            cfg.dynamic_distance_mm)
+            add_valid = occupancy_keep_mask(dd_xy, add_valid, state.occ, cfg.map, cfg.occupancy.free_threshold)
         big_xy = torch.cat([state.map_xy, dd_xy], dim=1)
         big_valid = torch.cat([state.map_valid, add_valid & accepted[:, None]], dim=1)
-        occ = update_occupancy(state.occ, occ_xy, occ_valid, pose[:, :2], cfg.map, cfg.occupancy, enough,
-                               in_place=in_place)
+        with span("slam.occupancy"):
+            occ = update_occupancy(state.occ, occ_xy, occ_valid, pose[:, :2], cfg.map, cfg.occupancy, enough,
+                                   in_place=in_place)
 
         def maintain():
             pruned = prune_keep_mask(big_xy, big_valid, occ, pose[:, :2], cfg.map, cfg.occupancy)
@@ -245,13 +261,16 @@ def make_batched_step(cfg: SlamConfig = SlamConfig(), *, in_place: bool = True):
 
         new_maint = state.maint_count + 1
         if tick is None:
-            do_maint = (new_maint % MAP_MAINTENANCE_INTERVAL) == 0
-            m_xy, m_valid = maintain()
-            big_xy = torch.where(do_maint[:, None, None], m_xy, big_xy)
-            big_valid = torch.where(do_maint[:, None], m_valid, big_valid)
+            with span("slam.maintain"):
+                do_maint = (new_maint % MAP_MAINTENANCE_INTERVAL) == 0
+                m_xy, m_valid = maintain()
+                big_xy = torch.where(do_maint[:, None, None], m_xy, big_xy)
+                big_valid = torch.where(do_maint[:, None], m_valid, big_valid)
         elif (int(tick) + 1) % MAP_MAINTENANCE_INTERVAL == 0:
-            big_xy, big_valid = maintain()
-        map_xy, map_valid = compact(big_xy, big_valid, cfg.map_capacity)
+            with span("slam.maintain"):
+                big_xy, big_valid = maintain()
+        with span("slam.compact"):
+            map_xy, map_valid = compact(big_xy, big_valid, cfg.map_capacity)
         return SlamState(
             pose=pose, prev_pose=state.pose, map_xy=map_xy, map_valid=map_valid, occ=occ,
             prev_xy=cur_xy, prev_valid=cur_valid, step=state.step + 1,
@@ -259,57 +278,63 @@ def make_batched_step(cfg: SlamConfig = SlamConfig(), *, in_place: bool = True):
         )
 
     def step(state: SlamState, scans: torch.Tensor, tick: int | None = None):
-        xy, valid = geo.polar_to_cartesian(scans, cfg.gate)
+        dev = scans.device
+        with span("slam.gate", dev):
+            xy, valid = geo.polar_to_cartesian(scans, cfg.gate)
         if cfg.use_outlier_filter:
-            valid = statistical_outlier_mask(xy, valid, cfg.outlier_nb_neighbors, cfg.outlier_std_ratio)
-        n_points = valid.sum(-1)
-        enough = n_points >= cfg.icp.min_points
+            with span("slam.outlier", dev):
+                valid = statistical_outlier_mask(xy, valid, cfg.outlier_nb_neighbors, cfg.outlier_std_ratio)
 
-        # local-map mask: radius crop, full map when too few points survive
-        d2 = ((state.map_xy - state.pose[:, None, :2]) ** 2).sum(-1)
-        local = state.map_valid & (d2 < r2)
-        use_local = local.sum(-1, keepdim=True) >= cfg.min_local_map_points
-        tgt_valid = torch.where(use_local, local, state.map_valid)
-        if cfg.local_map_capacity < cfg.map_capacity:
-            tgt_xy, tgt_valid = compact(state.map_xy, tgt_valid, cfg.local_map_capacity)
-        else:
-            tgt_xy = state.map_xy
-        tgt_xy, tgt_valid = tgt_xy.contiguous(), tgt_valid.contiguous()
+        with span("slam.target", dev):
+            # local-map mask: radius crop, full map when too few points survive
+            d2 = ((state.map_xy - state.pose[:, None, :2]) ** 2).sum(-1)
+            local = state.map_valid & (d2 < r2)
+            use_local = local.sum(-1, keepdim=True) >= cfg.min_local_map_points
+            tgt_valid = torch.where(use_local, local, state.map_valid)
+            if cfg.local_map_capacity < cfg.map_capacity:
+                tgt_xy, tgt_valid = compact(state.map_xy, tgt_valid, cfg.local_map_capacity)
+            else:
+                tgt_xy = state.map_xy
+            tgt_xy, tgt_valid = tgt_xy.contiguous(), tgt_valid.contiguous()
 
-        ds_xy, ds_valid = voxel_downsample(xy, valid, cfg.icp.voxel_size_mm)
-        init_pose = geo.se2_extrapolate(state.pose, state.prev_pose) if cfg.motion_model else state.pose
-        res = icp_masked(ds_xy, ds_valid, tgt_xy, tgt_valid, init_pose, cfg.icp)
-        accepted = enough & (res.rmse <= cfg.icp.max_rmse)
-        # second chance for rejected scans: the step's one host read
-        if cfg.icp.rescue_estimator and not bool(accepted.all()):
-            second = icp_masked(ds_xy, ds_valid, tgt_xy, tgt_valid, init_pose, _rescue_icp_cfg(cfg))
-            res = _where(accepted, res, RegistrationResult(*(y.to(x.dtype) for x, y in zip(res, second))))
+        with span("slam.register", dev):
+            n_points = valid.sum(-1)
+            enough = n_points >= cfg.icp.min_points
+            ds_xy, ds_valid = voxel_downsample(xy, valid, cfg.icp.voxel_size_mm)
+            init_pose = geo.se2_extrapolate(state.pose, state.prev_pose) if cfg.motion_model else state.pose
+            res = icp_masked(ds_xy, ds_valid, tgt_xy, tgt_valid, init_pose, cfg.icp)
             accepted = enough & (res.rmse <= cfg.icp.max_rmse)
+            # second chance for rejected scans: the step's one host read
+            if cfg.icp.rescue_estimator and not bool(accepted.all()):
+                second = icp_masked(ds_xy, ds_valid, tgt_xy, tgt_valid, init_pose, _rescue_icp_cfg(cfg))
+                res = _where(accepted, res, RegistrationResult(*(y.to(x.dtype) for x, y in zip(res, second))))
+                accepted = enough & (res.rmse <= cfg.icp.max_rmse)
 
-        if cfg.localization_only:
-            pose = torch.where(accepted[:, None], res.pose, state.pose)
-            new_state = state._replace(
-                pose=pose, prev_pose=state.pose,
-                prev_xy=torch.where(accepted[:, None, None], geo.se2_apply(pose, xy), state.prev_xy),
-                prev_valid=torch.where(accepted[:, None], valid, state.prev_valid),
-                step=state.step + 1,
-            )
-        elif cfg.realtime_semantics:
-            new_state = select_state(enough, realtime_update(state, xy, valid, res, accepted, enough, tick),
-                                     state._replace(step=state.step + 1))
-        else:
-            kept = state._replace(step=state.step + 1, prev_pose=state.pose)
-            new_state = select_state(accepted, insert(state, res.pose, xy, valid, accepted), kept)
+        with span("slam.update", dev):
+            if cfg.localization_only:
+                pose = torch.where(accepted[:, None], res.pose, state.pose)
+                new_state = state._replace(
+                    pose=pose, prev_pose=state.pose,
+                    prev_xy=torch.where(accepted[:, None, None], geo.se2_apply(pose, xy), state.prev_xy),
+                    prev_valid=torch.where(accepted[:, None], valid, state.prev_valid),
+                    step=state.step + 1,
+                )
+            elif cfg.realtime_semantics:
+                new_state = select_state(enough, realtime_update(state, xy, valid, res, accepted, enough, tick),
+                                         state._replace(step=state.step + 1))
+            else:
+                kept = state._replace(step=state.step + 1, prev_pose=state.pose)
+                new_state = select_state(accepted, insert(state, res.pose, xy, valid, accepted), kept)
 
-        if cfg.reseed_after_rejects > 0 and not cfg.localization_only:
-            # as a select: the rebuilt map and grid are computed every step
-            run = torch.where(accepted, torch.zeros_like(state.reject_run), state.reject_run + 1)
-            need = ~accepted & enough & (run >= cfg.reseed_after_rejects)
-            new_state = _where(need, _reseed_state(new_state, xy, valid, cfg, in_place), new_state)
-            new_state = new_state._replace(reject_run=torch.where(need, torch.zeros_like(run), run))
+            if cfg.reseed_after_rejects > 0 and not cfg.localization_only:
+                # as a select: the rebuilt map and grid are computed every step
+                run = torch.where(accepted, torch.zeros_like(state.reject_run), state.reject_run + 1)
+                need = ~accepted & enough & (run >= cfg.reseed_after_rejects)
+                new_state = _where(need, _reseed_state(new_state, xy, valid, cfg, in_place), new_state)
+                new_state = new_state._replace(reject_run=torch.where(need, torch.zeros_like(run), run))
 
-        out = StepOutput(pose=new_state.pose, rmse=res.rmse, accepted=accepted,
-                         n_points=n_points, n_iters=res.n_iters)
+            out = StepOutput(pose=new_state.pose, rmse=res.rmse, accepted=accepted,
+                             n_points=n_points, n_iters=res.n_iters)
         return new_state, out
 
     return step

@@ -1,2 +1,3 @@
 """Host-side helpers: image codecs and image tools (numpy and the standard
-library only), and the profiling scopes (`profiling`, over ``torch.profiler``)."""
+library only), and the stage spans and the trace exporter (`profiling`,
+over ``torch.profiler``)."""

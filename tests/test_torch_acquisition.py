@@ -1,9 +1,9 @@
 """The port's acquisition layer (`acquisition/lidar.py`, the live camera of
-`acquisition/camera.py`) and `utils/profiling.py` against the JAX
-package's: `tests/test_acquisition.py`'s cases on the port, and the
-hardware backends under the same fake ``rplidar`` module and the same
-patched ``cv2.VideoCapture`` for both packages (host code: the results must
-be equal)."""
+`acquisition/camera.py`) against the JAX package's: `tests/test_acquisition.py`'s
+cases on the port, and the hardware backends under the same fake
+``rplidar`` module and the same patched ``cv2.VideoCapture`` for both
+packages (host code: the results must be equal).  Also the trace exporter
+of `utils/profiling.py`."""
 
 import json
 import sys
@@ -18,10 +18,9 @@ import icp_slam_yolo_tpu.acquisition.camera as jcamera
 import icp_slam_yolo_tpu.acquisition.lidar as jlidar
 import icp_slam_yolo_tpu_torch.acquisition.camera as tcamera
 import icp_slam_yolo_tpu_torch.acquisition.lidar as tlidar
-from icp_slam_yolo_tpu.utils.profiling import StageTimer as JaxStageTimer
 from icp_slam_yolo_tpu_torch.acquisition import LidarScanner, ReplayLidar, ScanRecorder
 from icp_slam_yolo_tpu_torch.acquisition.lidar import LidarBackend
-from icp_slam_yolo_tpu_torch.utils.profiling import StageTimer, trace
+from icp_slam_yolo_tpu_torch.utils.profiling import trace
 
 
 @pytest.fixture()
@@ -267,34 +266,6 @@ def test_opencv_camera_under_a_patched_cv2_as_jax(monkeypatch, opens_at):
         first = np.asarray(results[1][0][0])
         bgr = np.random.default_rng(2).integers(0, 256, (6, 8, 3), dtype=np.uint8)
         assert np.array_equal(first, bgr[..., ::-1]) and results[1][0][2] is None
-
-
-def test_stage_timer():
-    t = StageTimer(sync=False)
-    with t("stage_a"):
-        time.sleep(0.01)
-    t.measure("stage_b", lambda: sum(range(1000)))
-    rep = t.report()
-    assert rep["stage_a"]["count"] == 1 and rep["stage_a"]["total_s"] > 0.005
-    assert "stage_b" in t.summary()
-
-
-def test_stage_timer_report_as_jax(monkeypatch):
-    """The same clock readings give the same report and summary; a CPU
-    result needs no wait (sync on)."""
-    reports = []
-    for cls in (JaxStageTimer, StageTimer):
-        ticks = iter([0.0, 0.25, 1.0, 1.5, 2.0, 2.125])
-        monkeypatch.setattr(time, "perf_counter", lambda: next(ticks))
-        t = cls(sync=cls is StageTimer)
-        with t("icp", result=torch.ones(3) if cls is StageTimer else None):
-            pass
-        t.measure("raster", lambda: {"occ": torch.zeros(2)} if cls is StageTimer else 0)
-        with t("icp"):
-            pass
-        reports.append((t.report(), t.summary()))
-    assert reports[0] == reports[1]
-    assert reports[1][0]["icp"] == {"total_s": 0.375, "count": 2, "mean_ms": 187.5}
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
