@@ -27,7 +27,14 @@ non-zero; they run in the order 1-3, 7-13, 4-6, 14, 15, 16, 17, see `main`):
      (one robot, its window clamped at the grid's corner) and K4 (8 robots)
      on a 640 x 640 window with rays of up to 620 samples, which they take
      in three bands of rows, in both layouts, each the plain version's bits
-     and one kernel event a call, timed beside the presets' window;
+     and one kernel event a call, timed beside the presets' window; then K9
+     (the statistical outlier filter, one launch) at the fleet's 512 slots at
+     B = 1, 8 and 256 with edge rows (none valid, one, ten, every point
+     twice, stray returns) against its plain version (mean k-NN distance
+     within 1e-2 mm, masks equal but within 0.05 mm of the threshold), k
+     beyond its 32 refused, timed beside its bound, the plain version and the filter before it (``bmm`` +
+     ``torch.topk``), and on the fleet path one launch a step, no top-k and
+     no ``(B, N, N)`` tensor (``--phases knn`` runs 1-2 and this alone);
   (every profiler window of phases 4-6 holds the raster kernels' event
   counts equal to the wrappers' launch counts in the window;)
   4. the ``slice`` path: ``Slam(cfg).run(scans)`` at the full-width offline
@@ -1264,6 +1271,173 @@ def check_batched_kernels(cfg) -> tuple[dict, dict]:
     return k4_row, batched
 
 
+def _topk_outlier(xy, valid, k: int, ratio: float):
+    """The library yardstick: the filter as the port took it before K9, a
+    Gram ``bmm`` into a ``(B, N, N)`` matrix, ``torch.topk`` and float32
+    statistics."""
+    import torch
+
+    w = valid.to(torch.float32)
+    denom = torch.clamp(w.sum(-1, keepdim=True), min=1.0)
+    p = (xy - (xy * w[..., None]).sum(-2, keepdim=True) / denom[..., None]) * 1e-3
+    sn = (p * p).sum(-1)
+    d2 = torch.clamp(sn[..., :, None] + sn[..., None, :] - 2.0 * (p @ p.transpose(-1, -2)), min=0.0)
+    eye = torch.eye(xy.shape[-2], dtype=torch.bool, device=xy.device)
+    d2k, _ = torch.topk(d2.masked_fill(eye | ~valid[..., None, :], 1e30), k, dim=-1, largest=False, sorted=True)
+    real = d2k < 1e29
+    dk = torch.where(real, torch.sqrt(torch.clamp(d2k, min=0.0)) * 1e3, torch.zeros_like(d2k))
+    mean = torch.where(valid, dk.sum(-1) / torch.clamp(real.sum(-1), min=1), torch.full_like(dk[..., 0], 1e30))
+    vals = torch.where(valid, mean, torch.zeros_like(mean))
+    mu = vals.sum(-1, keepdim=True) / denom
+    var = (w * (vals - mu) ** 2).sum(-1, keepdim=True) / denom
+    return mean, valid & (mean <= mu + ratio * torch.sqrt(var))
+
+
+def knn_clouds(b: int, n_max: int, dev):
+    """``b`` gated fleet scans on the card (`fleet_streams`, 32 scans a
+    stream) with edge rows: 0 no valid point, 1 one, 2 ten (fewer than k), 3
+    every valid point twice (ties), 4 stray returns."""
+    import torch
+
+    import icp_slam_yolo_tpu_torch as port
+    from icp_slam_yolo_tpu_torch.ops import geometry as geo
+
+    per = min(b, 32)
+    scans, _ = fleet_streams(-(-b // per), per, n_max)
+    scans = torch.from_numpy(scans.reshape(-1, n_max, 3)[:b].copy()).to(dev)
+    xy, valid = geo.polar_to_cartesian(scans, port.FLEET_CONFIG.gate)
+    rng = np.random.default_rng(b)
+    edges = ("none", "one", "ten", "ties", "strays") if b >= 5 else ("strays",)
+    for r, edge in enumerate(edges):
+        idx = torch.nonzero(valid[r])[:, 0]
+        if edge == "none":
+            valid[r] = False
+        elif edge in ("one", "ten"):
+            valid[r] = False
+            valid[r, idx[: 1 if edge == "one" else 10]] = True
+        elif edge == "ties":
+            xy[r, idx[1::2]] = xy[r, idx[: len(idx) // 2 * 2: 2]]
+        else:
+            far = idx[torch.from_numpy(rng.choice(len(idx), 6, replace=False)).to(dev)]
+            xy[r, far] += 2500.0
+    return xy.contiguous(), valid.contiguous()
+
+
+def check_knn_outlier(cfg) -> tuple[dict, dict]:
+    """Phase 3, continued: K9, the statistical outlier filter, against its
+    plain version on the card at ``cfg``'s slots, k and std ratio, at
+    B = 1, 8 and 256 (edge rows: none valid, one, ten, ties, stray returns):
+    the mean k-NN distance within 1e-2 mm (and whether bit equal), masks
+    equal but for points within 0.05 mm of the threshold (at most 2 a cloud),
+    and k beyond the kernel's 32 refused; device us of the kernel, its bound
+    (the valid pairs' operations or the bytes), the plain version and the
+    filter before K9 (Gram ``bmm`` and ``torch.topk``); whether the library
+    product fuses its multiply-add; then K9's launches a fleet step (1) and
+    no ``torch.topk`` and no ``(B, N, N)`` tensor in the step.  Returns
+    ``(K9's row, the times at each B)``."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from icp_slam_yolo_tpu_torch.ops import pallas
+    from icp_slam_yolo_tpu_torch.ops.pallas.knn_kernel import MAX_K, knn_outlier, knn_outlier_plain
+    from icp_slam_yolo_tpu_torch.parallel import fleet as pfleet
+
+    dev = torch.device("cuda")
+    n, k, ratio = cfg.n_max, cfg.outlier_nb_neighbors, cfg.outlier_std_ratio
+    row, timed = None, {}
+    for b in (1, 8, 256):
+        xy, valid = knn_clouds(b, n, dev)
+        mean, keep = knn_outlier(xy, valid, k, ratio)
+        mean_p, keep_p = knn_outlier_plain(xy, valid, k, ratio)
+        torch.cuda.synchronize()
+        _require(torch.equal(mean[~valid], mean_p[~valid]) and not bool(keep[~valid].any()),
+                 f"K9 B={b}: invalid points not 1e30 and dropped")
+        err = float((mean - mean_p)[valid].abs().max()) if bool(valid.any()) else 0.0
+        bits = torch.equal(mean, mean_p)
+        _require(err <= 1e-2, f"K9 B={b}: mean k-NN distance {err} mm from the plain version (tolerance 1e-2 mm)")
+        vals = torch.where(valid, mean_p, torch.zeros_like(mean_p)).double()
+        cnt = valid.sum(-1, keepdim=True).clamp(min=1)
+        mu = vals.sum(-1, keepdim=True) / cnt
+        dev_sq = torch.where(valid, vals - mu, torch.zeros_like(vals)) ** 2
+        thr = mu + ratio * torch.sqrt(dev_sq.sum(-1, keepdim=True) / cnt)
+        flips = keep != keep_p
+        _require(bool((flips.sum(-1) <= 2).all()) and bool(((mean_p.double() - thr).abs()[flips] <= 0.05).all()),
+                 f"K9 B={b}: masks differ beyond the threshold's 0.05 mm ({int(flips.sum())} points)")
+        kept = int(keep.sum())
+        _require(b == 1 or (not bool(keep[0].any()) and bool(keep[1].any()) and int(keep[2].sum()) > 0),
+                 f"K9 B={b}: edge rows kept {keep[:5].sum(-1).tolist()}")
+        ms = _device_ms(torch, lambda: knn_outlier(xy, valid, k, ratio), 100)
+        plain_ms = _device_ms(torch, lambda: knn_outlier_plain(xy, valid, k, ratio), 10)
+        lib_ms = _device_ms(torch, lambda: _topk_outlier(xy, valid, k, ratio), 20)
+        m_v = valid.sum(-1).double()
+        pairs = float((m_v * (m_v - 1)).sum())  # ordered: d^2 once an unordered pair, a compare each ordered one
+        bound = _bound(7.0 * pairs / 2 + pairs, b * n * (8 + 1 + 4 + 1))
+        all_pairs = _bound(4.5 * b * n * (n - 1), 0.0)[0]
+        # the library product's cross term against the unfused one and the two fused ones (float64 sums)
+        p = (xy - xy.mean(-2, keepdim=True)) * 1e-3
+        gram = p @ p.transpose(-1, -2)
+        xx = p[..., :, None, 0] * p[..., None, :, 0]
+        yy = p[..., :, None, 1] * p[..., None, :, 1]
+        crosses = {"unfused": xx + yy,
+                   "fma(y, y, x x)": (xx.double() + p[..., :, None, 1].double() * p[..., None, :, 1].double()).float(),
+                   "fma(x, x, y y)": (yy.double() + p[..., :, None, 0].double() * p[..., None, :, 0].double()).float()}
+        same = ", ".join(f"{name} {float((gram == c).double().mean()):.4f}" for name, c in crosses.items())
+        timed[f"knn_outlier_b{b}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound[0])
+        print(f"[3] K9 knn_outlier B={b} x {n} slots, k {k}, ratio {ratio} ({int(valid.sum())} valid, {kept} kept, "
+              f"{pairs / 1e6:.2f} M valid pairs): mean k-NN distance {'bit equal to' if bits else 'within'} the plain "
+              f"version (max diff {err:.3g} mm, tolerance 1e-2), masks {int(flips.sum())} flips; device "
+              f"{ms * 1e3:.2f} us, bound "
+              f"{bound[0] * 1e3:.3f} us ({bound[1]}; all slot pairs {all_pairs * 1e3:.2f} us), plain "
+              f"{plain_ms * 1e3:.1f} us, bmm + topk {lib_ms * 1e3:.1f} us; share of the library product's cross "
+              f"terms equal to: {same}", flush=True)
+        if b == 256:
+            row = dict(name="knn_outlier", route="cuda", source="icp_slam_yolo_tpu_torch/csrc/knn.cu",
+                       replaces="none (icp_slam_yolo_tpu/ops/nn.py:206 knn_mean_distance is left to XLA)",
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                       library_ms=lib_ms)
+
+    try:
+        knn_outlier(xy, valid, MAX_K + 1, ratio)
+        _require(False, f"K9: k {MAX_K + 1} taken on the card")
+    except ValueError:
+        pass
+
+    # the fleet step: one K9 launch a step; no top-k and no (B, N, N) tensor
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.topk, self.square = 0, []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.topk += "topk" in str(func)
+            for o in out if isinstance(out, (tuple, list)) else (out,):
+                if isinstance(o, torch.Tensor) and o.dim() >= 2 and tuple(o.shape[-2:]) == (n, n):
+                    self.square.append(str(func))
+            return out
+
+    b, steps = 8, 5
+    stack, _ = fleet_streams(b, steps + 1, n)
+    scans_dev = torch.from_numpy(stack).to(dev)
+    step = pfleet.make_fleet_step(cfg)
+    st = pfleet.fleet_init(scans_dev[:, 0], cfg)
+    torch.cuda.synchronize()
+    pallas.reset_launches()
+    for t in range(1, steps):
+        st, _, _ = step(st, scans_dev[:, t], t - 1)
+    launches = pallas.LAUNCHES["knn_outlier"]
+    with Ops() as ops:
+        step(st, scans_dev[:, steps], steps - 1)
+    torch.cuda.synchronize()
+    _require(launches == steps - 1 and pallas.LAUNCHES["knn_outlier"] == steps,
+             f"K9: {launches} launches in {steps - 1} fleet steps")
+    _require(ops.topk == 0 and not ops.square,
+             f"K9: a fleet step calls topk {ops.topk} times, (B, N, N) from {ops.square}")
+    print(f"[3] K9 on the fleet path (B={b}, preset 'fleet'): {launches} launches in {steps - 1} steps, one a step; no "
+          f"topk and no (B, {n}, {n}) tensor in a step", flush=True)
+    return row, timed
+
+
 def fleet_streams(n_streams: int, n_scans: int, n_max: int):
     """Distinct seeded warehouse streams (own noise and dropouts, own start
     along the loop, own step length): ``(scans (B, T, n_max, 3), ground truth
@@ -1296,7 +1470,7 @@ def fleet(cfg, n_scans: int = 100, n_wide: int = 30, n_cpu: int = 4) -> dict:
     from icp_slam_yolo_tpu_torch.parallel import fleet as pfleet
 
     b = 8
-    names = ("icp_fused", "nn_argmin", "raster_update_grid")
+    names = ("icp_fused", "nn_argmin", "raster_update_grid", "knn_outlier")
     stack, gts = fleet_streams(b, n_scans, cfg.n_max)
     port.fleet_run_sequence(stack[:, :4], cfg)  # warm-up
     torch.cuda.synchronize()
@@ -1405,7 +1579,7 @@ def shared_path(cfg, n_scans: int = 100, n_wide: int = 20, n_inter: int = 120) -
     ``cfg`` (the ``fleet`` preset unchanged): 8 robots leaving one depot
     (`depot_streams`) x ``n_scans`` scans, then 64 (the 8 tiled 8 times) x
     ``n_wide``, each between a reset and a reading of the launch counters
-    (K1, K3 and K4 once a step; K4 once more for the seed); every robot's
+    (K1, K3, K4 and K9 once a step; K4 once more for the seed); every robot's
     trajectory through `check_quality`; five steps under the sync debug
     mode; a profiler window over each run; the first ``SHARED_CPU_STEPS``
     steps of the R = 8 run on the CPU (plain versions) against the card; a
@@ -1421,7 +1595,7 @@ def shared_path(cfg, n_scans: int = 100, n_wide: int = 20, n_inter: int = 120) -
     from icp_slam_yolo_tpu_torch.ops import pallas
     from icp_slam_yolo_tpu_torch.parallel import shared as pshared
 
-    names = ("icp_fused", "nn_argmin", "raster_update_grid")
+    names = ("icp_fused", "nn_argmin", "raster_update_grid", "knn_outlier")
 
     def run(stack, what):
         torch.cuda.synchronize()
@@ -1777,7 +1951,7 @@ def dist_path(cfg) -> dict:
     from icp_slam_yolo_tpu_torch.parallel import distributed, fleet as pfleet, mesh as pmesh, shared as pshared
 
     t_phase = time.perf_counter()
-    names = ("icp_fused", "nn_argmin", "raster_update_grid")
+    names = ("icp_fused", "nn_argmin", "raster_update_grid", "knn_outlier")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
     totals = dict.fromkeys(pallas.LAUNCHES, 0)
 
@@ -4123,11 +4297,12 @@ def main(argv=None) -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", choices=("all", "slam", "detector", "tick", "serve", "train", "label", "shared",
-                                             "dist", "bench"),
+    parser.add_argument("--phases", choices=("all", "slam", "knn", "detector", "tick", "serve", "train", "label",
+                                             "shared", "dist", "bench"),
                         default="all",
                         help="run every phase (the default: the only run that ends in the result line), or only "
-                             "the SLAM and fleet phases 3-6, only the detector phases 7-9, only the tick (10), "
+                             "the SLAM and fleet phases 3-6, only phase 3's K9 checks, only the detector phases "
+                             "7-9, only the tick (10), "
                              "only the entry points (11: server, CLI, .pt import), only training (12), only "
                              "JPEG decoding and the labeling path (13), only the shared-map fleet (14), only "
                              "the paths across processes (15) or only cli bench (16)")
@@ -4171,6 +4346,9 @@ def main(argv=None) -> int:
         kernels["raster_update_grid"], batched = check_batched_kernels(port.FLEET_CONFIG)
         check_edge_cases(cfg)
         check_large_window(cfg)
+    if phases in ("all", "slam", "knn"):
+        kernels["knn_outlier"], timed = check_knn_outlier(port.FLEET_CONFIG)
+        batched = {**batched, **timed} if phases != "knn" else timed
         print(json.dumps({"batched": batched}))
         lap("phase 3")
     if phases in ("all", "detector"):
@@ -4209,13 +4387,13 @@ def main(argv=None) -> int:
         lap("phase 16")
 
     rows = []
-    order = ("icp_fused", "raster_update", "nn_argmin", "raster_update_grid", *DETECTOR_KERNELS)
+    order = ("icp_fused", "raster_update", "nn_argmin", "raster_update_grid", *DETECTOR_KERNELS, "knn_outlier")
     _require(phases != "all" or set(kernels) == set(order), f"kernels checked: {sorted(kernels)}")
     for name in (n for n in order if n in kernels):
         row = kernels[name]
         # over the slice, fleet, preset, detector, tick, serve, train, label, shared, dist and bench paths
-        row["launches"] = sum(p[name] for p in paths)
-        _require(row["launches"] > 0, f"no path launched {name}")
+        row["launches"] = sum(p.get(name, 0) for p in paths)
+        _require(row["launches"] > 0 or phases == "knn", f"no path launched {name}")
         rows.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches", "max_abs_err",
                                          "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     print(json.dumps({"kernels": rows}))

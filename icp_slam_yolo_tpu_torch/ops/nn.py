@@ -6,7 +6,8 @@ card, its plain version on the CPU.  The k-NN functions are plain products
 and an exact ``torch.topk`` (the JAX package's approximate top-k is a
 TPU-only path); like there they centre on the masked mean and rescale to
 metres before the Gram-form product, which keeps squared distances O(100)
-in float32.
+in float32.  The mean k-NN distance of the outlier filter is K9
+(`ops/pallas/knn_kernel`), which forms no distance matrix on the card.
 
 The k-NN functions take leading batch axes (the fleet's robot axis): clouds
 are ``(..., N, 2)`` with masks ``(..., N)``; ``nearest_neighbor`` takes K3's
@@ -141,16 +142,3 @@ def local_covariances_at(queries: torch.Tensor, cloud: torch.Tensor, cloud_valid
     d2 = d2.masked_fill(~cloud_valid[..., None, :], _BIG)
     vals, idx = _smallest_k(d2, min(k, cloud.shape[-2]))
     return _regularized_cov(_take(cloud, idx), (vals < 1e29).to(torch.float32), epsilon)
-
-
-def knn_mean_distance(xy: torch.Tensor, valid: torch.Tensor, k: int) -> torch.Tensor:
-    """Mean distance (mm) to the (up to) ``k`` nearest *other* valid points;
-    with fewer real neighbours the mean is over those only.  Invalid points
-    get ``1e30``.  Backs the statistical outlier filter."""
-    p = _metres(xy, masked_mean(xy, valid))
-    d2 = pairwise_sqdist(p, p).masked_fill(_self_or_invalid(valid), _BIG)
-    d2k, _ = _smallest_k(d2, min(k, xy.shape[-2]))
-    real = d2k < 1e29
-    dk = torch.sqrt(torch.clamp(d2k, min=0.0)) * 1e3
-    mean_k = torch.where(real, dk, torch.zeros_like(dk)).sum(-1) / torch.clamp(real.sum(-1), min=1)
-    return torch.where(valid, mean_k, torch.full_like(mean_k, _BIG))

@@ -1,26 +1,26 @@
 """Point-cloud hygiene filters: statistical outliers and dynamic points
 (counterpart of the JAX package's ``ops/outliers.py``).  The statistical
-filter takes leading batch axes (clouds ``(..., N, 2)``, masks ``(..., N)``);
-the dynamic filter goes through K3 and takes ``(B, N, 2)``."""
+filter goes through K9 and takes leading batch axes (clouds ``(..., N, 2)``,
+masks ``(..., N)``); the dynamic filter goes through K3 and takes ``(B, N,
+2)``."""
 
 from __future__ import annotations
 
 import torch
 
-from icp_slam_yolo_tpu_torch.ops.nn import knn_mean_distance, nearest_neighbor
+from icp_slam_yolo_tpu_torch.ops.nn import nearest_neighbor
+from icp_slam_yolo_tpu_torch.ops.pallas.knn_kernel import knn_outlier
 
 
 def statistical_outlier_mask(xy: torch.Tensor, valid: torch.Tensor, nb_neighbors: int = 30,
                              std_ratio: float = 1.5) -> torch.Tensor:
     """Keep-mask per Open3D semantics: drop points whose mean k-NN distance
-    exceeds ``mean + std_ratio * std`` of that statistic over the cloud."""
-    mean_knn = knn_mean_distance(xy, valid, nb_neighbors)
-    w = valid.to(torch.float32)
-    denom = torch.clamp(w.sum(-1, keepdim=True), min=1.0)
-    vals = torch.where(valid, mean_knn, torch.zeros_like(mean_knn))
-    mu = vals.sum(-1, keepdim=True) / denom
-    var = (w * (vals - mu) ** 2).sum(-1, keepdim=True) / denom
-    return valid & (mean_knn <= mu + std_ratio * torch.sqrt(var))
+    exceeds ``mean + std_ratio * std`` of that statistic over the cloud: one
+    K9 launch for all the clouds."""
+    n = valid.shape[-1]
+    flat_xy, flat_valid = xy.reshape(-1, n, 2).contiguous(), valid.reshape(-1, n).contiguous()
+    _, keep = knn_outlier(flat_xy, flat_valid, nb_neighbors, std_ratio)
+    return keep.reshape(valid.shape)
 
 
 def dynamic_points_mask(

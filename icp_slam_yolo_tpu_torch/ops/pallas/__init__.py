@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for Hopper, at the paths of the JAX package's
-Pallas kernels they replace (``ops/pallas/*.py`` there).
+Pallas kernels they replace (``ops/pallas/*.py`` there), and K9
+(`knn_kernel`), which replaces none.
 
 Each module holds a wrapper and a plain PyTorch version of the same
 function.  The wrapper launches the kernel (``csrc/*.cu``, built by `_lib` at
@@ -15,7 +16,7 @@ import torch
 
 LAUNCHES = {
     "icp_fused": 0, "raster_update": 0, "nn_argmin": 0, "raster_update_grid": 0,
-    "conv1x1_silu": 0, "conv3x3_silu": 0, "conv3x3s2_silu": 0, "c2f_fused": 0,
+    "conv1x1_silu": 0, "conv3x3_silu": 0, "conv3x3s2_silu": 0, "c2f_fused": 0, "knn_outlier": 0,
 }
 
 

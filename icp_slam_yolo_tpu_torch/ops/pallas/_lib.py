@@ -20,7 +20,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
-SOURCES = ("nn.cu", "raster.cu", "icp.cu", "conv.cu", "c2f.cu")
+SOURCES = ("nn.cu", "raster.cu", "icp.cu", "conv.cu", "c2f.cu", "knn.cu")
 HEADERS = ("conv_common.cuh", "nn_common.cuh")
 # -fmad=false: products and sums round as the plain PyTorch versions' separate
 # operations do, so a kernel can be held to its plain version tightly
@@ -57,6 +57,7 @@ _SIGNATURES = {
     "slam_conv_bias_act": [_P] * 4 + [_I] * 14 + [_P],
     "slam_c2f_smem_bytes": [_I] * 5,
     "slam_c2f_fused": [_P] * 10 + [_I] * 11 + [_P],
+    "slam_knn_outlier": [_P, _P, _I, _I, _I, _F, _P, _P, _P],
 }
 
 _lib = None

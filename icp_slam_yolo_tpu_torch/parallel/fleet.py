@@ -84,6 +84,7 @@ def fleet_run_sequence(scans, cfg: SlamConfig = SlamConfig(), device=None):
     scans = scans.to(device=dev, dtype=torch.float32)
     if scans.shape[1] < 2:
         raise ValueError("fleet_run_sequence needs at least two scans per robot")
+    pipeline.check_supported_config(cfg, dev)
     step = pipeline.make_batched_step(cfg)
     states = fleet_init(scans[:, 0], cfg)
     outs = []

@@ -255,6 +255,7 @@ def shared_fleet_run(scans, cfg: SlamConfig = SlamConfig(), device=None, mesh=No
     scans = scans.to(device=dev, dtype=torch.float32)
     if scans.dim() != 4 or scans.shape[1] < 2:
         raise ValueError(f"shared_fleet_run takes (R, T >= 2, n_max, 3) scans, not {tuple(scans.shape)}")
+    check_supported_config(cfg, dev)
     step = make_shared_step(cfg, mesh)
     state = shared_init(scans[:, 0], cfg, mesh)
     outs = []

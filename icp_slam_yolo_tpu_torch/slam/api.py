@@ -24,6 +24,7 @@ class Slam:
 
     def __init__(self, cfg: SlamConfig = SlamConfig(), device=None):
         self.device = resolve_device(device)
+        pipeline.check_supported_config(cfg, self.device)
         self.cfg = cfg
         self._step = pipeline.make_step(cfg)
         self.state: pipeline.SlamState | None = None

@@ -62,6 +62,7 @@ from icp_slam_yolo_tpu_torch.core.registration import RegistrationResult, check_
 from icp_slam_yolo_tpu_torch.device import resolve_device
 from icp_slam_yolo_tpu_torch.ops import geometry as geo
 from icp_slam_yolo_tpu_torch.ops.outliers import dynamic_points_mask, statistical_outlier_mask
+from icp_slam_yolo_tpu_torch.ops.pallas import knn_kernel
 from icp_slam_yolo_tpu_torch.ops.raster import occupancy_keep_mask, prune_keep_mask, update_occupancy
 from icp_slam_yolo_tpu_torch.ops.voxel import compact, voxel_downsample, voxel_downsample_batched
 from icp_slam_yolo_tpu_torch.utils.profiling import span
@@ -94,11 +95,15 @@ def _rescue_icp_cfg(cfg: SlamConfig):
     return dataclasses.replace(cfg.icp, estimator=cfg.icp.rescue_estimator, rescue_estimator="", backend="xla")
 
 
-def check_supported_config(cfg: SlamConfig) -> None:
-    """Raise for a registration setting the port does not have."""
+def check_supported_config(cfg: SlamConfig, device=None) -> None:
+    """Raise for a registration setting the port does not have and, given
+    the ``device`` the steps will run on, for an outlier filter its kernel
+    (K9) cannot take there."""
     check_supported(cfg.icp)
     if cfg.icp.rescue_estimator:
         check_supported(_rescue_icp_cfg(cfg))
+    if device is not None and cfg.use_outlier_filter:
+        knn_kernel.check_supported(cfg.outlier_nb_neighbors, cfg.n_max, device)
 
 
 def _lift(t):
@@ -364,6 +369,7 @@ def run_sequence(scans, cfg: SlamConfig = SlamConfig(), device=None):
     if not isinstance(scans, torch.Tensor):
         scans = torch.from_numpy(np.ascontiguousarray(scans, dtype=np.float32))
     scans = scans.to(device=dev, dtype=torch.float32)
+    check_supported_config(cfg, dev)
     step = make_step(cfg)
     state = init_state(scans[0], cfg)
     outs = []
