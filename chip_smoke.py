@@ -55,7 +55,9 @@ non-zero; they run in the order 1-3, 7-13, 4-6, 14, 15, 16, 17, see `main`):
   7. the detector's kernels (K5 1x1, K6 3x3, K7 3x3 stride 2 conv + bias +
      SiLU, K8 the whole C2f block) against their plain versions on the card,
      in bfloat16 and float32, at every distinct shape of a yolo-n forward at
-     640 px at batch 1, 2 and 8 plus edge cases, with device times (kernel,
+     640 px and of a YOLO12-L forward at 1024 px (`YOLO12L_SITES`: Cin up to
+     1280, the ABlocks' 307-channel MLP and their ``qkv`` and ``proj`` 1x1s
+     without SiLU) at batch 1, 2 and 8 plus edge cases, with device times (kernel,
      plain version, and the library's ``F.conv2d`` + ``F.silu``); in
      bfloat16 also the variants the wrappers do not pick, forced (the other
      gather, the split or cluster on and off, every K8 tile and cluster that
@@ -70,7 +72,10 @@ non-zero; they run in the order 1-3, 7-13, 4-6, 14, 15, 16, 17, see `main`):
      port on the CPU; a segment checkpoint through the fused path; then the
      v12 detect and v11 obb checkpoints the same way (82 / 32 / 7 and 44 /
      37 / 7 launches of K5 / K6 / K7 a forward, K8 none), each run between
-     a reset and a reading of the counters;
+     a reset and a reading of the counters; then YOLO12-L at 1024 px on
+     seeded weights through ``predict_batch`` (128 / 54 / 7 launches of K5 /
+     K6 / K7 a forward, K8 none; each launch held against its plain version;
+     float32 head outputs against `reference_impl/yolo12.py`);
   9. detector times: per forward at batch 1, 2, 8 and 32, fused and unfused,
      for the v8, v12 and v11 checkpoints;
   10. the fused SLAM + detect tick (`tick`; ``BASELINE.json`` configuration
@@ -2315,6 +2320,30 @@ K7_SITES = [(3, 16, 640, True, 1), (16, 32, 320, True, 1), (32, 64, 160, True, 1
 K8_SITES = [(32, 16, 32, 160, True), (256, 128, 256, 20, True), (384, 64, 128, 40, False),
             (192, 32, 64, 80, False), (192, 64, 128, 40, False), (384, 128, 256, 20, False)]
 LAUNCHES_PER_FORWARD = {"conv3x3s2_silu": 7, "c2f_fused": 6, "conv1x1_silu": 12, "conv3x3_silu": 20}
+# The dense conv sites of one YOLO12-L forward at 1024 px (one class), by
+# kernel: (Cin, Cout, input H = W, SiLU, launches per forward); the distinct
+# kernel sites of `portbench/reference/yolo12.site_work` (a CPU test holds
+# the two equal).  The 307-channel sites are the ABlock MLP's; the 768-
+# and 256-channel 1x1s without SiLU its ``qkv`` and ``proj``.
+YOLO12L_SITES = {
+    "conv1x1_silu": [(64, 32, 256, True, 4), (64, 64, 32, False, 1), (64, 64, 64, False, 1), (64, 64, 128, False, 1),
+                     (64, 64, 256, True, 2), (128, 64, 128, True, 8), (128, 128, 128, True, 4),
+                     (128, 128, 256, True, 1), (256, 1, 32, False, 1), (256, 1, 64, False, 1), (256, 1, 128, False, 1),
+                     (256, 128, 32, True, 4), (256, 128, 64, True, 8), (256, 256, 32, False, 8),
+                     (256, 256, 32, True, 3), (256, 256, 64, False, 8), (256, 256, 64, True, 5),
+                     (256, 256, 128, True, 3), (256, 256, 256, True, 1), (256, 307, 32, True, 8),
+                     (256, 307, 64, True, 8), (256, 768, 32, False, 8), (256, 768, 64, False, 8),
+                     (307, 256, 32, False, 8), (307, 256, 64, False, 8), (384, 256, 128, True, 1),
+                     (512, 256, 32, True, 2), (512, 256, 64, True, 2), (512, 512, 128, True, 1),
+                     (768, 256, 64, True, 1), (768, 512, 64, True, 2), (1024, 128, 128, True, 1),
+                     (1024, 256, 64, True, 1), (1024, 512, 32, True, 2), (1280, 512, 32, True, 1),
+                     (1280, 512, 64, True, 1)],
+    "conv3x3_silu": [(32, 32, 256, True, 8), (64, 64, 32, True, 1), (64, 64, 64, True, 1), (64, 64, 128, True, 17),
+                     (128, 128, 32, True, 8), (128, 128, 64, True, 16), (256, 64, 128, True, 1),
+                     (512, 64, 32, True, 1), (512, 64, 64, True, 1)],
+    "conv3x3s2_silu": [(3, 64, 1024, True, 1), (64, 128, 512, True, 1), (256, 256, 128, True, 1),
+                       (256, 256, 256, True, 1), (512, 512, 64, True, 2), (512, 512, 128, True, 1)],
+}
 DETECTOR_KERNELS = {
     "conv1x1_silu": ("icp_slam_yolo_tpu_torch/csrc/conv.cu", "icp_slam_yolo_tpu/ops/pallas/conv_fused.py:102"),
     "conv3x3_silu": ("icp_slam_yolo_tpu_torch/csrc/conv.cu", "icp_slam_yolo_tpu/ops/pallas/conv_fused.py:207"),
@@ -2418,7 +2447,8 @@ def check_detector_kernels() -> dict:
         n_checks += 1
 
     for name, (k, stride, fn) in wrappers.items():
-        for cin, cout, h, act, count in sites[name]:
+        # v8n's sites, then YOLO12-L's (checked and timed, outside v8n's per-forward means)
+        for (cin, cout, h, act, count), v8 in [(t, True) for t in sites[name]] + [(t, False) for t in YOLO12L_SITES[name]]:
             for dt in (torch.bfloat16, torch.float32):
                 for bsz in (1, 2, 8):
                     x, w, b = _conv_case(torch, rng, dt, bsz, h, h, cin, cout, k)
@@ -2459,14 +2489,15 @@ def check_detector_kernels() -> dict:
                     ho = h // stride
                     bound = _bound(2.0 * bsz * ho * ho * k * k * cin * cout,
                                    2.0 * (x.numel() + w.numel() + b.numel() + bsz * ho * ho * cout), PEAK_BF16)
-                    print(f"[7] {name} bf16 B={bsz} {cin}->{cout} @{h}{'' if act else ' no act'} (x{count} per forward): "
+                    print(f"[7] {name} bf16 B={bsz} {cin}->{cout} @{h}{'' if act else ' no act'} "
+                          f"(x{count} per {'v8n' if v8 else 'YOLO12-L'} forward): "
                           f"err {err:.3g} of {mag:.3g}; {'16-byte' if plan.vec else 'scalar'} gather, tile "
                           f"{plan.bm} x {plan.bn}, {'wgmma' if plan.wgmma else f'split {plan.split}'}: device "
                           f"{ms * 1e3:.2f} us{other}, plain "
                           f"{plain * 1e3:.1f} us, "
                           f"F.conv2d{' + F.silu' if act else ''} {lib * 1e3:.2f} us, bound {bound[0] * 1e3:.3f} us "
                           f"({bound[1]})", flush=True)
-                    if bsz == 2:
+                    if bsz == 2 and v8:
                         acc = sums[name]
                         acc["ms"] += count * ms
                         acc["plain_ms"] += count * plain
@@ -2474,11 +2505,11 @@ def check_detector_kernels() -> dict:
                         acc["bound_ms"] += count * bound[0]
                         acc["by"][bound[1]] = acc["by"].get(bound[1], 0.0) + count * bound[0]
 
-    # the warpgroup products (wgmma) against mma.sync on the same tile, batch 2, 8 and 32: every 3x3 site with
-    # Cout a multiple of 64, and the 1x1s at the 80 x 80 inputs
+    # the warpgroup products (wgmma) against mma.sync on the same tile, batch 2, 8 and 32: every 3x3 site (v8n's
+    # and YOLO12-L's) with Cout a multiple of 64, and the 1x1s at the 80 x 80 inputs
     for name, (k, stride, fn) in wrappers.items():
-        for cin, cout, h, act, count in sites[name]:
-            if cout % 64 or (k == 1 and h != 80):
+        for cin, cout, h, act, count in sites[name] + YOLO12L_SITES[name]:
+            if cout % 64 or cin % 8 or (k == 1 and h != 80):  # wgmma takes only the 16-byte gather
                 continue
             for bsz in (2, 8, 32):
                 x, w, b = _conv_case(torch, rng, torch.bfloat16, bsz, h, h, cin, cout, k)
@@ -3035,6 +3066,119 @@ def family_paths() -> list[dict]:
               f"predict_batch(8) in {secs * 1e3:.1f} ms, launches per forward {per_forward[0]} at batch 1, 2 and 8; "
               f"head outputs, batch 2: fused vs unfused {worst_fu:.4g} (tolerance {tol:.4g}), against float32 fused "
               f"{worst_f:.4g}, unfused {worst_u:.4g}; float32 card vs CPU: {cmp}", flush=True)
+    return runs
+
+
+def yolo12_seeded(variant: str, img_size: int, seed: int, device):
+    """A YOLO12 state dict in Ultralytics' layout with seeded weights (zero-
+    mean filters at unit gain, BatchNorm scales 0.1-0.3 and ``gamma`` 1.0 as
+    the benchmark's cell has them: wider scales make the seeded net chaotic,
+    its float32 rounding amplified past any tolerance at the head),
+    its BatchNorm statistics calibrated on 8 seeded frames, and those frames
+    letterboxed to ``img_size``, NHWC float32 on ``device``."""
+    import torch
+
+    from icp_slam_yolo_tpu_torch.models.detect import letterbox_transform
+    from icp_slam_yolo_tpu_torch.reference_impl import yolo12 as R
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for key, shape in R.state_layout(variant, 1):
+        z = torch.randn(shape, generator=g)
+        if key.endswith("dfl.conv.weight"):
+            sd[key] = torch.arange(16.0).view(shape)
+        elif len(shape) == 4:
+            sd[key] = (z - z.mean((1, 2, 3), keepdim=True)) / (shape[1] * shape[2] * shape[3]) ** 0.5
+        elif key.endswith("bn.weight"):
+            sd[key] = 0.1 + 0.2 * torch.rand(shape, generator=g)
+        elif key.endswith("running_var"):
+            sd[key] = 0.5 + torch.rand(shape, generator=g)
+        elif key.endswith("gamma"):
+            sd[key] = torch.ones(shape)
+        else:
+            sd[key] = 0.1 * z
+    frames = []
+    for f in (synthetic_frame(s) for s in range(seed, seed + 8)):
+        scale, px, py = letterbox_transform(f.shape[1], f.shape[0], img_size)
+        img = torch.from_numpy(f).float().div(255).permute(2, 0, 1)[None]
+        nh, nw = round(f.shape[0] * scale), round(f.shape[1] * scale)
+        canvas = torch.full((1, 3, img_size, img_size), 114 / 255)
+        canvas[..., int(py):int(py) + nh, int(px):int(px) + nw] = torch.nn.functional.interpolate(img, (nh, nw))
+        frames.append(canvas)
+    images = torch.cat(frames).to(device)
+    sd = R.calibrate({"variant": variant, "num_classes": 1, "reg_max": 16, "bn_eps": 1e-3},
+                     {k: v.to(device) for k, v in sd.items()}, images)
+    return sd, images.permute(0, 2, 3, 1).contiguous()
+
+
+def yolo12_path() -> dict:
+    """Phase 8, continued: YOLO12-L (the cell ``detect-yolo12l-b32``'s model)
+    through ``Detector.predict_batch`` on the card at 1024 px, seeded
+    weights, bfloat16, fused: the K5 / K6 / K7 launches of one forward at
+    batch 2 and 8 against the count of `YOLO12L_SITES` (K8 none); then every
+    launch of a batch-2 forward held against its plain version on its input
+    (`HeldKernels`, bfloat16 and float32); then the float32 fused head
+    outputs against the plain reference's (`reference_impl/yolo12.py`, TF32
+    off) on the card, their root-mean-square gap over the reference's spread
+    within 5e-3 (the benchmark's float32 program reads 3e-4 to 5e-4 there; a
+    wrong kernel reads ~1).  Returns the launch counts."""
+    import torch
+
+    from icp_slam_yolo_tpu_torch.io.torch_import import convert_state_dict, validate_against_model
+    from icp_slam_yolo_tpu_torch.models.detect import Detector
+    from icp_slam_yolo_tpu_torch.models.yolo import YOLO
+    from icp_slam_yolo_tpu_torch.ops import pallas
+    from icp_slam_yolo_tpu_torch.reference_impl import yolo12 as R
+
+    dev = torch.device("cuda")
+    sd, images = yolo12_seeded("l", 1024, 90, dev)
+    with torch.random.fork_rng(devices=[]):
+        full = validate_against_model(convert_state_dict({k: v.cpu() for k, v in sd.items()}, "yolo12"),
+                                      YOLO(num_classes=1, variant="l", family="yolo12"))
+
+    def detector(dt):
+        return Detector(num_classes=1, variant="l", family="yolo12", img_size=1024, conf_threshold=0.25,
+                        compute_dtype=dt, fold_bn=True, pallas_convs=True, device=dev, state_dict=full)
+
+    det = detector(torch.bfloat16)
+    det.predict_batch(images[:2])  # warm-up
+    torch.cuda.synchronize()
+    expected = {name: sum(site[-1] for site in sites) for name, sites in YOLO12L_SITES.items()}
+    expected["c2f_fused"] = 0
+    pallas.reset_launches()
+    per_forward = []
+    for bsz in (2, 8):
+        before = dict(pallas.LAUNCHES)
+        dets = det.predict_batch(images[:bsz])
+        torch.cuda.synchronize()
+        per_forward.append({k: pallas.LAUNCHES[k] - before[k] for k in expected})
+        _require(tuple(dets.boxes.shape) == (bsz, det.max_detections, 4) and bool(torch.isfinite(dets.boxes).all()),
+                 f"yolo12-l predict_batch({bsz}) malformed")
+    runs = dict(pallas.LAUNCHES)
+    for counts in per_forward:
+        _require(counts == expected, f"yolo12-l: launches per forward {counts}, expected {expected}")
+    det32 = detector(torch.float32)
+    with HeldKernels() as held:
+        det.predict_batch(images[:2])
+        det32.predict_batch(images[:2])
+    torch.cuda.synchronize()
+    _require(held.held["c2f_fused"] == 0 and sum(held.held.values()) == 2 * sum(expected.values()),
+             f"yolo12-l: {held.held} launches held, expected twice {expected}")
+    with torch.no_grad():
+        got = det32.model(images[:2])
+        want = R.Model({"variant": "l", "num_classes": 1, "reg_max": 16, "bn_eps": 1e-3}, sd).forward(
+            images[:2].permute(0, 3, 1, 2))
+    gap = 0.0
+    for g_level, r_level in zip(got, want):
+        for g, r in zip(g_level, r_level):
+            r = r.double()
+            gap = max(gap, float(((g.permute(0, 3, 1, 2).double() - r) ** 2).mean().sqrt() / r.std()))
+    _require(gap <= 5e-3, f"yolo12-l: float32 fused head outputs {gap:.3g} of the reference's spread off")
+    print(f"[8] YOLO12-L at 1024 px (seeded, fused): launches per forward {per_forward[0]} at batch 2 and 8; "
+          f"{sum(held.held.values())} launches of a batch-2 forward in bfloat16 and float32 at {len(held.shapes)} "
+          f"distinct shapes, each within 2 bfloat16 steps (float32: 3e-4) of its plain version (largest errors "
+          f"{ {k: held.worst[k] for k in HeldKernels.CONVS} }); float32 fused head outputs against the plain "
+          f"reference: {gap:.3g} of its spread", flush=True)
     return runs
 
 
@@ -4357,6 +4501,7 @@ def main(argv=None) -> int:
             kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
         paths.append(detector_path())
         paths += family_paths()
+        paths.append(yolo12_path())
         detector_times()
         for path in FAMILY_CHECKPOINTS:
             detector_times(path)

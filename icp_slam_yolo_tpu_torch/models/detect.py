@@ -40,7 +40,8 @@ def detector_from_checkpoint(path: str, conf_threshold: float = 0.5, iou_thresho
                              pallas_convs: bool = False, device=None) -> "Detector":
     """Build a ``Detector`` from a checkpoint, honouring its metadata (task,
     family, variant, n_kpt, img_size, num_classes): a ``*.msgpack`` with its
-    JSON sidecar, or an Ultralytics ``*.pt`` (v8 detect layouts only,
+    JSON sidecar, or an Ultralytics ``*.pt`` of a v8 or YOLO12 detect model
+    (the family, and YOLO12's scale and class count, read from the weights;
     `io.torch_import`).  ``pallas_convs`` defaults to False here (the
     unfused ``F.conv2d`` path) and to True in ``Detector``, as in the JAX
     package."""
@@ -48,7 +49,8 @@ def detector_from_checkpoint(path: str, conf_threshold: float = 0.5, iou_thresho
     if path.endswith(".pt"):
         from icp_slam_yolo_tpu_torch.io.torch_import import load_ultralytics_pt
 
-        state, meta = load_ultralytics_pt(path), {"family": "v8", "task": "detect"}
+        state, meta = load_ultralytics_pt(path)
+        meta["task"] = "detect"
     else:
         from icp_slam_yolo_tpu_torch.io.checkpoint import load_checkpoint
 
@@ -70,8 +72,10 @@ class Detector:
     the BatchNorm affines into the convs at load (a PSABlock's or ABlock's
     bare BatchNorm stays); ``pallas_convs`` (needs ``fold_bn``) runs every conv
     site in the hand-written kernels, one launch per ConvBnAct or plain 1x1
-    conv and one per v8 C2f block with a single bottleneck; False runs
-    ``F.conv2d``.  ``family``: v8, v11 or v12."""
+    conv and one per v8 C2f block with a single bottleneck (grouped and
+    depthwise convs and attention products stay library calls); False runs
+    ``F.conv2d``.  ``family``: v8, v11, v12 or yolo12 (the published YOLO12,
+    `models.yolo.YOLO`)."""
 
     def __init__(self, num_classes: int = 1, variant: str = "n", task: str = "detect", family: str = "v8",
                  img_size: int = 640, conf_threshold: float = 0.5, iou_threshold: float = 0.45,

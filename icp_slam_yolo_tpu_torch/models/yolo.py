@@ -1,6 +1,7 @@
 """The YOLO detector in PyTorch: the counterpart of the JAX package's
 ``models/yolo.py`` (families v8, v11 and v12; variants n/s/m; tasks
-detect, obb, segment, pose).
+detect, obb, segment, pose), and the published YOLO12 (``yolo12``, variants
+n/s/m/l/x, detect), which the JAX package does not have.
 
 Activations are NHWC (``(B, H, W, C)`` contiguous) at every
 public function and between the modules, as in the JAX package, so outputs
@@ -52,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from icp_slam_yolo_tpu_torch.ops.attention import area_attention
 from icp_slam_yolo_tpu_torch.ops.pallas import c2f_fused as c2f_kernel
 from icp_slam_yolo_tpu_torch.ops.pallas import conv_fused as conv_kernels
 from icp_slam_yolo_tpu_torch.parallel import distributed
@@ -139,14 +141,25 @@ def _hwio(conv: nn.Conv2d, dtype) -> torch.Tensor:
 
 class ConvBnAct(_Cached):
     """Conv + BatchNorm + SiLU; ``folded=True`` is the inference form with the
-    BN affine absorbed into a biased conv (`fold_batchnorm`)."""
+    BN affine absorbed into a biased conv (`fold_batchnorm`).  ``act=False``
+    drops the SiLU and ``groups`` groups the conv (Ultralytics' ``Conv(...,
+    g=groups, act=False)``); a grouped conv, or a 3x3 without SiLU, never
+    takes the kernels, which compute a dense conv with SiLU there."""
 
     def __init__(self, cin: int, features: int, kernel: int = 3, stride: int = 1,
-                 dtype=torch.float32, folded: bool = False, fused: bool = False):
+                 dtype=torch.float32, folded: bool = False, fused: bool = False, *, act: bool = True,
+                 groups: int = 1):
         super().__init__()
         self.kernel, self.stride, self.dtype, self.folded, self.fused = kernel, stride, dtype, folded, fused
-        self.conv = nn.Conv2d(cin, features, kernel, stride, kernel // 2, bias=folded)
+        self.act, self.groups = act, groups
+        self.conv = nn.Conv2d(cin, features, kernel, stride, kernel // 2, groups=groups, bias=folded)
         self.bn = None if folded else nn.BatchNorm2d(features, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
+
+    def uses_kernels(self) -> bool:
+        """Whether this site runs in K5-K7 (folded, fused, dense, and a
+        shape and activation the kernels compute)."""
+        return (self.fused and self.folded and self.groups == 1 and (self.kernel, self.stride) in _FUSED_SITES
+                and (self.act or self.kernel == 1))
 
     def fused_params(self):
         """``(w HWIO, b)`` in the working type: what K5-K7 take (the bias is
@@ -157,28 +170,27 @@ class ConvBnAct(_Cached):
         dt = self.dtype
         if self.training:
             y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), _live(self.conv.weight, dt), _live(self.conv.bias, dt),
-                         self.stride, self.kernel // 2)
+                         self.stride, self.kernel // 2, 1, self.groups)
             if not self.folded:
                 y = batch_norm_train(y, self.bn, 1)
-            return F.silu(y).permute(0, 2, 3, 1)
-        if (self.fused and self.folded and (self.kernel, self.stride) in _FUSED_SITES
-                and conv_kernels.use_kernels(x.shape[0], x.shape[1])):
+            return (F.silu(y) if self.act else y).permute(0, 2, 3, 1)
+        if self.uses_kernels() and conv_kernels.use_kernels(x.shape[0], x.shape[1]):
             w, b = self.fused_params()
             x = x.to(dt).contiguous()
             if self.kernel == 1:
-                return conv_kernels.conv1x1_silu(x, w[0, 0], b)
+                return conv_kernels.conv1x1_silu(x, w[0, 0], b, act=self.act)
             if self.stride == 2:
                 return conv_kernels.conv3x3s2_silu(x, w, b)
             return conv_kernels.conv3x3_silu(x, w, b)
         w, b = self._cached("plain", lambda: (
             self.conv.weight.detach().to(dt),
             None if self.conv.bias is None else self.conv.bias.detach().to(dt)))
-        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), w, b, self.stride, self.kernel // 2)
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), w, b, self.stride, self.kernel // 2, 1, self.groups)
         if not self.folded:
             mean, var, g, beta = self._cached("bn", lambda: tuple(
                 t.detach().to(dt) for t in (self.bn.running_mean, self.bn.running_var, self.bn.weight, self.bn.bias)))
             y = F.batch_norm(y, mean, var, g, beta, False, 0.0, BN_EPS)
-        return F.silu(y).permute(0, 2, 3, 1)
+        return (F.silu(y) if self.act else y).permute(0, 2, 3, 1)
 
 
 class Conv1x1(_Cached):
@@ -244,11 +256,15 @@ class BatchNorm(nn.BatchNorm2d):
 
 
 class Bottleneck(nn.Module):
-    def __init__(self, cin: int, features: int, shortcut: bool = True, **kw):
+    """Two 3x3 ``ConvBnAct``s, the first to ``int(features * e)`` channels,
+    with a shortcut where ``cin == features``."""
+
+    def __init__(self, cin: int, features: int, shortcut: bool = True, e: float = 1.0, **kw):
         super().__init__()
         self.shortcut = shortcut and cin == features
-        self.ConvBnAct_0 = ConvBnAct(cin, features, 3, **kw)
-        self.ConvBnAct_1 = ConvBnAct(features, features, 3, **kw)
+        hidden = int(features * e)
+        self.ConvBnAct_0 = ConvBnAct(cin, hidden, 3, **kw)
+        self.ConvBnAct_1 = ConvBnAct(hidden, features, 3, **kw)
 
     def forward(self, x):
         y = self.ConvBnAct_1(self.ConvBnAct_0(x))
@@ -322,9 +338,12 @@ class C3k(nn.Module):
 class C3k2(nn.Module):
     """The v11/v12 CSP block: the C2f wiring with plain bottlenecks (shortcut
     on) or C3k inner modules.  No whole-block kernel takes it: its convs run
-    one by one (the JAX package's C2f kernel matches only a C2f)."""
+    one by one (the JAX package's C2f kernel matches only a C2f).  A plain
+    bottleneck's hidden width is ``hidden`` times ``c`` (Ultralytics: 0.5;
+    the JAX package's reading: 1.0)."""
 
-    def __init__(self, cin: int, features: int, n: int = 1, c3k: bool = False, e: float = 0.5, **kw):
+    def __init__(self, cin: int, features: int, n: int = 1, c3k: bool = False, e: float = 0.5,
+                 hidden: float = 1.0, **kw):
         super().__init__()
         self.n, self.c3k = n, c3k
         self.c = c = max(8, int(features * e))
@@ -333,7 +352,7 @@ class C3k2(nn.Module):
             if c3k:
                 self.add_module(f"C3k_{i}", C3k(c, c, 2, **kw))
             else:
-                self.add_module(f"Bottleneck_{i}", Bottleneck(c, c, True, **kw))
+                self.add_module(f"Bottleneck_{i}", Bottleneck(c, c, True, hidden, **kw))
         self.ConvBnAct_1 = ConvBnAct((2 + n) * c, features, 1, **kw)
 
     def forward(self, x):
@@ -475,6 +494,72 @@ class A2C2f(nn.Module):
         return out if self.gamma is None else x + self.gamma.to(out.dtype) * out
 
 
+class AAttn(nn.Module):
+    """YOLO12's area attention as Ultralytics publishes it (``AAttn``): a
+    head per 32 channels; ``qkv``, a 1x1 ``Conv`` without SiLU to ``3 dim``
+    channels grouped by head (head ``j`` owns ``[3 hd j, 3 hd (j + 1))`` as
+    ``q | k | v``); the products over ``area`` bands (`ops.attention`); ``pe``,
+    a 7x7 depthwise ``Conv`` without SiLU on ``v`` laid out as the map; and
+    ``proj``, a 1x1 ``Conv`` without SiLU of their sum.  ``qkv`` and ``proj``
+    take K5 on the fused path, ``pe`` and the products library calls."""
+
+    def __init__(self, dim: int, heads: int, area: int = 1, **kw):
+        super().__init__()
+        self.heads, self.area = heads, area
+        self.qkv = ConvBnAct(dim, 3 * dim, 1, act=False, **kw)
+        self.proj = ConvBnAct(dim, dim, 1, act=False, **kw)
+        self.pe = ConvBnAct(dim, dim, 7, act=False, groups=dim, **kw)
+
+    def forward(self, x):
+        qkv = self.qkv(x)
+        b, h, w, c3 = qkv.shape
+        v = qkv.view(b, h, w, self.heads, 3, c3 // (3 * self.heads))[..., 2, :].reshape(b, h, w, c3 // 3)
+        return self.proj(area_attention(qkv, self.heads, self.area) + self.pe(v))
+
+
+class ABlock12(nn.Module):
+    """YOLO12's ``ABlock``: ``x + AAttn(x)``, then ``x + mlp(x)`` with
+    ``mlp`` a 1x1 ``Conv`` to ``int(dim * mlp_ratio)`` channels and a 1x1
+    ``Conv`` without SiLU back."""
+
+    def __init__(self, dim: int, heads: int, mlp_ratio: float = 1.2, area: int = 1, **kw):
+        super().__init__()
+        hidden = int(dim * mlp_ratio)
+        self.attn = AAttn(dim, heads, area, **kw)
+        self.mlp = nn.Sequential(ConvBnAct(dim, hidden, 1, **kw), ConvBnAct(hidden, dim, 1, act=False, **kw))
+
+    def forward(self, x):
+        x = x + self.attn(x)
+        return x + self.mlp(x)
+
+
+class A2C2f12(nn.Module):
+    """YOLO12's R-ELAN block (``A2C2f``): ``y = [cv1(x)]``, each of the ``n``
+    modules on ``y[-1]`` (two ``ABlock12`` with ``a2``, else a ``C3k``),
+    ``out = cv2(cat y)``, and ``x + gamma * out`` where ``a2`` and
+    ``residual`` (scales l and x)."""
+
+    def __init__(self, cin: int, features: int, n: int = 1, a2: bool = True, area: int = 1,
+                 residual: bool = False, mlp_ratio: float = 2.0, **kw):
+        super().__init__()
+        c = int(features * 0.5)
+        if a2 and c % 32:
+            raise ValueError(f"A2C2f: {c} hidden channels, not a multiple of the 32 of a head")
+        self.cv1 = ConvBnAct(cin, c, 1, **kw)
+        self.m = nn.ModuleList(
+            nn.Sequential(*(ABlock12(c, c // 32, mlp_ratio, area, **kw) for _ in range(2))) if a2
+            else C3k(c, c, 2, **kw) for _ in range(n))
+        self.cv2 = ConvBnAct((1 + n) * c, features, 1, **kw)
+        self.gamma = nn.Parameter(torch.full((features,), 0.01)) if a2 and residual else None
+
+    def forward(self, x):
+        y = [self.cv1(x)]
+        for m in self.m:
+            y.append(m(y[-1]))
+        out = self.cv2(torch.cat(y, dim=-1))
+        return out if self.gamma is None else x + self.gamma.to(out.dtype) * out
+
+
 def _max_pool5(x):
     """5x5 max-pool, stride 1, SAME, on NHWC (a library call, as the JAX
     package leaves it to XLA)."""
@@ -521,20 +606,22 @@ class DetectHead(nn.Module):
         self._levels = []
         for f in feats:
             box = [self._cba(f, c2), self._cba(c2, c2), self._conv(c2, 4 * reg_max)]
-            cls = [self._cba(f, c3), self._cba(c3, c3), self._conv(c3, num_classes)]
-            self._levels.append((box, cls))
+            self._levels.append((box, self._class_branch(f, c3, num_classes)))
         self.reset_class_bias()
+
+    def _class_branch(self, f: int, c3: int, num_classes: int) -> list:
+        return [self._cba(f, c3), self._cba(c3, c3), self._conv(c3, num_classes)]
 
     @torch.no_grad()
     def reset_class_bias(self):
         """The class branches' output biases to -4.6: a prior of ~0.01."""
         for _, cls in self._levels:
-            getattr(self, cls[2]).conv.bias.fill_(-4.6)
+            getattr(self, cls[-1]).conv.bias.fill_(-4.6)
 
-    def _cba(self, cin, cout):
+    def _cba(self, cin, cout, kernel: int = 3, groups: int = 1):
         name = f"ConvBnAct_{self._n_cba}"
         self._n_cba += 1
-        self.add_module(name, ConvBnAct(cin, cout, 3, **self._kw))
+        self.add_module(name, ConvBnAct(cin, cout, kernel, groups=groups, **self._kw))
         return name
 
     def _conv(self, cin, cout):
@@ -550,6 +637,18 @@ class DetectHead(nn.Module):
 
     def forward(self, feats):
         return [(self._run(box, f), self._run(cls, f)) for f, (box, cls) in zip(feats, self._levels)]
+
+
+class DetectHead12(DetectHead):
+    """Ultralytics' ``Detect`` with ``legacy=False`` (YOLO12): the box branch
+    as v8, the class branch a depthwise 3x3 ``Conv`` (SiLU), a 1x1 ``Conv``
+    to ``c3``, a depthwise 3x3, a 1x1, then the biased 1x1 to the classes.
+    Per level: box ``ConvBnAct_{6i}``, ``ConvBnAct_{6i+1}``, ``Conv_{2i}``;
+    class ``ConvBnAct_{6i+2..6i+5}``, ``Conv_{2i+1}``."""
+
+    def _class_branch(self, f: int, c3: int, num_classes: int) -> list:
+        return [self._cba(f, f, 3, f), self._cba(f, c3, 1), self._cba(c3, c3, 3, c3), self._cba(c3, c3, 1),
+                self._conv(c3, num_classes)]
 
 
 class _ExtraBranchHead(DetectHead):
@@ -619,35 +718,61 @@ SCALES = {  # (depth, width) per family and variant
     "v11": {"n": (0.5, 0.25), "s": (0.5, 0.5), "m": (0.5, 1.0)},
     "v12": {"n": (0.5, 0.25), "s": (0.5, 0.5), "m": (0.5, 1.0)},
 }
+# Ultralytics' yolo12.yaml: (depth, width, max_channels) per scale
+YOLO12_SCALES = {"n": (0.50, 0.25, 1024), "s": (0.50, 0.50, 1024), "m": (0.50, 1.00, 512),
+                 "l": (1.00, 1.00, 512), "x": (1.00, 1.50, 512)}
+
+
+def yolo12_widths(variant: str) -> list[int]:
+    """The five stage widths of a YOLO12 scale: ``ceil(min(c, max_channels)
+    * width / 8) * 8``."""
+    _, width, cap = YOLO12_SCALES[variant]
+    return [int(math.ceil(min(c, cap) * width / 8) * 8) for c in (64, 128, 256, 512, 1024)]
 
 
 class YOLO(nn.Module):
     """YOLO detector.  ``family``: ``"v8"`` (CSP backbone with C2f blocks +
     SPPF), ``"v11"`` (C3k2 blocks, SPPF + C2PSA) or ``"v12"`` (C3k2, then
     A2C2f area-attention stages: area 4 at stride 16, global at stride 32,
-    and an A2C2f neck); all with a PAN-FPN neck.  ``variant``: n/s/m;
+    and an A2C2f neck; the JAX package's reading of YOLO12); all with a
+    PAN-FPN neck.  ``variant``: n/s/m;
     ``task``: detect | obb | segment | pose.  ``fold_bn``: the inference form
     with BN folded into the convs; ``fused``: run the convs in the
     hand-written kernels (needs ``fold_bn``).
+
+    ``family="yolo12"`` is YOLO12 as Ultralytics publishes it
+    (``cfg/models/12/yolo12.yaml``, ``Detect`` with ``legacy=False``),
+    parameter for parameter: variants n/s/m/l/x, task detect; the same
+    wiring and attribute names as ``v12`` (``b2``-``b5``, ``neck_p4``, ...,
+    ``head``) over the published blocks (`A2C2f12`, `ABlock12`, `AAttn`,
+    `DetectHead12`).
     """
 
     def __init__(self, num_classes: int = 1, variant: str = "n", task: str = "detect", family: str = "v8",
                  reg_max: int = 16, n_kpt: int = 4, compute_dtype=torch.float32, fold_bn: bool = False,
                  fused: bool = False):
         super().__init__()
-        if family not in SCALES:
+        if family not in SCALES and family != "yolo12":
             raise ValueError(f"unknown family: {family}")
+        if family == "yolo12" and task != "detect":
+            raise ValueError(f"family 'yolo12' has the detect task only, not {task!r}")
         if fused and not fold_bn:
             raise ValueError("fused=True needs fold_bn=True: the kernels take BN-folded convs")
         self.num_classes, self.variant, self.task, self.family = num_classes, variant, task, family
         self.reg_max, self.n_kpt, self.compute_dtype, self.fold_bn, self.fused = reg_max, n_kpt, compute_dtype, fold_bn, fused
-        depth, width = SCALES[family][variant]
-        ch = [_make_divisible(c * width) for c in (64, 128, 256, 512, 1024)]
+        if family == "yolo12":
+            depth = YOLO12_SCALES[variant][0]
+            ch = yolo12_widths(variant)
+        else:
+            depth, width = SCALES[family][variant]
+            ch = [_make_divisible(c * width) for c in (64, 128, 256, 512, 1024)]
         self.ch = ch
         kw = dict(dtype=compute_dtype, folded=fold_bn, fused=fused)
         self.stem = ConvBnAct(3, ch[0], 3, 2, **kw)
         self.down2 = ConvBnAct(ch[0], ch[1], 3, 2, **kw)
-        if family == "v8":
+        if family == "yolo12":
+            self._yolo12_layers(variant, depth, ch, kw)
+        elif family == "v8":
             n1, n2 = max(round(3 * depth), 1), max(round(6 * depth), 1)
             self.c2f_2 = C2f(ch[1], ch[1], n1, True, **kw)
             self.down3 = ConvBnAct(ch[1], ch[2], 3, 2, **kw)
@@ -686,7 +811,9 @@ class YOLO(nn.Module):
         self.pan_d3 = ConvBnAct(ch[2], ch[2], 3, 2, **kw)
         self.pan_d4 = ConvBnAct(ch[3], ch[3], 3, 2, **kw)
         feats = ch[2:]
-        if task == "obb":
+        if family == "yolo12":
+            self.head = DetectHead12(feats, num_classes, reg_max, **kw)
+        elif task == "obb":
             self.head = OBBHead(feats, num_classes, reg_max, **kw)
         elif task == "segment":
             self.head = SegmentHead(feats, num_classes, reg_max, **kw)
@@ -696,6 +823,27 @@ class YOLO(nn.Module):
         else:
             self.head = DetectHead(feats, num_classes, reg_max, **kw)
         self.eval()
+
+    def _yolo12_layers(self, variant: str, depth: float, ch: list, kw: dict) -> None:
+        """Layers 2-20 of ``yolo12.yaml`` but the stride-2 convs 15 and 18:
+        every ``C3k2`` takes ``c3k`` at m/l/x, every ``A2C2f`` ``residual``
+        and an MLP ratio of 1.2 at l/x (2.0 below)."""
+        def reps(n):
+            return max(round(n * depth), 1)
+
+        big, c3k = variant in "lx", variant in "mlx"
+        a2 = dict(residual=big, mlp_ratio=1.2 if big else 2.0)
+        self.b2 = C3k2(ch[1], ch[2], reps(2), c3k, 0.25, 0.5, **kw)
+        self.down3 = ConvBnAct(ch[2], ch[2], 3, 2, **kw)
+        self.b3 = C3k2(ch[2], ch[3], reps(2), c3k, 0.25, 0.5, **kw)
+        self.down4 = ConvBnAct(ch[3], ch[3], 3, 2, **kw)
+        self.b4 = A2C2f12(ch[3], ch[3], reps(4), True, 4, **a2, **kw)
+        self.down5 = ConvBnAct(ch[3], ch[4], 3, 2, **kw)
+        self.b5 = A2C2f12(ch[4], ch[4], reps(4), True, 1, **a2, **kw)
+        self.neck_p4 = A2C2f12(ch[4] + ch[3], ch[3], reps(2), False, **kw)
+        self.neck_p3 = A2C2f12(ch[3] + ch[3], ch[2], reps(2), False, **kw)
+        self.pan_p4 = A2C2f12(ch[2] + ch[3], ch[3], reps(2), False, **kw)
+        self.pan_p5 = C3k2(ch[3] + ch[4], ch[4], reps(2), True, 0.5, 0.5, **kw)
 
     def train(self, mode: bool = True):
         """Training mode needs the unfolded, unfused model (the BatchNorms

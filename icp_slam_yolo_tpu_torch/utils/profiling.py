@@ -16,7 +16,10 @@ test of the profiler's flag, no allocation, no CUDA call.  While one is:
   closed last) to its exit.  Work of the parent between two of its
   children thus counts to the later child: a stage's interval depends on
   where the spans are placed.  The device is the ``device`` argument, or
-  the enclosing span's, whose stream a span on the same device takes;
+  the enclosing span's, whose stream a span on the same device takes.
+  A span opened with ``own_start=True`` records a timing event at its
+  entry as well and starts its interval there, so the parent's work before
+  it counts to none of its stages (the detector's ``detect.attention``);
 * a `Span` record is kept in memory (at most `MAX_RECORDS`), with the
   counts added inside it by ``span.count(key, n)``.
 
@@ -52,10 +55,11 @@ class Span:
     ``end``, the timing events that bound its interval on the device (None
     off a card or inside a capture)."""
 
-    __slots__ = ("name", "parent", "device", "stream", "counts", "start", "end", "_mark", "_host")
+    __slots__ = ("name", "parent", "device", "stream", "counts", "start", "end", "own_start", "_mark", "_host")
 
-    def __init__(self, name: str, parent: "Span | None", device, stream):
+    def __init__(self, name: str, parent: "Span | None", device, stream, own_start: bool = False):
         self.name, self.parent, self.device, self.stream = name, parent, device, stream
+        self.own_start = own_start
         self.counts: dict[str, int] = {}
         self.start = self.end = self._mark = self._host = None
 
@@ -75,7 +79,7 @@ class Span:
         if self.stream is not None:
             parent = self.parent
             self.start = self._mark = (parent._mark if parent is not None and parent.stream is self.stream
-                                       else self._event())
+                                       and not self.own_start else self._event())
         return self
 
     def __exit__(self, *exc) -> bool:
@@ -113,24 +117,25 @@ def _stack() -> list:
     return stack
 
 
-def span(name: str, device=None):
+def span(name: str, device=None, own_start: bool = False):
     """A stage span (see the module docstring).  ``name`` is dotted, as
     ``slam.outlier``; ``device`` is where the stage's work runs (None: the
     enclosing span's; a span with neither keeps no device interval).  A
-    span on its parent's device records on the stream the parent found."""
+    span on its parent's device records on the stream the parent found.
+    ``own_start``: the interval starts at the span's own entry event."""
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     stack = _stack()
     parent = stack[-1] if stack else None
     if parent is not None and (device is None or torch.device(device) == parent.device):
-        return Span(name, parent, parent.device, parent.stream)
+        return Span(name, parent, parent.device, parent.stream, own_start)
     if device is None:
-        return Span(name, parent, None, None)
+        return Span(name, parent, None, None, own_start)
     device = torch.device(device)
     stream = None
     if device.type == "cuda" and not torch.cuda.is_current_stream_capturing():
         stream = torch.cuda.current_stream(device)
-    return Span(name, parent, device, stream)
+    return Span(name, parent, device, stream, own_start)
 
 
 def count(key: str, n: int = 1) -> None:
