@@ -2463,9 +2463,10 @@ def check_detector_kernels() -> dict:
                     # mma.sync, forced: the same bits (one order of summation), which `detect_pair` needs
                     base = fn(x, w, b, act, wgmma=False) if plan.wgmma else got
                     _require(torch.equal(got, base), f"{name} {what}: wgmma and mma.sync give other bits")
+                    mma = conv.conv_plan(bsz, h // stride, h // stride, cin, cout, k, True, n_sm, wgmma=False)
                     splits = [sp for sp in conv.SPLITS[1:] if conv.smem_bytes(
-                        plan._replace(split=sp, wgmma=False), True) <= conv.SMEM_LIMIT]
-                    forced = [dict(split=1 if plan.split > 1 else splits[0])]
+                        mma._replace(split=sp), True) <= conv.SMEM_LIMIT]
+                    forced = [dict(split=1 if mma.split > 1 else splits[0])]
                     if plan.vec:
                         forced.append(dict(vec=False))
                     for opt in forced:
@@ -2492,7 +2493,7 @@ def check_detector_kernels() -> dict:
                     print(f"[7] {name} bf16 B={bsz} {cin}->{cout} @{h}{'' if act else ' no act'} "
                           f"(x{count} per {'v8n' if v8 else 'YOLO12-L'} forward): "
                           f"err {err:.3g} of {mag:.3g}; {'16-byte' if plan.vec else 'scalar'} gather, tile "
-                          f"{plan.bm} x {plan.bn}, {'wgmma' if plan.wgmma else f'split {plan.split}'}: device "
+                          f"{plan.bm} x {plan.bn}, {('TMA-fed ' if plan.tma else '') + 'wgmma' if plan.wgmma else f'split {plan.split}'}: device "
                           f"{ms * 1e3:.2f} us{other}, plain "
                           f"{plain * 1e3:.1f} us, "
                           f"F.conv2d{' + F.silu' if act else ''} {lib * 1e3:.2f} us, bound {bound[0] * 1e3:.3f} us "
@@ -2505,29 +2506,49 @@ def check_detector_kernels() -> dict:
                         acc["bound_ms"] += count * bound[0]
                         acc["by"][bound[1]] = acc["by"].get(bound[1], 0.0) + count * bound[0]
 
-    # the warpgroup products (wgmma) against mma.sync on the same tile, batch 2, 8 and 32: every 3x3 site (v8n's
-    # and YOLO12-L's) with Cout a multiple of 64, and the 1x1s at the 80 x 80 inputs
+    # the TMA-fed warpgroup loop against mma.sync (split 1) and the plain version at every site of v8n and YOLO12-L
+    # it can take (Cin and Cout multiples of 64), every height, batch 2, 8 and 32: the same bits, the same bits again
+    # on a repeat, device times beside the 64-row warpgroup kernel, mma.sync and the site's bound; then the 3x3s
+    # with Cout a multiple of 64 and another Cin, which the 64-row kernel takes: against mma.sync, timed
+    def wgmma64(x, w, b, stride, act):  # the 64-row warpgroup kernel on 64-row tiles, through the C entry
+        bsz, h, wd, cin = x.shape
+        out = torch.empty((bsz, h // stride, wd // stride, w.shape[-1]), dtype=x.dtype, device=x.device)
+        _lib.check(lib_c.slam_conv_bias_act(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, h, wd, cin,
+                                            w.shape[-1], w.shape[0], stride, int(act), 1, 1, 64, 64, 1, 1,
+                                            _lib.stream_ptr(x.device)), "wgmma64")
+        return out
+
     for name, (k, stride, fn) in wrappers.items():
-        for cin, cout, h, act, count in sites[name] + YOLO12L_SITES[name]:
-            if cout % 64 or cin % 8 or (k == 1 and h != 80):  # wgmma takes only the 16-byte gather
+        for (cin, cout, h, act, count), v8 in [(t, True) for t in sites[name]] + [(t, False) for t in YOLO12L_SITES[name]]:
+            if cout % 64 or cin % 8 or (cin % 64 and k == 1):
                 continue
             for bsz in (2, 8, 32):
                 x, w, b = _conv_case(torch, rng, torch.bfloat16, bsz, h, h, cin, cout, k)
+                ho = h // stride
                 want = conv.conv_bias_act_plain(x, w, b, stride, act)
-                plan = conv.conv_plan(bsz, h // stride, h // stride, cin, cout, k, True, n_sm)
-                wg = conv.conv_plan(bsz, h // stride, h // stride, cin, cout, k, True, n_sm, wgmma=True)
+                plan = conv.conv_plan(bsz, ho, ho, cin, cout, k, True, n_sm)
+                wg = conv.conv_plan(bsz, ho, ho, cin, cout, k, True, n_sm, wgmma=True)
+                mma = conv.conv_plan(bsz, ho, ho, cin, cout, k, True, n_sm, wgmma=False, split=1)
+                what = f"bf16 B={bsz} {cin}->{cout} @{h} act={act}"
                 got_wg = fn(x, w, b, act, wgmma=True)
                 got_mma = fn(x, w, b, act, wgmma=False, split=1)
-                err, mag = held(name, f"bf16 B={bsz} {cin}->{cout} @{h} act={act} wgmma", got_wg, want, torch.bfloat16, 2)
-                repeat_equal(name, f"bf16 B={bsz} {cin}->{cout} @{h} act={act} wgmma", lambda: fn(x, w, b, act, wgmma=True))
-                held(name, f"bf16 B={bsz} {cin}->{cout} @{h} act={act} mma.sync", got_mma, want, torch.bfloat16, 2)
-                _require(torch.equal(got_wg, got_mma), f"{name} bf16 B={bsz} {cin}->{cout} @{h}: wgmma and mma.sync differ")
+                kind = "TMA-fed loop" if wg.tma else "64-row warpgroup kernel"
+                err, mag = held(name, f"{what} {kind}", got_wg, want, torch.bfloat16, 2)
+                repeat_equal(name, f"{what} {kind}", lambda: fn(x, w, b, act, wgmma=True))
+                held(name, f"{what} mma.sync", got_mma, want, torch.bfloat16, 2)
+                _require(torch.equal(got_wg, got_mma), f"{name} {what}: the {kind} and mma.sync differ")
                 t_wg = _device_ms(torch, lambda: fn(x, w, b, act, wgmma=True), 10)
+                t_64 = _device_ms(torch, lambda: wgmma64(x, w, b, stride, act), 10) if wg.tma else t_wg
                 t_mma = _device_ms(torch, lambda: fn(x, w, b, act, wgmma=False, split=1), 10)
-                print(f"[7] {name} bf16 B={bsz} {cin}->{cout} @{h}{'' if act else ' no act'}: wgmma ({wg.bm} rows) "
-                      f"{t_wg * 1e3:.2f} us, mma.sync (tile {plan.bm} x {plan.bn}, split 1) {t_mma * 1e3:.2f} us, "
-                      f"the same bits; err {err:.3g} of {mag:.3g}; the plan takes "
-                      f"{'wgmma' if plan.wgmma else f'mma.sync, split {plan.split}'}", flush=True)
+                bound = _bound(2.0 * bsz * ho * ho * k * k * cin * cout,
+                               2.0 * (x.numel() + w.numel() + b.numel() + bsz * ho * ho * cout), PEAK_BF16)
+                print(f"[7] {name} bf16 B={bsz} {cin}->{cout} @{h}{'' if act else ' no act'} "
+                      f"(x{count} per {'v8n' if v8 else 'YOLO12-L'} forward): {kind} ({wg.bm} x {wg.bn}) "
+                      f"{t_wg * 1e3:.2f} us, 64-row warpgroup kernel (64 x 64) {t_64 * 1e3:.2f} us, mma.sync (tile "
+                      f"{mma.bm} x {mma.bn}, split 1) {t_mma * 1e3:.2f} us, bound {bound[0] * 1e3:.2f} us ({bound[1]}), "
+                      f"{bound[0] / t_wg * 100:.1f} % of it; the same bits; err {err:.3g} of {mag:.3g}; the plan takes "
+                      f"{f'warpgroup products ({plan.bm} x {plan.bn})' if plan.wgmma else f'mma.sync, split {plan.split}'}",
+                      flush=True)
 
     for cin, c, feat, h, shortcut in K8_SITES:
         for dt in (torch.bfloat16, torch.float32):
@@ -2772,12 +2793,13 @@ def detector_path() -> dict:
 
     # -- the main path: counters zeroed just before, read just after
     pallas.reset_launches()
-    per_forward = []
+    per_forward, tma_per_forward = [], []
 
     def counted(fn):
         before = dict(pallas.LAUNCHES)
         out = fn()
         per_forward.append({k: pallas.LAUNCHES[k] - before[k] for k in LAUNCHES_PER_FORWARD})
+        tma_per_forward.append(pallas.LAUNCHES["conv_tma"] - before["conv_tma"])
         return out
 
     t0 = time.perf_counter()
@@ -2818,7 +2840,9 @@ def detector_path() -> dict:
           f"copies included), detect_pair {pair_s * 1e3:.2f} ms, predict_batch(8) {batch_s * 1e3:.2f} ms; detections above "
           f"{conf} per frame {n_valid}, best scores {[float(f'{o["scores"][0]:.3g}') if len(o['scores']) else None for o in singles]}; "
           f"detect_pair equal to two single calls (bit equal: {exact}); launches per forward {per_forward[0]} at batch 1, 2 "
-          f"and 8; launches {launches}", flush=True)
+          f"and 8, of them through the TMA-fed warpgroup loop {tma_per_forward[0]}, {tma_per_forward[4]} and "
+          f"{tma_per_forward[5]} of {sum(LAUNCHES_PER_FORWARD.values()) - LAUNCHES_PER_FORWARD['c2f_fused']} K5-K7; "
+          f"launches {launches}", flush=True)
 
     # -- fused against unfused head outputs on the card, bfloat16, and both against float32
     unfused = port.detector_from_checkpoint(DETECT_CHECKPOINT, conf_threshold=conf, pallas_convs=False)
@@ -3146,17 +3170,21 @@ def yolo12_path() -> dict:
     expected = {name: sum(site[-1] for site in sites) for name, sites in YOLO12L_SITES.items()}
     expected["c2f_fused"] = 0
     pallas.reset_launches()
-    per_forward = []
-    for bsz in (2, 8):
+    per_forward, tma = [], []
+    for bsz in (2, 8, 32):  # batch 32: the benchmark cell's 8 frames four times
         before = dict(pallas.LAUNCHES)
-        dets = det.predict_batch(images[:bsz])
+        dets = det.predict_batch(images.repeat(4, 1, 1, 1) if bsz == 32 else images[:bsz])
         torch.cuda.synchronize()
         per_forward.append({k: pallas.LAUNCHES[k] - before[k] for k in expected})
+        tma.append(pallas.LAUNCHES["conv_tma"] - before["conv_tma"])
         _require(tuple(dets.boxes.shape) == (bsz, det.max_detections, 4) and bool(torch.isfinite(dets.boxes).all()),
                  f"yolo12-l predict_batch({bsz}) malformed")
     runs = dict(pallas.LAUNCHES)
     for counts in per_forward:
         _require(counts == expected, f"yolo12-l: launches per forward {counts}, expected {expected}")
+    k57 = sum(expected.values())
+    _require(tma[2] >= 138, f"yolo12-l: {tma[2]} of a batch-32 forward's {k57} K5-K7 launches took the TMA-fed "
+                            f"warpgroup loop, expected 138 or more")
     det32 = detector(torch.float32)
     with HeldKernels() as held:
         det.predict_batch(images[:2])
@@ -3174,7 +3202,8 @@ def yolo12_path() -> dict:
             r = r.double()
             gap = max(gap, float(((g.permute(0, 3, 1, 2).double() - r) ** 2).mean().sqrt() / r.std()))
     _require(gap <= 5e-3, f"yolo12-l: float32 fused head outputs {gap:.3g} of the reference's spread off")
-    print(f"[8] YOLO12-L at 1024 px (seeded, fused): launches per forward {per_forward[0]} at batch 2 and 8; "
+    print(f"[8] YOLO12-L at 1024 px (seeded, fused): launches per forward {per_forward[0]} at batch 2, 8 and 32, of "
+          f"them through the TMA-fed warpgroup loop {tma[0]}, {tma[1]} and {tma[2]} of {k57} K5-K7; "
           f"{sum(held.held.values())} launches of a batch-2 forward in bfloat16 and float32 at {len(held.shapes)} "
           f"distinct shapes, each within 2 bfloat16 steps (float32: 3e-4) of its plain version (largest errors "
           f"{ {k: held.worst[k] for k in HeldKernels.CONVS} }); float32 fused head outputs against the plain "

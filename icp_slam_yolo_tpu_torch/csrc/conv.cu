@@ -39,24 +39,38 @@
 //     the same bits on every launch); the K axis is summed in 8 fixed groups
 //     whatever the split, so every split, tile and gather gives the same
 //     bits;
-//   * the 3x3s with Cout a multiple of 64 that are neither split nor given
-//     32 rows take a warpgroup variant: `wgmma.m64n64k16` on both operands
-//     in shared memory, which the gather writes in the 128-byte swizzled
-//     layout; it gives the same bits as `mma.sync`;
-//   * the finished tile is staged in the ring and leaves in 16-byte stores
-//     of whole rows (with the scalar gather, where Cout may be odd, each
-//     thread stores its own pairs).
+//   * the sites with Cin and Cout multiples of 64 that are not split take
+//     the TMA-fed warpgroup loop (`conv_wgmma_kernel<NWG, BN>`, below): a
+//     producer thread feeds the ring with TMA boxes, two consumer
+//     warpgroups run `wgmma` on 128 x 128 (or 128 x 64) tiles, or one on
+//     64 x 64 where 128-row tiles would not fill the card; the 3x3s with
+//     Cout a multiple of 64 and other Cin that are neither split nor given
+//     32 rows take the 64-row warpgroup kernel (`conv_wgmma_kernel<NWG>`),
+//     whose threads gather with 16-byte copies and multiply with
+//     `wgmma.m64n64k16`; both give the same bits as `mma.sync`;
+//   * the finished tile is staged in shared memory and leaves in 16-byte
+//     stores of whole rows (with the scalar gather, where Cout may be odd,
+//     each thread stores its own pairs).
 //
 // float32 keeps the FMA tile of conv_common.cuh (not on the serving path).
 //
-// Bound on this card: bytes (yolo-n's layers do 8-150 operations per byte
-// moved, below the ~295 at which the bf16 tensor cores would bound them).
-// What bounds this version is in PERF.md section 6: per launch a few
-// microseconds of fixed cost (launch, the row tables, the pipeline's
-// prologue and, when split, two cluster barriers), then the latency of the
-// chunk loop where a block walks many chunks in series.
+// Bound on this card: yolo-n's layers are bound by bytes (8-150 operations
+// per byte moved, below the ~295 at which the bf16 tensor cores bound
+// them); there a launch costs a few microseconds of fixed cost (launch, the
+// row tables, the pipeline's prologue and, when split, two cluster
+// barriers), then the latency of the chunk loop (PERF.md section 6).
+// YOLO12-L's 3x3s at 64-512 channels do 190-750 operations a byte and are
+// bound by operations.  There the 64 x 64 tiles, whose threads both gathered
+// with 16-byte copies and multiplied, ran at 12-15 % of the tensor cores'
+// rate: a block's copies in flight could not cover the latency of the
+// shared L2 (its 128 threads ran out of outstanding requests), and each
+// 64-column tile gathered the same input rows again.  The warpgroup loop
+// moves a chunk in one TMA box per operand, keeps the products of one chunk
+// in flight while the next is queued, and halves the gathered bytes per
+// product with 128 x 128 tiles.
 
 #include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and its enums; the encoders are fetched from libcuda at run time
 
 #include "conv_common.cuh"
 
@@ -457,8 +471,9 @@ __global__ void __launch_bounds__(kConvThreads) conv_bf16_kernel(
   }
 }
 
-// The warpgroup variant (16-byte gather, Cout a multiple of 64, no split):
-// NWG warpgroups of 64 rows each take 64 columns with `wgmma.m64n64k16`,
+// The 64-row warpgroup kernel (16-byte gather, Cout a multiple of 64, no
+// split; the sites whose Cin the TMA-fed loop's 64-channel boxes do not
+// take): NWG warpgroups of 64 rows each take 64 columns with `wgmma.m64n64k16`,
 // both operands read from shared memory in the 128-byte swizzled layout that
 // the gather writes directly; the K axis in chunks of 64, in the same
 // groups as the other variants.
@@ -580,7 +595,8 @@ cudaError_t launch_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w, const _
                          __nv_bfloat16* out, int B, int H, int W, int Cin, int Cout, int ks, int stride,
                          int act, cudaStream_t s) {
   using TT = WgTile<NWG>;
-  auto kern = conv_wgmma_kernel<NWG>;
+  void (*kern)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*, __nv_bfloat16*, int, int, int,
+               int, int, int, int, int, int, int) = conv_wgmma_kernel<NWG>;
   static const cudaError_t attr = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, TT::SMEM);
   if (attr != cudaSuccess) return attr;
   const int pad = ks / 2;
@@ -589,6 +605,288 @@ cudaError_t launch_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w, const _
   if (M >= (1LL << 31)) return cudaErrorInvalidValue;
   const dim3 grid((unsigned)((M + TT::BM - 1) / TT::BM), (unsigned)((Cout + 63) / 64));
   kern<<<grid, TT::THREADS, TT::SMEM, s>>>(x, w, bias, out, B, H, W, Cin, Cout, Ho, Wo, ks, stride, act);
+  return cudaGetLastError();
+}
+
+// The TMA-fed warpgroup loop, for the sites whose products can be fed
+// at full width (Cin and Cout multiples of 64, no split): a block of NWG
+// consumer warpgroups (64 rows each, `wgmma.m64n{BN}k16` on both operands in
+// shared memory) and one producer warpgroup, one thread of which keeps a
+// ring of kTmaStages chunks full with the Tensor Memory Accelerator (TMA):
+// per chunk one box of A (a 1x1: BM rows x 64 channels of the input as an M x
+// Cin matrix; a 3x3: an im2col box, the BM output pixels' input pixels at one
+// tap, 64 channels, the halo zero-filled by the copy) and BN / 64 boxes of W,
+// all in the 128-byte swizzled layout that the products read.  Stages change
+// hands on mbarriers; the consumers keep one chunk's products in flight
+// (`wgmma.wait_group 1`) and sum the K axis in the same fixed groups as the
+// other variants, the group that ends into one of two accumulators while the
+// next runs into the other, so the tensor cores never wait for a group's sum.
+// Persistent: a block walks the output tiles gridDim.x apart, so the
+// producer fills the ring for the next tile while the consumers finish one.
+constexpr int kTmaStages = 5;  // chunks in the ring
+template <int NWG, int BN>
+struct TmaTile {
+  static constexpr int BM = 64 * NWG, THREADS = 128 * (NWG + 1);  // consumer warpgroups, then the producer
+  static constexpr int A_BYTES = BM * 128;                        // A's rows of a 64-value chunk
+  static constexpr int STAGE_BYTES = A_BYTES + BN * 128;          // then W's 64 x BN, in 64-column atoms of 8 KB
+  static constexpr int BARS = 2 * kTmaStages * 8;                 // full and empty barriers of each stage
+  static constexpr int OROW = BN + 8;                             // a staged output row: an odd number of 16-byte units
+  static constexpr int SMEM = 1024 + kTmaStages * STAGE_BYTES + BARS + BM * OROW * 2;
+  static_assert(NWG == 1 || NWG == 2, "one or two consumer warpgroups");
+  static_assert(BN == 64 || BN == 128, "64 or 128 columns");
+};
+
+// arrives on the barrier and adds `bytes` of copies that its phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+// a TMA box of a 2-D map at (x0 inner, x1 outer) into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, int x0, int x1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(x0), "r"(x1), "r"(bar)
+      : "memory");
+}
+// an im2col box of an NHWC map: the pixels from (w, h, n) on in the map's
+// traversal, shifted by the tap (dw, dh), channels c..
+__device__ __forceinline__ void tma_im2col(uint32_t dst, const CUtensorMap* map, int c, int w, int h, int n,
+                                           uint16_t dw, uint16_t dh, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6], {%7, %8};\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(w), "r"(h), "r"(n), "r"(bar), "h"(dw), "h"(dh)
+      : "memory");
+}
+
+// one chunk of a consumer warpgroup: its products into `cur` (from zero at
+// the first chunk of a group), the previous chunk's finished; at the first
+// chunk of a group after the first, the previous group's sum (`prv`) is then
+// complete and joins `sum`
+template <int BN>
+__device__ __forceinline__ void tma_chunk(float (&cur)[BN / 2], float (&prv)[BN / 2], float (&sum)[BN / 2],
+                                          uint32_t a, uint32_t b, bool fresh, bool add_prv) {
+  wgmma_fence_operands(cur);
+  wgmma_fence();
+#pragma unroll
+  for (int k16 = 0; k16 < 4; ++k16) {
+    const int scale = fresh && k16 == 0 ? 0 : 1;
+    if constexpr (BN == 128)
+      wgmma_m64n128k16(cur, wgmma_desc(a + k16 * 32), wgmma_desc(b + k16 * 16 * 128, 8192), scale);
+    else
+      wgmma_m64n64k16(cur, wgmma_desc(a + k16 * 32), wgmma_desc(b + k16 * 16 * 128), scale);
+  }
+  wgmma_commit();
+  wgmma_fence_operands(cur);
+  wgmma_wait<1>();
+  if (add_prv) {
+    wgmma_fence_operands(prv);
+#pragma unroll
+    for (int q = 0; q < BN / 2; ++q) sum[q] += prv[q];
+  }
+}
+
+// xmap: the input (ks 1: a 2-D M x Cin map, boxes of 64 x BM; ks 3: a 4-D
+// im2col map, boxes of BM pixels x 64 channels); wmap: W as a 2-D K x Cout
+// map, boxes of 64 x 64
+template <int NWG, int BN>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1) conv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+    const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ out, int M, int Cin, int Cout, int Ho,
+    int Wo, int ks, int stride, int act, int tiles) {
+  using TT = TmaTile<NWG, BN>;
+  constexpr int BM = TT::BM, S = kTmaStages;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t smem0 = smem_addr(smem), ring_addr = (smem0 + 1023) & ~1023u;
+  unsigned char* ring = smem + (ring_addr - smem0);
+  const uint32_t full = ring_addr + S * TT::STAGE_BYTES, empty = full + S * 8;
+  __nv_bfloat16* staged = reinterpret_cast<__nv_bfloat16*>(ring + S * TT::STAGE_BYTES + TT::BARS);
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int nkb = ks * ks * Cin / 64;  // 64-value chunks of a tile
+  const int tiles_n = Cout / BN;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);         // the producer's arrival, then the stage's bytes
+      mbar_init(empty + 8 * s, 4 * NWG);  // every consumer warp, once its products of the chunk are done
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();  // the last block-wide barrier: the two roles never meet again
+
+  if (wg == NWG) {  // ---- the producer warpgroup: one thread starts every copy
+    if constexpr (NWG == 2) setmaxnreg_dec<40>();
+    if (tid == 128 * NWG) {
+      int it = 0;  // chunks requested by this block so far
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;  // 32-bit: M < 2^31 (the host checks)
+        // the tile's first output pixel, and the input position of its tap (0, 0)
+        const int img = m0 / (Ho * Wo), oy = m0 % (Ho * Wo) / Wo, ox = m0 % Wo;
+        for (int c = 0; c < nkb; ++c, ++it) {
+          const int s = it % S;
+          if (it >= S) mbar_wait(empty + 8 * s, (it / S - 1) & 1);  // the consumers are done with its last chunk
+          const uint32_t st = ring_addr + s * TT::STAGE_BYTES, bar = full + 8 * s;
+          mbar_expect_tx(bar, TT::STAGE_BYTES);
+          if (ks == 1) {
+            tma_2d(st, &xmap, c * 64, m0, bar);
+          } else {
+            const int tap = c * 64 / Cin, ci = c * 64 - tap * Cin;
+            tma_im2col(st, &xmap, ci, ox * stride - 1, oy * stride - 1, img, (uint16_t)(tap % 3), (uint16_t)(tap / 3),
+                       bar);
+          }
+#pragma unroll
+          for (int h = 0; h < BN / 64; ++h) tma_2d(st + TT::A_BYTES + h * 8192, &wmap, n0 + 64 * h, c * 64, bar);
+        }
+      }
+    }
+  } else {  // ---- a consumer warpgroup: rows 64 wg .. 64 wg + 63 of each tile
+    if constexpr (NWG == 2) setmaxnreg_inc<232>();
+    const int lane = tid % 32, wq = (tid % 128) / 32;
+    float acc0[BN / 2], acc1[BN / 2], sum[BN / 2];
+#pragma unroll
+    for (int q = 0; q < BN / 2; ++q) acc0[q] = acc1[q] = 0.f;
+    int it = 0;  // chunks consumed by this block so far
+    auto release = [&](int chunk) {  // this warp is done with the chunk's stage
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * (chunk % S));
+    };
+    // the chunks [lo, hi) of one group, `first`: the tile's first group; after
+    // a chunk's products are queued, the previous chunk's stage is free
+    auto group = [&](float (&cur)[BN / 2], float (&prv)[BN / 2], int lo, int hi, bool first) {
+      for (int c = lo; c < hi; ++c, ++it) {
+        mbar_wait(full + 8 * (it % S), (it / S) & 1);
+        const uint32_t st = ring_addr + it % S * TT::STAGE_BYTES;
+        tma_chunk<BN>(cur, prv, sum, st + wg * 64 * 128, st + TT::A_BYTES, c == lo, c == lo && !first);
+        if (c > 0) release(it - 1);
+      }
+    };
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+#pragma unroll
+      for (int q = 0; q < BN / 2; ++q) sum[q] = 0.f;
+      // the non-empty groups in order, alternately into acc0 and acc1
+      int q = 0;
+      auto next = [&](int& lo, int& hi) {
+        while (q < kGroups && group_begin<64>(q, nkb) == group_begin<64>(q + 1, nkb)) ++q;
+        if (q == kGroups) return false;
+        lo = group_begin<64>(q, nkb);
+        hi = group_begin<64>(++q, nkb);
+        return true;
+      };
+      bool last_odd = false, first = true;
+      for (int lo, hi; next(lo, hi);) {
+        group(acc0, acc1, lo, hi, first);
+        first = last_odd = false;
+        if (!next(lo, hi)) break;
+        group(acc1, acc0, lo, hi, false);
+        last_odd = true;
+      }
+      wgmma_wait<0>();
+      if (last_odd) {
+        wgmma_fence_operands(acc1);
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) sum[i] += acc1[i];
+      } else {
+        wgmma_fence_operands(acc0);
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) sum[i] += acc0[i];
+      }
+      release(it - 1);
+      // the accumulator of m64nBN: warp wq holds rows 16 wq + lane / 4 (+ 8), columns 8 j + 2 (lane % 4)
+      // (+ 1); staged, then whole rows leave in 16-byte stores
+      __nv_bfloat16* tile_out = staged + wg * 64 * TT::OROW;
+      named_barrier(1 + wg, 128);  // this warpgroup's rows of the last tile have left
+      const int r = wq * 16 + lane / 4;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int cl = 8 * j + 2 * (lane % 4), n = n0 + cl;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<__nv_bfloat162*>(tile_out + (r + 8 * h) * TT::OROW + cl) = __floats2bfloat162_rn(
+              finish(sum[4 * j + 2 * h], bias, n, act), finish(sum[4 * j + 2 * h + 1], bias, n + 1, act));
+      }
+      named_barrier(1 + wg, 128);
+      store_rows<64, BN>(tile_out, TT::OROW, out, M, Cout, m0 + 64 * wg, n0, tid % 128, 128);
+    }
+  }
+}
+
+// libcuda's tensor-map encoders, fetched once through the runtime (no link
+// against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+using EncodeIm2col = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const int*, const int*, cuuint32_t, cuuint32_t,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+template <typename F>
+F libcuda_entry(const char* name) {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  const cudaError_t e = cudaGetDriverEntryPointByVersion(name, &fn, 12000, cudaEnableDefault, &found);
+#else
+  const cudaError_t e = cudaGetDriverEntryPoint(name, &fn, cudaEnableDefault, &found);
+#endif
+  return e == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<F>(fn) : nullptr;
+}
+
+template <int NWG, int BN>
+cudaError_t launch_tma(const __nv_bfloat16* x, const __nv_bfloat16* w, const __nv_bfloat16* bias,
+                       __nv_bfloat16* out, int B, int H, int W, int Cin, int Cout, int ks, int stride, int act,
+                       cudaStream_t s) {
+  using TT = TmaTile<NWG, BN>;
+  void (*kern)(const CUtensorMap, const CUtensorMap, const __nv_bfloat16*, __nv_bfloat16*, int, int, int, int, int,
+               int, int, int, int) = conv_wgmma_kernel<NWG, BN>;
+  static const EncodeTiled encode_tiled = libcuda_entry<EncodeTiled>("cuTensorMapEncodeTiled");
+  static const EncodeIm2col encode_im2col = libcuda_entry<EncodeIm2col>("cuTensorMapEncodeIm2col");
+  // the most blocks the card holds at once (one wave of the persistent grid)
+  static int wave = 0;
+  static const cudaError_t attr = [&] {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, TT::SMEM);
+    int dev = 0, n_sm = 0, per_sm = 0;
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, TT::THREADS, TT::SMEM);
+    wave = n_sm * per_sm;
+    return e != cudaSuccess ? e : wave > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+  }();
+  if (attr != cudaSuccess) return attr;
+  if (!encode_tiled || !encode_im2col) return cudaErrorNotSupported;
+  const int pad = ks / 2;
+  const int Ho = (H + 2 * pad - ks) / stride + 1, Wo = (W + 2 * pad - ks) / stride + 1;
+  const long long M = (long long)B * Ho * Wo;
+  const long long tiles = (M + TT::BM - 1) / TT::BM * (Cout / BN);
+  if ((long long)B * H * W >= (1LL << 31) || tiles >= (1LL << 31)) return cudaErrorInvalidValue;
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  CUtensorMap xmap, wmap;
+  const cuuint64_t wdim[2] = {(cuuint64_t)Cout, (cuuint64_t)ks * ks * Cin}, wstride[1] = {(cuuint64_t)Cout * 2};
+  const cuuint32_t wbox[2] = {64, 64};
+  CUresult r = encode_tiled(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<__nv_bfloat16*>(w), wdim, wstride,
+                            wbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (ks == 1) {
+    const cuuint64_t dim[2] = {(cuuint64_t)Cin, (cuuint64_t)M}, stride_b[1] = {(cuuint64_t)Cin * 2};
+    const cuuint32_t box[2] = {64, TT::BM};
+    if (r == CUDA_SUCCESS)
+      r = encode_tiled(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<__nv_bfloat16*>(x), dim, stride_b, box,
+                       ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  } else {
+    // output pixel (oy, ox) reads input rows oy * stride - 1 + dh and columns ox * stride - 1 + dw, dh and dw
+    // in 0..2: the traversal runs from -1 to the far edge less 1 in steps of the stride
+    const cuuint64_t dim[4] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+    const cuuint64_t stride_b[3] = {(cuuint64_t)Cin * 2, (cuuint64_t)W * Cin * 2, (cuuint64_t)H * W * Cin * 2};
+    const int lower[2] = {-1, -1}, upper[2] = {-1, -1};
+    const cuuint32_t steps[4] = {1, (cuuint32_t)stride, (cuuint32_t)stride, 1};
+    if (r == CUDA_SUCCESS)
+      r = encode_im2col(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<__nv_bfloat16*>(x), dim, stride_b,
+                        lower, upper, 64, TT::BM, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  }
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  const int grid = (int)(tiles < wave ? tiles : wave);
+  kern<<<grid, TT::THREADS, TT::SMEM, s>>>(xmap, wmap, bias, out, (int)M, Cin, Cout, Ho, Wo, ks, stride, act,
+                                           (int)tiles);
   return cudaGetLastError();
 }
 
@@ -645,9 +943,11 @@ cudaError_t launch_bf16_tile(int bm, int bn, const __nv_bfloat16* x, const __nv_
 // (ks, stride) is (1, 1), (3, 1) or (3, 2); act != 0 applies SiLU.  The tile
 // is the wrapper's choice: bfloat16 takes BM x BN (bm in 32, 64, 128; bn in
 // 16, 32, 64), the 16-byte gather (vec != 0; Cin and Cout multiples of 8)
-// or the scalar one, and `split` (1, 2, 4, 8) blocks per output tile, or
-// with wg != 0 the warpgroup variant (vec, bn 64, bm 64 or 128, split 1);
-// float32 takes BN = bn with BM = 4096 / bn, vec 0, split 1 and wg 0.
+// or the scalar one, and `split` (1, 2, 4, 8) blocks per output tile; or
+// with wg 1 the 64-row warpgroup kernel (vec, bn 64, bm 64 or 128, split 1),
+// with wg 2 the TMA-fed warpgroup loop (vec, Cin and Cout multiples of 64, bm
+// 64 with bn 64, or bm 128 with bn 64 or 128, split 1); float32 takes BN = bn
+// with BM = 4096 / bn, vec 0, split 1 and wg 0.
 extern "C" int slam_conv_bias_act(const void* x, const void* w, const void* bias, void* out, int B,
                                   int H, int W, int Cin, int Cout, int ks, int stride, int act,
                                   int bf16, int vec, int bm, int bn, int split, int wg, void* stream) {
@@ -668,11 +968,19 @@ extern "C" int slam_conv_bias_act(const void* x, const void* w, const void* bias
   const __nv_bfloat16 *xb = static_cast<const __nv_bfloat16*>(x), *wb = static_cast<const __nv_bfloat16*>(w);
   const __nv_bfloat16* bb = static_cast<const __nv_bfloat16*>(bias);
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
-  if (wg) {  // the warpgroup variant
+  if (wg == 1) {  // the 64-row warpgroup kernel
     if (!vec || bn != 64 || Cout % 64 || split != 1 || !(bm == 64 || bm == 128)) return (int)cudaErrorInvalidValue;
     return (int)(bm == 64 ? launch_wgmma<1>(xb, wb, bb, ob, B, H, W, Cin, Cout, ks, stride, act, s)
                           : launch_wgmma<2>(xb, wb, bb, ob, B, H, W, Cin, Cout, ks, stride, act, s));
   }
+  if (wg == 2) {  // the TMA-fed warpgroup loop
+    if (!vec || split != 1 || !(bn == 64 || bn == 128) || Cout % bn || Cin % 64) return (int)cudaErrorInvalidValue;
+    if (bm == 64 && bn == 64) return (int)launch_tma<1, 64>(xb, wb, bb, ob, B, H, W, Cin, Cout, ks, stride, act, s);
+    if (bm == 128 && bn == 64) return (int)launch_tma<2, 64>(xb, wb, bb, ob, B, H, W, Cin, Cout, ks, stride, act, s);
+    if (bm == 128 && bn == 128) return (int)launch_tma<2, 128>(xb, wb, bb, ob, B, H, W, Cin, Cout, ks, stride, act, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (wg) return (int)cudaErrorInvalidValue;
   const cudaError_t err =
       vec ? launch_bf16_tile<true>(bm, bn, xb, wb, bb, ob, B, H, W, Cin, Cout, ks, stride, act, split, s)
           : launch_bf16_tile<false>(bm, bn, xb, wb, bb, ob, B, H, W, Cin, Cout, ks, stride, act, split, s);

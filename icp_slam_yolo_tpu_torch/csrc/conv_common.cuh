@@ -224,25 +224,29 @@ __device__ __forceinline__ void gemm_tile(float* __restrict__ stage, const ALoad
 
 // ---- warpgroup products (wgmma), operands in shared memory
 
-// Descriptor of a 64-value-wide (128-byte) operand tile in the 128-byte
-// swizzled layout: row r of the tile at byte 128 r, its 16-byte chunk j at
-// chunk j ^ (r % 8); groups of 8 rows 1024 bytes apart; 1024-byte aligned.
-// Both offsets are 1024 bytes: the stride of 8-row groups, and of 64-wide
-// atoms, of which a 64-wide tile has one.
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t saddr) {
-  return (uint64_t)((saddr >> 4) & 0x3FFF) | ((uint64_t)(1024 >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
+// Descriptor of an operand tile in the 128-byte swizzled layout, built of
+// 64-value-wide (128-byte) atoms: row r of an atom at byte 128 r, its 16-byte
+// chunk j at chunk j ^ (r % 8); groups of 8 rows 1024 bytes apart; 1024-byte
+// aligned.  `atoms`: the stride of 64-wide atoms along N of an N-major (K x N)
+// operand, which a 64-wide tile does not use.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t saddr, uint32_t atoms = 1024) {
+  return (uint64_t)((saddr >> 4) & 0x3FFF) | ((uint64_t)((atoms >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// until at most N committed groups of products are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory"); }
 // cp.async's writes become visible to the tensor cores' reads (another proxy)
 __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
 // keeps the compiler from moving reads of d across an asynchronous product
-__device__ __forceinline__ void wgmma_fence_operands(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void wgmma_fence_operands(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (+)= A (64 x 16, K-major) x B (16 x 64, stored K x N: N-major); scale_d 0 overwrites d
@@ -259,6 +263,60 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uin
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
+
+// the same, 128 columns: B is two 64-column atoms `atoms` bytes apart (wgmma_desc)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// ---- barriers in shared memory (mbarrier), named barriers, register shares
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// the initialised barriers become visible to every thread (then a block barrier)
+__device__ __forceinline__ void fence_mbar_init() { asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory"); }
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(bar) : "memory");
+}
+// until the barrier's phase of this parity has completed; a phase that
+// never completes is a fault of the kernel: after 2^24 polls the launch
+// fails rather than hold the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    if (polls == (1u << 24)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+  }
+}
+// a barrier of `count` threads (whole warps) under the hardware barrier `id` (0 is __syncthreads')
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+// a warpgroup gives up registers, or takes them, down or up to N a thread
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() { asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N)); }
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() { asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N)); }
 
 // One k16 step of a warp on the tensor cores: MT row tiles of 16 (lane
 // addresses `a[i]` for `ldmatrix_x4`; tiles i >= `mt_count` are skipped)

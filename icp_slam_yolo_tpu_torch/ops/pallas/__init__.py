@@ -17,6 +17,7 @@ import torch
 LAUNCHES = {
     "icp_fused": 0, "raster_update": 0, "nn_argmin": 0, "raster_update_grid": 0,
     "conv1x1_silu": 0, "conv3x3_silu": 0, "conv3x3s2_silu": 0, "c2f_fused": 0, "knn_outlier": 0,
+    "conv_tma": 0,  # of the three above, the launches that took the TMA-fed warpgroup loop
 }
 
 

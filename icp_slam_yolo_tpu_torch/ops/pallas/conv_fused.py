@@ -5,7 +5,7 @@ Counterparts of the JAX package's ``conv1x1_silu``, ``conv3x3_silu`` and
 ``csrc/conv.cu``; its source says what bounds it and how it is laid out.
 `conv_plan` picks its variant from the shape: the gather (16-byte copies or
 scalar loads), the block's tile and how many blocks of a cluster split the
-K axis.
+K axis, or the warpgroup loop (TMA copies, `wgmma` products).
 The JAX kernels' pixel-group packing and banded weights are layout
 workarounds of their target and are not carried over, and neither are their
 shape conditions: every shape is taken, except an odd height or width at
@@ -29,6 +29,7 @@ from icp_slam_yolo_tpu_torch.ops.pallas import _lib
 _TYPES = (torch.bfloat16, torch.float32)
 BK = 32  # K values per chunk: the float32 tile and the scalar gather (the 16-byte gather: 64)
 STAGES = 4  # chunks in the bfloat16 kernel's shared-memory ring
+TMA_STAGES = 5  # chunks in the ring of the TMA-fed warpgroup loop (conv.cu's `kTmaStages`)
 SPLITS = (1, 2, 4, 8)  # blocks of a cluster that share one output tile
 GROUPS, GROUP_UNIT = 8, 64  # the K axis is summed in 8 fixed groups of 64-value blocks, whatever the split
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may ask for on sm_90
@@ -43,6 +44,7 @@ class ConvPlan(NamedTuple):
     bn: int  # output channels of a block's tile
     split: int  # blocks of a cluster that split the K axis of one tile
     wgmma: bool = False  # warpgroup products (64 rows a warpgroup) in place of mma.sync
+    tma: bool = False  # of them the TMA-fed loop (Cin a multiple of 64), not the 64-row kernel that gathers itself
 
 
 def width(cout: int) -> int:
@@ -57,6 +59,9 @@ def smem_bytes(plan: ConvPlan, bf16: bool) -> int:
     static)."""
     if not bf16:
         return 4 * (BK * plan.bn + plan.bm * (BK + 1)) + 12 * plan.bm
+    if plan.tma:  # conv.cu's `TmaTile`: 1024 bytes to align the ring; A's rows and W's 64 x BN of a 64-value
+        # chunk a stage; a full and an empty barrier a stage; the staged output tile
+        return 1024 + TMA_STAGES * (plan.bm + plan.bn) * 128 + 16 * TMA_STAGES + plan.bm * (plan.bn + 8) * 2
     if plan.wgmma:  # 1024 bytes to align the ring; A's rows and W's 64 x 64 of a 64-value chunk
         return 1024 + STAGES * (plan.bm + 64) * 128 + 12 * plan.bm
     bk = 2 * BK if plan.vec else BK
@@ -80,14 +85,30 @@ def conv_plan(bsz: int, ho: int, wo: int, cin: int, cout: int, k: int, bf16: boo
         reaches the aim (else the most blocks), as long as each block keeps a
         64-value block of the K axis and all blocks fit the SMs' shared
         memory at once (a split block keeps its sums there).
-    The 3x3s with Cout a multiple of 64 take the warpgroup variant (``wgmma``:
-    64 or 128 rows, no split) where they are neither split nor given 32 rows:
-    it ran 5-25 % faster than ``mma.sync`` on the same tile there (`PERF.md`
-    section 6).  ``vec``, ``split`` and ``wgmma`` force those (a forced
-    choice must be valid).  Every variant gives the same bits: the K axis is
-    summed in `GROUPS` fixed groups whatever the split, and ``wgmma`` gave
-    ``mma.sync``'s bits at every site `chip_smoke.py` compares (it requires
-    so), which `detect_pair` needs: batch 1 and 2 take different variants."""
+    Sites with Cin and Cout multiples of 64 take the TMA-fed warpgroup loop
+    (``wgmma`` and ``tma``: a producer thread's TMA boxes, products kept in
+    flight, no split) on 128-row tiles, 128 columns where Cout allows,
+    wherever those tiles fill the card's SMs once or more: YOLO12-L's wide
+    sites, bound by operations, and v8n's from batch 8 or 32.  Such a 3x3
+    takes the loop on 64 x 64 tiles where those number a third of the SMs
+    or more.  Readings on an H100 (`chip_smoke.py` phase 7, us; `PERF.md`
+    section 6): YOLO12-L's 141 such sites at batch 32 took 28.5 ms a forward
+    against 55.5 on the 64-row warpgroup kernel and 62.6 on ``mma.sync``; the
+    loop was faster than the plan before it at every v8n and YOLO12-L 3x3 of
+    50 or more 64 x 64 tiles at batch 2 and 8 (7.56 against 10.25 at 64->64
+    on 40 x 40, 10.73 against 25.84 at 128->128 stride 2 from 40 x 40), and
+    slower at 13-32 tiles, where the plan splits the K axis (17.20 against
+    9.70 at 256->64 on 20 x 20, batch 2); a 1x1 of 128 rows a tile or fewer
+    gained nothing at 64 rows (7.92 against 7.41 at 64->64 on 80 x 80, batch
+    2).  The 3x3s with Cout a multiple of 64 and another Cin that are neither
+    split nor given 32 rows take the 64-row warpgroup kernel, whose threads
+    gather (24.84 against 38.57 on ``mma.sync`` at v8n's 32->64, stride 2,
+    batch 8).  ``vec``, ``split`` and ``wgmma`` force those (a forced choice
+    must be valid).  Every variant gives the same bits: the K axis is summed
+    in `GROUPS` fixed groups whatever the split, and both warpgroup variants
+    gave ``mma.sync``'s bits at every site `chip_smoke.py` compares (it
+    requires so), which `detect_pair` needs: batch 1 and 2 take different
+    variants."""
     bn = width(cout)
     if not bf16:
         if vec or wgmma or (split or 1) != 1:
@@ -119,12 +140,19 @@ def conv_plan(bsz: int, ho: int, wo: int, cin: int, cout: int, k: int, bf16: boo
             splits = [(r, s) for r in (64, 32) if r in rows for s in SPLITS[1:] if s <= units and fits(r, s)]
             bm, auto = next(((r, s) for r, s in splits if blocks(r) * s >= aim),
                             max(splits, key=lambda rs: (blocks(rs[0]) * rs[1], rs[0])) if splits else (rows[-1], 1))
+    tma = vec and cin % 64 == 0 and cout % 64 == 0
+    wide = 128 if cout % 128 == 0 else 64  # the TMA-fed loop's columns at 128 rows
+    full = -(-m // 128) * (cout // wide) >= n_sm  # its 128-row tiles fill the card once or more
     if wgmma is None:
-        wgmma = k == 3 and vec and cout % 64 == 0 and auto == 1 and (split or 1) == 1 and bm >= 64
+        small = 3 * -(-m // 64) * (cout // 64) >= n_sm  # 64 x 64 tiles for a third of the SMs or more
+        wgmma = (split or 1) == 1 and (tma and (full or (k == 3 and small))
+                                       or not tma and k == 3 and vec and cout % 64 == 0 and auto == 1 and bm >= 64)
     if wgmma:
         if not vec or cout % 64 or (split or 1) != 1:
             raise ValueError(f"conv: wgmma needs the 16-byte gather, Cout a multiple of 64 and no split ({cin}->{cout})")
-        return ConvPlan(vec, 128 if bm == 128 else 64, bn, 1, True)
+        if tma:
+            return ConvPlan(True, 128, wide, 1, True, True) if full else ConvPlan(True, 64, 64, 1, True, True)
+        return ConvPlan(True, 128 if bm == 128 else 64, 64, 1, True)
     if split is None:
         split = auto
     elif split not in SPLITS:
@@ -184,11 +212,12 @@ def _conv(name: str, x, w, b, stride: int, act: bool, vec: bool | None = None, s
     out = torch.empty((bsz, h // stride, wd // stride, cout), dtype=dt, device=dev)
     err = _lib.lib().slam_conv_bias_act(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, h, wd, cin, cout,
-        k, stride, int(act), int(bf16), int(plan.vec), plan.bm, plan.bn, plan.split, int(plan.wgmma),
+        k, stride, int(act), int(bf16), int(plan.vec), plan.bm, plan.bn, plan.split, plan.wgmma + plan.tma,
         _lib.stream_ptr(dev),
     )
     _lib.check(err, name)
     pallas.LAUNCHES[name] += 1
+    pallas.LAUNCHES["conv_tma"] += plan.tma
     return out
 
 

@@ -125,8 +125,17 @@ SITES = [  # (Cin, Cout, H = W of the output, k): every K5-K7 site of a yolo-n f
 
 
 def _check_plan(plan, bsz, ho, wo, cin, cout, k, bf16):
-    assert plan.bn in (16, 32, 64) and plan.bn == tconv.width(cout)
     assert tconv.smem_bytes(plan, bf16) <= tconv.SMEM_LIMIT
+    if plan.wgmma:
+        assert bf16 and plan.vec and plan.split == 1 and cout % 64 == 0 and plan.tma == (cin % 64 == 0)
+        if plan.tma:  # 128 rows (BN 128 where Cout allows) where they fill the card, else 64 x 64
+            tiles = -(-bsz * ho * wo // 128) * (cout // (128 if cout % 128 == 0 else 64))
+            assert (plan.bm, plan.bn) == ((128, 128 if cout % 128 == 0 else 64) if tiles >= 132 else (64, 64))
+        else:  # the 64-row warpgroup kernel: one or two warpgroups, 64 columns
+            assert plan.bm in (64, 128) and plan.bn == 64
+        return
+    assert not plan.tma
+    assert plan.bn in (16, 32, 64) and plan.bn == tconv.width(cout)
     if not bf16:
         assert (plan.vec, plan.split, plan.bm * plan.bn) == (False, 1, 4096)
         return
@@ -146,27 +155,36 @@ def test_conv_plan_is_valid_at_every_site(bsz, bf16):
 def test_conv_plan_fills_the_card_at_small_maps():
     """At batch 1 and 2 every site gets about 1.5 blocks per SM: where its
     rows alone do not, the K axis is split over a cluster, up to the most
-    blocks the K axis allows; a 1x1 of at most 128 channels is never split;
-    the 16-byte gather is taken at every site but the stem and the class
-    head."""
+    blocks the K axis allows, unless it is a 3x3 that the TMA-fed loop takes
+    on 64 x 64 tiles for a third of the SMs or more; a 1x1 of at most 128
+    channels is never split; the 16-byte gather is taken at every site but
+    the stem and the class head."""
     for bsz in (1, 2):
         for cin, cout, ho, k in SITES:
             plan = tconv.conv_plan(bsz, ho, ho, cin, cout, k, True)
             blocks = -(-bsz * ho * ho // plan.bm) * -(-cout // plan.bn) * plan.split
             units = -(-k * k * cin // tconv.GROUP_UNIT)
             assert plan.vec == (cin != 3 and cout != 1)
-            if units <= 2:
+            if plan.tma and plan.bm == 64:
+                assert k == 3 and 3 * blocks >= 132
+            elif units <= 2:
                 assert plan.split == 1
             else:
                 assert blocks >= 1.5 * 132 or plan.split == max(s for s in tconv.SPLITS if s <= units)
     assert tconv.conv_plan(2, 20, 20, 256, 64, 3, True) == tconv.ConvPlan(True, 32, 64, 8)
-    assert tconv.conv_plan(2, 40, 40, 64, 64, 3, True) == tconv.ConvPlan(True, 64, 64, 4)
-    # an unsplit 3x3 of 64 output channels on 64 rows or more takes the warpgroup products
-    assert tconv.conv_plan(1, 80, 80, 64, 64, 3, True) == tconv.ConvPlan(True, 32, 64, 1, False)
-    assert tconv.conv_plan(2, 80, 80, 64, 64, 3, True) == tconv.ConvPlan(True, 64, 64, 1, True)
-    assert tconv.conv_plan(8, 80, 80, 64, 64, 3, True) == tconv.ConvPlan(True, 128, 64, 1, True)
-    assert tconv.conv_plan(32, 80, 80, 64, 64, 3, True) == tconv.ConvPlan(True, 64, 64, 1, True)
-    assert not tconv.conv_plan(8, 80, 80, 64, 64, 1, True).wgmma
+    assert tconv.conv_plan(2, 20, 20, 64, 64, 3, True) == tconv.ConvPlan(True, 32, 64, 8)  # 13 tiles: split
+    assert tconv.conv_plan(2, 40, 40, 64, 64, 3, True) == tconv.ConvPlan(True, 64, 64, 1, True, True)  # 50 tiles
+    # a 3x3 of Cin and Cout multiples of 64 takes the TMA-fed loop, on 64 rows where 128-row tiles would not
+    # fill the card; any such site whose 128-row tiles fill it takes them
+    assert tconv.conv_plan(1, 80, 80, 64, 64, 3, True) == tconv.ConvPlan(True, 64, 64, 1, True, True)  # 100 tiles
+    assert tconv.conv_plan(2, 80, 80, 64, 64, 3, True) == tconv.ConvPlan(True, 64, 64, 1, True, True)
+    assert tconv.conv_plan(8, 80, 80, 64, 64, 3, True) == tconv.ConvPlan(True, 128, 64, 1, True, True)
+    assert tconv.conv_plan(32, 80, 80, 64, 64, 3, True) == tconv.ConvPlan(True, 128, 64, 1, True, True)
+    assert tconv.conv_plan(8, 80, 80, 64, 64, 1, True) == tconv.ConvPlan(True, 128, 64, 1, True, True)
+    # Cin 32: the 64-row warpgroup kernel, which gathers with its own threads
+    assert tconv.conv_plan(8, 80, 80, 32, 64, 3, True) == tconv.ConvPlan(True, 128, 64, 1, True, False)
+    assert tconv.conv_plan(2, 80, 80, 32, 64, 3, True) == tconv.ConvPlan(True, 64, 64, 1, True, False)
+    assert not tconv.conv_plan(2, 80, 80, 64, 64, 1, True).wgmma  # 100 tiles of 128 rows: mma.sync
 
 
 def test_every_shape_takes_some_variant():
@@ -195,13 +213,73 @@ def test_forced_variants_are_checked_and_run_the_plain_version_on_cpu():
         tconv.conv3x3_silu(x, w, b, wgmma=True)
 
 
+@pytest.mark.parametrize("cin,cout,vec,split", [(64, 8, None, None), (64, 96, None, None), (32, 96, None, None),
+                                                (307, 256, None, None), (64, 64, False, None), (64, 64, None, 2),
+                                                (256, 768, None, 4)])
+def test_forcing_wgmma_raises_where_it_cannot_run(cin, cout, vec, split):
+    """Warpgroup products take Cout a multiple of 64, the 16-byte gather's
+    operands and no split: forcing them anywhere else raises.  Cin a
+    multiple of 64 takes the TMA-fed loop (its boxes are 64 channels and 64
+    columns wide), another Cin the 64-row kernel."""
+    with pytest.raises(ValueError, match="wgmma|multiples of 8"):
+        tconv.conv_plan(32, 64, 64, cin, cout, 1, True, vec=vec, split=split, wgmma=True)
+    if vec is None and split is None and cin % 8 == 0:
+        assert tconv.conv_plan(32, 64, 64, cin, 64, 1, True, wgmma=True).tma == (cin % 64 == 0)
+
+
 @pytest.mark.parametrize("bsz,ho,cin,cout,k", [(8, 80, 64, 64, 3), (32, 80, 64, 64, 3), (1, 20, 256, 64, 3),
-                                               (8, 40, 64, 128, 3), (2, 80, 128, 64, 1)])
+                                               (8, 40, 64, 128, 3), (2, 80, 128, 64, 1), (32, 64, 256, 768, 1),
+                                               (32, 64, 512, 512, 3), (32, 32, 1280, 512, 1)])
 def test_wgmma_plan(bsz, ho, cin, cout, k):
-    """The warpgroup variant: 64 or 128 rows (one or two warpgroups), 64
-    columns, no split, the 16-byte gather; its shared memory fits."""
+    """The TMA-fed warpgroup loop: 128 rows (two consumer warpgroups) and BN 128
+    where Cout is a multiple of 128 (else 64) when its 128-row tiles fill the
+    card's 132 SMs once or more, else 64 rows x 64 columns; no split, the
+    16-byte gather; its shared memory fits."""
     plan = tconv.conv_plan(bsz, ho, ho, cin, cout, k, True, wgmma=True)
-    assert plan.wgmma and plan.vec and plan.bm in (64, 128) and plan.bn == 64 and plan.split == 1
+    tiles = -(-bsz * ho * ho // 128) * (cout // (128 if cout % 128 == 0 else 64))
+    assert plan.wgmma and plan.tma and plan.vec and plan.split == 1
+    assert (plan.bm, plan.bn) == ((128, 128 if cout % 128 == 0 else 64) if tiles >= 132 else (64, 64))
     assert tconv.smem_bytes(plan, True) <= tconv.SMEM_LIMIT
     with pytest.raises(ValueError):
         tconv.conv_plan(bsz, ho, ho, cin, cout, k, True, wgmma=True, split=2)
+
+
+def test_yolo12l_sites_take_the_warpgroup_loop():
+    """At the cell's shapes (YOLO12-L, one class, 1024 px, batch 32) every
+    K5-K7 site with Cin and Cout multiples of 64 takes the TMA-fed loop on
+    128-row tiles: the 50 3x3s that took the 64-row warpgroup kernel before
+    it, the 88 1x1s that took `mma.sync` on 64 x 64 tiles, and three sites at
+    32 x 32 (141 of the forward's 189 launches).  The 307-channel MLP sites,
+    the 32-channel C3k sites, the stem and the class head do not."""
+    from portbench.reference import yolo12
+
+    cfg = {"variant": "l", "num_classes": 1, "reg_max": 16, "bn_eps": 1e-3}
+    taken = {1: 0, 3: 0}
+    sites = [s for s in yolo12.site_work(cfg, 1024) if s["kernel"]]
+    for s in sites:
+        plan = tconv.conv_plan(32, s["hw_out"], s["hw_out"], s["cin"], s["cout"], s["k"], True)
+        _check_plan(plan, 32, s["hw_out"], s["hw_out"], s["cin"], s["cout"], s["k"], True)
+        wide = s["cin"] % 64 == 0 and s["cout"] % 64 == 0
+        assert plan.wgmma == plan.tma == wide and (not wide or plan.bm == 128), s["site"]
+        if s["cin"] == 307 or s["cout"] in (307, 32, 1) or s["cin"] == 3:
+            assert not plan.wgmma, s["site"]
+        taken[s["k"]] += plan.tma
+    assert len(sites) == 189 and taken == {1: 89, 3: 52}
+
+
+def test_every_fused_kernel_is_read_by_the_roofline_share():
+    """Every `__global__` kernel of `csrc/conv.cu` and `csrc/c2f.cu` has a
+    name that `conv_roofline_share` counts, so the metric's time is all of
+    K5-K8's and its share cannot read over 100 % for a kernel it misses."""
+    import os
+    import re
+
+    from portbench.metrics.conv_roofline_share import _FUSED
+
+    csrc = os.path.join(os.path.dirname(tconv.__file__), "..", "..", "csrc")
+    names = []
+    for source in ("conv.cu", "c2f.cu"):
+        with open(os.path.join(csrc, source)) as f:
+            names += re.findall(r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s+)?(\w+)\s*\(",
+                                f.read())
+    assert len(names) >= 4 and all(_FUSED.search(n) for n in names), names
