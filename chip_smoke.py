@@ -314,30 +314,54 @@ def _one_launch_ms(torch, fn, reps: int, what: str) -> float:
     raise AssertionError(f"{what}: not one device launch a call: events over {reps} calls {counts}")
 
 
-RASTER_THREADS = (512, 1024)
+# Layouts checked beside each kernel's pick, each required to give the
+# reference's bits (`_held_layout`); phases 3 (K1-K4) and 7 (K5-K8) print
+# the counts and require `LAYOUTS_AT_LEAST`, so a change that drops layouts
+# from a kernel's `layouts` shows
+LAYOUTS_CHECKED = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8"), 0)
+LAYOUTS_AT_LEAST = {"K1": 15, "K2": 16, "K3": 32, "K4": 16, "K5": 534, "K6": 200, "K7": 161, "K8": 255}
 
 
-def raster_layouts(what: str, call, timed, reference, plan_args: tuple, reps: int) -> str:
-    """Every layout `raster_plan` can take at these shapes (threads a
-    block), forced: ``call(t)`` must give ``reference``'s bits;
-    ``timed(t)``, one launch, gives the device us of each.  Also holds the
-    plan's shared memory to the kernel's own count."""
+def _held_layout(kernel: str, same: bool, what: str) -> None:
+    _require(same, what)
+    LAYOUTS_CHECKED[kernel] += 1
+
+
+def layouts_checked(kernels: tuple) -> None:
+    """Print and require the layouts each of ``kernels`` checked."""
+    counts = {k: LAYOUTS_CHECKED[k] for k in kernels}
+    print(f"[layouts] checked beside the picks, each the same bits: {counts} (at least "
+          f"{ {k: LAYOUTS_AT_LEAST[k] for k in kernels} })", flush=True)
+    _require(all(counts[k] >= LAYOUTS_AT_LEAST[k] for k in kernels), f"too few layouts checked: {counts}")
+
+
+def raster_plans(plan_args: tuple, in_place: bool = False) -> dict:
+    """`raster_fused.layouts` at these shapes on the card, by threads a block."""
     import torch
 
     from icp_slam_yolo_tpu_torch.ops.pallas import _lib, raster_fused as rf
 
+    return {p.threads: p for p in rf.layouts(*plan_args, in_place=in_place, sm=_lib.sm_count(torch.device("cuda")))}
+
+
+def raster_layouts(what: str, call, timed, reference, plan_args: tuple, reps: int, in_place: bool = False) -> str:
+    """Every layout of `raster_fused.layouts` at these shapes: ``call(plan)``
+    must give ``reference``'s bits; ``timed(plan)``, one launch, gives the
+    device us of each.  Also holds each layout's shared memory to the
+    kernel's own count."""
+    import torch
+
+    from icp_slam_yolo_tpu_torch.ops.pallas import _lib
+
     times = []
-    for t in RASTER_THREADS:
-        try:
-            plan = rf.raster_plan(*plan_args, threads=t)
-        except ValueError:
-            continue
+    for t, plan in raster_plans(plan_args, in_place).items():
         side_y, side_x = plan_args[3], plan_args[4]
         _require(_lib.lib().slam_raster_smem_bytes(side_y, side_x, t, plan.bands) == plan.smem_bytes,
                  f"{what}: raster_plan's shared memory differs from the kernel's at {t} threads")
-        _require(torch.equal(call(t), reference), f"{what}: {t} threads differ from the picked layout")
+        _held_layout("K4" if in_place else "K2", torch.equal(call(plan), reference),
+                     f"{what}: {t} threads differ from the picked layout")
         times.append(f"{t} threads ({plan.smem_bytes} bytes of shared memory) "
-                     f"{_one_launch_ms(torch, lambda: timed(t), reps, what) * 1e3:.2f} us")
+                     f"{_one_launch_ms(torch, lambda: timed(plan), reps, what) * 1e3:.2f} us")
     _require(len(times) > 0, f"{what}: no layout fits")
     return "; ".join(times)
 
@@ -636,7 +660,7 @@ def check_kernels(cfg) -> dict:
              "K2: the wall did not shadow the cells behind it")
     plan2 = raster_plan(1, h, w, side_y, side_x, n, kw2["k"])
     ms2 = _one_launch_ms(torch, lambda: raster_update(*args2, accept, **kw2), 200, "K2")
-    k2_forced = lambda t: raster_update(*args2, accept, **kw2, threads=t)  # noqa: E731
+    k2_forced = lambda plan: raster_update(*args2, accept, **kw2, plan=plan)  # noqa: E731
     layouts2 = raster_layouts("K2", k2_forced, k2_forced, g_k, (1, h, w, side_y, side_x, n, kw2["k"]), 100)
     plain2 = _device_ms(torch, lambda: raster_update_plain(*args2, accept, **kw2), 20)
     n_rays = int((live & inwin).sum())
@@ -677,7 +701,6 @@ def check_edge_cases(cfg) -> int:
     from icp_slam_yolo_tpu_torch.ops.pallas.icp_fused import _finish, _prepare, icp_fused, icp_fused_plain
     from icp_slam_yolo_tpu_torch.ops.pallas.nn_kernel import nn_argmin, nn_argmin_plain
     from icp_slam_yolo_tpu_torch.ops.pallas.raster_fused import (
-        raster_plan,
         raster_update,
         raster_update_grid,
         raster_update_grid_plain,
@@ -769,29 +792,31 @@ def check_edge_cases(cfg) -> int:
     err = float((g2 - raster_update_plain(occ_s, *args_s, **kw_s)).abs().max())
     _require(err <= 1e-6 and torch.equal(g4, raster_update_grid_plain(occ_s.clone(), *args_s, **kw_s)),
              f"K2/K4 on a {side_s}x{side_s} window: K2 error {err}, or K4 differs from its plain version")
-    layouts = []
-    for t in RASTER_THREADS:
-        try:
-            raster_plan(2, hs, ws, side_s, side_s, n_s, 30, threads=t)
-        except ValueError:
-            continue
-        _require(torch.equal(raster_update(occ_s, *args_s, **kw_s, threads=t), g2)
-                 and torch.equal(raster_update_grid(occ_s.clone(), *args_s, **kw_s, threads=t), g4),
-                 f"K2/K4 on a {side_s}x{side_s} window: {t} threads differ from the picked layout")
-        layouts.append(t)
-    _require(len(layouts) == len(RASTER_THREADS), f"K2/K4 on a {side_s}x{side_s} window: layouts that fit {layouts}")
+    shape_s = (2, hs, ws, side_s, side_s, n_s, 30)
+    plans2, plans4 = raster_plans(shape_s), raster_plans(shape_s, True)
+    _require(set(plans2) == set(plans4) == {512, 1024},
+             f"K2/K4 on a {side_s}x{side_s} window: layouts that fit {sorted(plans2)}, {sorted(plans4)}")
+    for t in plans2:
+        _held_layout("K2", torch.equal(raster_update(occ_s, *args_s, **kw_s, plan=plans2[t]), g2),
+                     f"K2 on a {side_s}x{side_s} window: {t} threads differ from the picked layout")
+        _held_layout("K4", torch.equal(raster_update_grid(occ_s.clone(), *args_s, **kw_s, plan=plans4[t]), g4),
+                     f"K4 on a {side_s}x{side_s} window: {t} threads differ from the picked layout")
     n_cases += 1
     # more rays than a block holds at a time (512): the rays go in three groups, in both thread counts
     n_l = 1100
     args_l = (args_s[0], torch.tensor(rng.integers(0, side_s, (2, n_l)), dtype=torch.int32, device=dev),
               torch.tensor(rng.integers(0, side_s, (2, n_l)), dtype=torch.int32, device=dev),
               mask(rng.random((2, n_l)) < 0.9), args_s[4])
-    for t in RASTER_THREADS:
-        g2 = raster_update(occ_s, *args_l, **kw_s, threads=t)
+    shape_l = (2, hs, ws, side_s, side_s, n_l, 30)
+    plans4 = raster_plans(shape_l, True)
+    for t, plan2 in raster_plans(shape_l).items():
+        plan4 = plans4[t]
+        g2 = raster_update(occ_s, *args_l, **kw_s, plan=plan2)
         err = float((g2 - raster_update_plain(occ_s, *args_l, **kw_s)).abs().max())
-        _require(err <= 1e-6 and torch.equal(raster_update_grid(occ_s.clone(), *args_l, **kw_s, threads=t),
-                                             raster_update_grid_plain(occ_s.clone(), *args_l, **kw_s)),
-                 f"K2/K4 with {n_l} rays a robot, {t} threads: K2 error {err}, or K4 differs from its plain version")
+        _held_layout("K2", err <= 1e-6, f"K2 with {n_l} rays a robot, {t} threads: error {err}")
+        _held_layout("K4", torch.equal(raster_update_grid(occ_s.clone(), *args_l, **kw_s, plan=plan4),
+                                       raster_update_grid_plain(occ_s.clone(), *args_l, **kw_s)),
+                     f"K4 with {n_l} rays a robot, {t} threads: differs from its plain version")
         n_cases += 1
     torch.cuda.synchronize()
     print(f"[3] edge cases: {n_cases} cases, every kernel equal to its plain version within the "
@@ -816,7 +841,6 @@ def check_large_window(cfg) -> None:
     from icp_slam_yolo_tpu_torch.ops.pallas.raster_fused import (
         CLUSTER,
         band_rows,
-        raster_plan,
         raster_update,
         raster_update_grid,
         raster_update_grid_plain,
@@ -854,20 +878,21 @@ def check_large_window(cfg) -> None:
         want2 = raster_update_plain(occ1, *args1, **kw)
         want4 = raster_update_grid_plain(occ8.clone(), *args, **kw)
         times = []
-        for t in RASTER_THREADS:
-            plan2 = raster_plan(1, h, w, side_y, side_x, n, k, threads=t)
-            plan4 = raster_plan(8, h, w, side_y, side_x, n, k, in_place=True, threads=t)
+        plans2, plans4 = raster_plans((1, h, w, side_y, side_x, n, k)), raster_plans((8, h, w, side_y, side_x, n, k), True)
+        _require(set(plans2) == set(plans4) == {512, 1024}, f"K2/K4, {label}: layouts {plans2}, {plans4}")
+        for t, plan2 in plans2.items():
+            plan4 = plans4[t]
             _require(label != "large window" or (plan2.bands > 1 and plan4.bands > 1),
                      f"K2/K4, {label}: one band ({plan2}, {plan4})")
             _require(label == "large window" or (plan2.bands == 1 and plan4.bands == 1),
                      f"K2/K4, {label}: more than one band ({plan2}, {plan4})")
-            _require(torch.equal(raster_update(occ1, *args1, **kw, threads=t), want2),
-                     f"K2, {label} {side_y}x{side_x}, k {k}, {t} threads: not the plain version's bits")
+            _held_layout("K2", torch.equal(raster_update(occ1, *args1, **kw, plan=plan2), want2),
+                         f"K2, {label} {side_y}x{side_x}, k {k}, {t} threads: not the plain version's bits")
             grid = occ8.clone()
-            _require(torch.equal(raster_update_grid(grid, *args, **kw, threads=t), want4),
-                     f"K4, {label} {side_y}x{side_x}, k {k}, {t} threads: not the plain version's bits")
-            ms2 = _one_launch_ms(torch, lambda: raster_update(occ1, *args1, **kw, threads=t), 100, f"K2 {label}")
-            ms4 = _one_launch_ms(torch, lambda: raster_update_grid(grid, *args, **kw, threads=t), 100,
+            _held_layout("K4", torch.equal(raster_update_grid(grid, *args, **kw, plan=plan4), want4),
+                         f"K4, {label} {side_y}x{side_x}, k {k}, {t} threads: not the plain version's bits")
+            ms2 = _one_launch_ms(torch, lambda: raster_update(occ1, *args1, **kw, plan=plan2), 100, f"K2 {label}")
+            ms4 = _one_launch_ms(torch, lambda: raster_update_grid(grid, *args, **kw, plan=plan4), 100,
                                  f"K4 {label}")
             times.append(f"{t} threads ({plan2.bands} band{'s' if plan2.bands > 1 else ''}, {plan2.smem_bytes} "
                          f"bytes of shared memory a block): K2 {ms2 * 1e3:.2f} us, K4 B = 8 {ms4 * 1e3:.2f} us")
@@ -900,21 +925,26 @@ def check_large_window(cfg) -> None:
     want_w2 = raster_update_plain(occ_w[:1].contiguous(), *(a[:1].contiguous() for a in args_w), **kw_w)
     want_w4 = raster_update_grid_plain(occ_w.clone(), *args_w, **kw_w)
     plans = []
-    for t in RASTER_THREADS:
-        _require(torch.equal(raster_update_grid(occ8.clone(), *args[:4], off, **kw, threads=t), want_off),
-                 f"K4, large window, robot 3's flag false, {t} threads: not the plain version's bits")
-        _require(torch.equal(raster_update(occ1, *args1[:4], reject, **kw, threads=t), occ1),
-                 f"K2, large window, flag false, {t} threads: the grid changed")
-        _require(torch.equal(raster_update(occ1, args1[0], *none, args1[4], **kw, threads=t), want_none),
-                 f"K2, large window, no ray, {t} threads: not the plain version's bits")
-        plan = raster_plan(2, hw, ww, sy, sx, n, kk, in_place=True, threads=t)
+    wide2, wide4 = raster_plans((1, hw, ww, sy, sx, n, kk)), raster_plans((2, hw, ww, sy, sx, n, kk), True)
+    _require(set(wide2) == set(wide4) == set(plans2), f"K2/K4, {sy}x{sx} window: layouts {wide2}, {wide4}")
+    for t in plans2:
+        _held_layout("K4", torch.equal(raster_update_grid(occ8.clone(), *args[:4], off, **kw, plan=plans4[t]),
+                                       want_off),
+                     f"K4, large window, robot 3's flag false, {t} threads: not the plain version's bits")
+        _held_layout("K2", torch.equal(raster_update(occ1, *args1[:4], reject, **kw, plan=plans2[t]), occ1),
+                     f"K2, large window, flag false, {t} threads: the grid changed")
+        _held_layout("K2", torch.equal(raster_update(occ1, args1[0], *none, args1[4], **kw, plan=plans2[t]),
+                                       want_none),
+                     f"K2, large window, no ray, {t} threads: not the plain version's bits")
+        plan = wide4[t]
         rows = band_rows(sy, plan.bands)
         _require(-(-(sy - (CLUSTER - 1)) // CLUSTER) <= (plan.bands - 1) * rows,
                  f"K2/K4, {sy}x{sx} window, {t} threads: every rank has rows in the last band ({plan})")
-        _require(torch.equal(raster_update(occ_w[:1].contiguous(), *(a[:1].contiguous() for a in args_w), **kw_w,
-                                           threads=t), want_w2)
-                 and torch.equal(raster_update_grid(occ_w.clone(), *args_w, **kw_w, threads=t), want_w4),
-                 f"K2/K4, {sy}x{sx} window, k {kk}, {t} threads: not the plain version's bits")
+        _held_layout("K2", torch.equal(raster_update(occ_w[:1].contiguous(), *(a[:1].contiguous() for a in args_w),
+                                                     **kw_w, plan=wide2[t]), want_w2),
+                     f"K2, {sy}x{sx} window, k {kk}, {t} threads: not the plain version's bits")
+        _held_layout("K4", torch.equal(raster_update_grid(occ_w.clone(), *args_w, **kw_w, plan=plan), want_w4),
+                     f"K4, {sy}x{sx} window, k {kk}, {t} threads: not the plain version's bits")
         plans.append(f"{t} threads {plan.bands} bands of {CLUSTER} x {rows} rows")
     _require(not torch.equal(want_w4, occ_w), f"K4, {sy}x{sx} window: no cell changed")
     print(f"[3] K2/K4 on the large window, the plain version's bits in both layouts: K4 with robot 3's flag false, "
@@ -996,33 +1026,57 @@ def replay(cfg, n_scans: int = 150, n_cpu: int = 8) -> tuple[dict, float]:
 
 
 def k3_layouts(name, src, tgt, tv):
-    """K3 in the layout its plan picks, against the plain version, and every
-    other layout forced, each required to give the same bits: ``(the picked
-    layout, device us of every layout)``."""
+    """K3 in the layout its plan picks, against the plain version, and in
+    every layout of `nn_kernel.layouts`, each required to give the same
+    bits: ``(the picked layout, device us of every layout)``."""
     import torch
 
     from icp_slam_yolo_tpu_torch.ops.pallas import _lib
-    from icp_slam_yolo_tpu_torch.ops.pallas.nn_kernel import CLUSTERS, LANES, nn_argmin, nn_argmin_plain, nn_plan
+    from icp_slam_yolo_tpu_torch.ops.pallas.nn_kernel import layouts, nn_argmin, nn_argmin_plain, nn_plan
 
     d_k, i_k = nn_argmin(src, tgt, tv)
     d_p, i_p = nn_argmin_plain(src, tgt, tv)
     _require(torch.equal(i_k, i_p) and torch.equal(d_k, d_p), f"K3 {name}: kernel differs from the plain version")
-    picked = nn_plan(src.shape[0], src.shape[1], tgt.shape[1], _lib.sm_count(src.device))
+    shape = (src.shape[0], src.shape[1], tgt.shape[1], _lib.sm_count(src.device))
+    picked = nn_plan(*shape)
     times = []
-    for lanes in LANES:
-        for cluster in CLUSTERS:
-            d_f, i_f = nn_argmin(src, tgt, tv, lanes=lanes, cluster=cluster)
-            _require(torch.equal(i_f, i_k) and torch.equal(d_f, d_k),
-                     f"K3 {name}: layout {lanes} lanes x cluster {cluster} differs from the picked {picked}")
-            t_ms = _device_ms(torch, lambda: nn_argmin(src, tgt, tv, lanes=lanes, cluster=cluster), 50)
-            times.append(f"{lanes}x{cluster} {t_ms * 1e3:.2f}")
+    for plan in layouts(*shape):
+        d_f, i_f = nn_argmin(src, tgt, tv, plan=plan)
+        _held_layout("K3", torch.equal(i_f, i_k) and torch.equal(d_f, d_k),
+                     f"K3 {name}: layout {plan} differs from the picked {picked}")
+        t_ms = _device_ms(torch, lambda: nn_argmin(src, tgt, tv, plan=plan), 50)
+        times.append(f"{plan.lanes}x{plan.cluster} {t_ms * 1e3:.2f}")
     return picked, "; ".join(times)
 
 
-# K1 layouts forced beside the picked one, (row groups, slices, cluster):
-# each that fits must give the picked layout's bits
-K1_LAYOUTS = ((4, 66, False), (4, 33, False), (2, 16, False), (4, 8, False), (1, 6, False),
-              (2, 8, True), (1, 16, True), (2, 4, True))
+def k1_layouts(what: str, args: tuple, kw: dict, picked: tuple) -> str:
+    """Every other layout of `icp_fused.layouts` at these registrations'
+    shapes, each required to give ``picked``'s bits (the picked layout's
+    results); CUDA-event times of the pick and the fastest three others."""
+    import torch
+
+    from icp_slam_yolo_tpu_torch.ops.pallas.icp_fused import card, card_plan, icp_fused, layouts
+
+    dev = args[0].device
+    b, s, t = args[0].shape[0], args[0].shape[1], args[2].shape[1]
+    plan = card_plan(b, s, t, dev)
+    times = []
+    for other in layouts(b, s, t, card(dev)):
+        if other == plan:
+            continue
+        got = icp_fused(*args, **kw, plan=other)
+        _held_layout("K1", all(torch.equal(x, y) for x, y in zip(got, picked)),
+                     f"{what}: layout {other[:3]} differs from the picked {plan[:3]}")
+        times.append((_cuda_ms(torch, lambda: icp_fused(*args, **kw, plan=other), 3), other))
+    _require(len(times) > 0, f"{what}: no other layout fits")
+    pick_ms = _cuda_ms(torch, lambda: icp_fused(*args, **kw), 3)
+
+    def name(p):
+        return f"{p.row_groups} x {p.slices} {'cluster' if p.cluster else 'grid'}"
+
+    fastest = ", ".join(f"{name(p)} {ms * 1e3:.1f} us" for ms, p in sorted(times, key=lambda x: x[0])[:3])
+    return (f"{len(times)} other layouts, same bits; wall per call {pick_ms * 1e3:.1f} us picked, fastest others "
+            f"{fastest}")
 
 
 def check_batched_kernels(cfg) -> tuple[dict, dict]:
@@ -1033,15 +1087,7 @@ def check_batched_kernels(cfg) -> tuple[dict, dict]:
     times)``."""
     import torch
 
-    from icp_slam_yolo_tpu_torch.ops.pallas.icp_fused import (
-        _finish,
-        _prepare,
-        card,
-        card_plan,
-        icp_fused,
-        icp_fused_plain,
-        plan_fits,
-    )
+    from icp_slam_yolo_tpu_torch.ops.pallas.icp_fused import _finish, _prepare, card_plan, icp_fused, icp_fused_plain
     from icp_slam_yolo_tpu_torch.ops.pallas import _lib
     from icp_slam_yolo_tpu_torch.ops.pallas.nn_kernel import nn_argmin, nn_argmin_plain
     from icp_slam_yolo_tpu_torch.ops.pallas.raster_fused import (
@@ -1099,9 +1145,9 @@ def check_batched_kernels(cfg) -> tuple[dict, dict]:
     work = occ.clone()
     ms4 = _one_launch_ms(torch, lambda: raster_update_grid(work, meta, ey, ex, live, accept, **kw4), 100, "K4 B=8")
     layouts4 = raster_layouts(
-        "K4 B=8", lambda t: raster_update_grid(occ.clone(), meta, ey, ex, live, accept, **kw4, threads=t),
-        lambda t: raster_update_grid(work, meta, ey, ex, live, accept, **kw4, threads=t), g_k,
-        (b, h, w, side_y, side_x, n, kw4["k"]), 50)
+        "K4 B=8", lambda plan: raster_update_grid(occ.clone(), meta, ey, ex, live, accept, **kw4, plan=plan),
+        lambda plan: raster_update_grid(work, meta, ey, ex, live, accept, **kw4, plan=plan), g_k,
+        (b, h, w, side_y, side_x, n, kw4["k"]), 50, in_place=True)
     plan4 = raster_plan(b, h, w, side_y, side_x, n, kw4["k"], in_place=True,
                         capacity=_lib.lib().slam_raster_max_clusters(side_y, side_x, 1024, 1))
     work_p = occ.clone()
@@ -1136,9 +1182,9 @@ def check_batched_kernels(cfg) -> tuple[dict, dict]:
     work_w = wide[0].clone()
     ms4w = _one_launch_ms(torch, lambda: raster_update_grid(work_w, *wide[1:], **kw4), 50, "K4 B=64")
     layouts4w = raster_layouts(
-        "K4 B=64", lambda t: raster_update_grid(wide[0].clone(), *wide[1:], **kw4, threads=t),
-        lambda t: raster_update_grid(work_w, *wide[1:], **kw4, threads=t), g_w,
-        (64, h, w, side_y, side_x, n, kw4["k"]), 20)
+        "K4 B=64", lambda plan: raster_update_grid(wide[0].clone(), *wide[1:], **kw4, plan=plan),
+        lambda plan: raster_update_grid(work_w, *wide[1:], **kw4, plan=plan), g_w,
+        (64, h, w, side_y, side_x, n, kw4["k"]), 20, in_place=True)
     _, n_active_w, b4w = k4_bound(wide[4], wide[5])
     work_wp = wide[0].clone()
     plain4w = _device_ms(torch, lambda: raster_update_grid_plain(work_wp, *wide[1:], **kw4), 3)
@@ -1194,19 +1240,7 @@ def check_batched_kernels(cfg) -> tuple[dict, dict]:
                 f"{k_ms * 1e3 / float(sweeps.max()):.2f} us per sweep of the longest registration; against 256 "
                 f"targets {fixed * 1e3:.2f} us per sweep; iterations {its.tolist()[:8]}, bound {bound[0] * 1e3:.2f} us "
                 f"({bound[1]})")
-        # every layout the plan did not pick, where it fits, gives the picked one's bits
-        forced = []
-        for rg, sl, cl in K1_LAYOUTS:
-            if (rg, sl, cl) == plan[:3] or not plan_fits(count, n, cap, card(dev), rg, sl, cl):
-                continue
-            other = icp_fused(*a, **kw, row_groups=rg, slices=sl, cluster=cl)
-            _require(all(torch.equal(x, y) for x, y in zip(other, (pose, rmse, n_in, its))),
-                     f"K1 B={count}: layout {rg} x {sl} cluster {cl} differs from the picked {layout}")
-            t_ms = max(_device_profile(torch, lambda: icp_fused(*a, **kw, row_groups=rg, slices=sl, cluster=cl),
-                                       3).values())
-            forced.append(f"{rg} x {sl} {'cluster' if cl else 'grid'} {t_ms * 1e3:.1f} us")
-        _require(len(forced) > 0, f"K1 B={count}: no other layout fits")
-        line += f"; other layouts, same bits: {', '.join(forced)}"
+        line += "; " + k1_layouts(f"K1 B={count}", a, kw, (pose, rmse, n_in, its))
         if count == 8:
             params, tgt_c, c = _prepare(a[2], a[3], a[4])
             plain_fn = lambda: icp_fused_plain(a[0], a[1], tgt_c, a[3], params, iters=kw["iters"],  # noqa: E731
@@ -2416,10 +2450,11 @@ def check_detector_kernels() -> dict:
     lib_c = _lib.lib()
     rng = np.random.default_rng(11)
     wrappers = {
-        "conv1x1_silu": (1, 1, lambda x, w, b, act, **kw: conv.conv1x1_silu(x, w[0, 0], b, act=act, **kw)),
-        "conv3x3_silu": (3, 1, lambda x, w, b, act, **kw: conv.conv3x3_silu(x, w, b, **kw)),
-        "conv3x3s2_silu": (3, 2, lambda x, w, b, act, **kw: conv.conv3x3s2_silu(x, w, b, **kw)),
+        "conv1x1_silu": (1, 1, lambda x, w, b, act, plan=None: conv.conv1x1_silu(x, w[0, 0], b, act=act, plan=plan)),
+        "conv3x3_silu": (3, 1, lambda x, w, b, act, plan=None: conv.conv3x3_silu(x, w, b, plan=plan)),
+        "conv3x3s2_silu": (3, 2, lambda x, w, b, act, plan=None: conv.conv3x3s2_silu(x, w, b, plan=plan)),
     }
+    kernel = {"conv1x1_silu": "K5", "conv3x3_silu": "K6", "conv3x3s2_silu": "K7", "c2f_fused": "K8"}
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     sites = {"conv1x1_silu": K5_SITES, "conv3x3_silu": K6_SITES, "conv3x3s2_silu": K7_SITES}
     worst = dict.fromkeys(DETECTOR_KERNELS, 0.0)
@@ -2458,21 +2493,15 @@ def check_detector_kernels() -> dict:
                     err, mag = held(name, what, got, want, dt, 2)
                     if dt != torch.bfloat16:
                         continue
-                    plan = conv.conv_plan(bsz, h // stride, h // stride, cin, cout, k, True, n_sm)
-                    # the other gather, the split on and off and (where the plan takes the warpgroup products)
-                    # mma.sync, forced: the same bits (one order of summation), which `detect_pair` needs
-                    base = fn(x, w, b, act, wgmma=False) if plan.wgmma else got
-                    _require(torch.equal(got, base), f"{name} {what}: wgmma and mma.sync give other bits")
-                    mma = conv.conv_plan(bsz, h // stride, h // stride, cin, cout, k, True, n_sm, wgmma=False)
-                    splits = [sp for sp in conv.SPLITS[1:] if conv.smem_bytes(
-                        mma._replace(split=sp), True) <= conv.SMEM_LIMIT]
-                    forced = [dict(split=1 if mma.split > 1 else splits[0])]
-                    if plan.vec:
-                        forced.append(dict(vec=False))
-                    for opt in forced:
-                        alt = fn(x, w, b, act, wgmma=False, **opt)
-                        held(name, f"{what} forced {opt}", alt, want, dt, 2)
-                        _require(torch.equal(alt, base), f"{name} {what}: forced {opt} changes the bits")
+                    shape = (bsz, h // stride, h // stride, cin, cout, k, True, n_sm)
+                    plan = conv.conv_plan(*shape)
+                    # every other layout (the gathers, tiles, splits and warpgroup kernels): the same bits (one
+                    # order of summation), which `detect_pair` needs
+                    others = [p for p in conv.layouts(*shape) if p != plan]
+                    for other in others:
+                        alt = fn(x, w, b, act, plan=other)
+                        held(name, f"{what} {other}", alt, want, dt, 2)
+                        _held_layout(kernel[name], torch.equal(alt, got), f"{name} {what}: {other} changes the bits")
                     if bsz == 2:
                         repeat_equal(name, what, lambda: fn(x, w, b, act))
                     x_nchw = x.permute(0, 3, 1, 2)
@@ -2483,8 +2512,6 @@ def check_detector_kernels() -> dict:
                         return F.silu(y) if act else y
 
                     ms = _device_ms(torch, lambda: fn(x, w, b, act), 10)
-                    other = (f", split {forced[0]['split']}: "
-                             f"{_device_ms(torch, lambda: fn(x, w, b, act, wgmma=False, **forced[0]), 10) * 1e3:.2f} us")
                     plain = _device_ms(torch, lambda: conv.conv_bias_act_plain(x, w, b, stride, act), 5)
                     lib = _device_ms(torch, library, 10)
                     ho = h // stride
@@ -2494,7 +2521,7 @@ def check_detector_kernels() -> dict:
                           f"(x{count} per {'v8n' if v8 else 'YOLO12-L'} forward): "
                           f"err {err:.3g} of {mag:.3g}; {'16-byte' if plan.vec else 'scalar'} gather, tile "
                           f"{plan.bm} x {plan.bn}, {('TMA-fed ' if plan.tma else '') + 'wgmma' if plan.wgmma else f'split {plan.split}'}: device "
-                          f"{ms * 1e3:.2f} us{other}, plain "
+                          f"{ms * 1e3:.2f} us ({len(others)} other layouts, the same bits), plain "
                           f"{plain * 1e3:.1f} us, "
                           f"F.conv2d{' + F.silu' if act else ''} {lib * 1e3:.2f} us, bound {bound[0] * 1e3:.3f} us "
                           f"({bound[1]})", flush=True)
@@ -2506,49 +2533,48 @@ def check_detector_kernels() -> dict:
                         acc["bound_ms"] += count * bound[0]
                         acc["by"][bound[1]] = acc["by"].get(bound[1], 0.0) + count * bound[0]
 
-    # the TMA-fed warpgroup loop against mma.sync (split 1) and the plain version at every site of v8n and YOLO12-L
-    # it can take (Cin and Cout multiples of 64), every height, batch 2, 8 and 32: the same bits, the same bits again
-    # on a repeat, device times beside the 64-row warpgroup kernel, mma.sync and the site's bound; then the 3x3s
-    # with Cout a multiple of 64 and another Cin, which the 64-row kernel takes: against mma.sync, timed
-    def wgmma64(x, w, b, stride, act):  # the 64-row warpgroup kernel on 64-row tiles, through the C entry
-        bsz, h, wd, cin = x.shape
-        out = torch.empty((bsz, h // stride, wd // stride, w.shape[-1]), dtype=x.dtype, device=x.device)
-        _lib.check(lib_c.slam_conv_bias_act(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, h, wd, cin,
-                                            w.shape[-1], w.shape[0], stride, int(act), 1, 1, 64, 64, 1, 1,
-                                            _lib.stream_ptr(x.device)), "wgmma64")
-        return out
+    # the warpgroup layouts (the TMA-fed loop's where Cin and Cout are multiples of 64, the 64-row kernel's where
+    # Cout is) against the unsplit 16-byte mma.sync ones and the plain version at every site of v8n and YOLO12-L
+    # that has them (the 1x1s of the loop alone), every height, batch 2, 8 and 32: the same bits, the same bits
+    # again on a repeat, device times of the loop's widest and 64 x 64 tiles, the 64-row kernel on 64 rows,
+    # mma.sync on 128 rows, and the site's bound
+    def label(p):
+        kind = "TMA-fed loop" if p.tma else "64-row warpgroup kernel" if p.wgmma else "mma.sync"
+        return f"{kind} ({p.bm} x {p.bn})"
 
     for name, (k, stride, fn) in wrappers.items():
         for (cin, cout, h, act, count), v8 in [(t, True) for t in sites[name]] + [(t, False) for t in YOLO12L_SITES[name]]:
-            if cout % 64 or cin % 8 or (cin % 64 and k == 1):
-                continue
             for bsz in (2, 8, 32):
-                x, w, b = _conv_case(torch, rng, torch.bfloat16, bsz, h, h, cin, cout, k)
                 ho = h // stride
+                shape = (bsz, ho, ho, cin, cout, k, True, n_sm)
+                listed = conv.layouts(*shape)
+                loop = [p for p in listed if p.tma]
+                if not loop and (k == 1 or not any(p.wgmma for p in listed)):
+                    break
+                x, w, b = _conv_case(torch, rng, torch.bfloat16, bsz, h, h, cin, cout, k)
                 want = conv.conv_bias_act_plain(x, w, b, stride, act)
-                plan = conv.conv_plan(bsz, ho, ho, cin, cout, k, True, n_sm)
-                wg = conv.conv_plan(bsz, ho, ho, cin, cout, k, True, n_sm, wgmma=True)
-                mma = conv.conv_plan(bsz, ho, ho, cin, cout, k, True, n_sm, wgmma=False, split=1)
+                plan = conv.conv_plan(*shape)
+                mma = [p for p in listed if p.vec and p.split == 1 and not p.wgmma]
                 what = f"bf16 B={bsz} {cin}->{cout} @{h} act={act}"
-                got_wg = fn(x, w, b, act, wgmma=True)
-                got_mma = fn(x, w, b, act, wgmma=False, split=1)
-                kind = "TMA-fed loop" if wg.tma else "64-row warpgroup kernel"
-                err, mag = held(name, f"{what} {kind}", got_wg, want, torch.bfloat16, 2)
-                repeat_equal(name, f"{what} {kind}", lambda: fn(x, w, b, act, wgmma=True))
-                held(name, f"{what} mma.sync", got_mma, want, torch.bfloat16, 2)
-                _require(torch.equal(got_wg, got_mma), f"{name} {what}: the {kind} and mma.sync differ")
-                t_wg = _device_ms(torch, lambda: fn(x, w, b, act, wgmma=True), 10)
-                t_64 = _device_ms(torch, lambda: wgmma64(x, w, b, stride, act), 10) if wg.tma else t_wg
-                t_mma = _device_ms(torch, lambda: fn(x, w, b, act, wgmma=False, split=1), 10)
+                got_mma = fn(x, w, b, act, plan=mma[0])
+                err, mag = held(name, f"{what} mma.sync", got_mma, want, torch.bfloat16, 2)
+                for other in [p for p in listed if p.wgmma] + mma[1:]:
+                    got = fn(x, w, b, act, plan=other)
+                    held(name, f"{what} {label(other)}", got, want, torch.bfloat16, 2)
+                    _held_layout(kernel[name], torch.equal(got, got_mma),
+                                 f"{name} {what}: the {label(other)} and {label(mma[0])} differ")
+                timed = loop[:1] + loop[-1:] if loop else []
+                timed += [p for p in listed if p.wgmma and not p.tma and p.bm == 64] + mma[:1]
+                repeat_equal(name, f"{what} {label(timed[0])}", lambda: fn(x, w, b, act, plan=timed[0]))
+                times = [_device_ms(torch, lambda: fn(x, w, b, act, plan=p), 10) for p in timed]
                 bound = _bound(2.0 * bsz * ho * ho * k * k * cin * cout,
                                2.0 * (x.numel() + w.numel() + b.numel() + bsz * ho * ho * cout), PEAK_BF16)
                 print(f"[7] {name} bf16 B={bsz} {cin}->{cout} @{h}{'' if act else ' no act'} "
-                      f"(x{count} per {'v8n' if v8 else 'YOLO12-L'} forward): {kind} ({wg.bm} x {wg.bn}) "
-                      f"{t_wg * 1e3:.2f} us, 64-row warpgroup kernel (64 x 64) {t_64 * 1e3:.2f} us, mma.sync (tile "
-                      f"{mma.bm} x {mma.bn}, split 1) {t_mma * 1e3:.2f} us, bound {bound[0] * 1e3:.2f} us ({bound[1]}), "
-                      f"{bound[0] / t_wg * 100:.1f} % of it; the same bits; err {err:.3g} of {mag:.3g}; the plan takes "
-                      f"{f'warpgroup products ({plan.bm} x {plan.bn})' if plan.wgmma else f'mma.sync, split {plan.split}'}",
-                      flush=True)
+                      f"(x{count} per {'v8n' if v8 else 'YOLO12-L'} forward): "
+                      + ", ".join(f"{label(p)} {t * 1e3:.2f} us" for p, t in zip(timed, times))
+                      + f", bound {bound[0] * 1e3:.2f} us ({bound[1]}), {bound[0] / min(times) * 100:.1f} % of it at "
+                      f"the fastest; the same bits; err {err:.3g} of {mag:.3g}; the plan takes {label(plan)}"
+                      f"{'' if plan.wgmma else f', split {plan.split}'}", flush=True)
 
     for cin, c, feat, h, shortcut in K8_SITES:
         for dt in (torch.bfloat16, torch.float32):
@@ -2560,21 +2586,18 @@ def check_detector_kernels() -> dict:
                 err, mag = held("c2f_fused", what, got, want, dt, 4)
                 if dt != torch.bfloat16:
                     continue
-                plan = c2f.c2f_plan(bsz, h, h, cin, c, feat, True, n_sm)
-                # every tile and cluster that fits, timed, and the scalar gather once
-                combos = [(t, s) for t in c2f.TILES for s in c2f.CLUSTERS
-                          if c2f.cluster_fits(c, feat, s) and c2f.smem_bytes(c, t, s, True, plan.vec) <= c2f._SMEM_LIMIT]
-                for t, s in combos:
-                    _require(lib_c.slam_c2f_smem_bytes(c, t, s, 1, int(plan.vec)) == c2f.smem_bytes(c, t, s, True, plan.vec),
-                             f"c2f_fused: shared memory of the wrapper and the kernel differ at c {c}, tile {t}, cluster {s}")
-                    if (t, s) != (plan.tile, plan.cluster):
-                        alt = c2f.c2f_fused(*args, shortcut=shortcut, tile=t, cluster=s)
-                        held("c2f_fused", f"{what} tile={t} cluster={s}", alt, want, dt, 4)
-                        _require(torch.equal(alt, got), f"c2f_fused {what}: tile {t}, cluster {s} change the bits")
+                shape = (bsz, h, h, cin, c, feat, True, n_sm)
+                plan = c2f.c2f_plan(*shape)
+                # every layout (tiles, clusters, both gathers), its shared memory the kernel's, the same bits
+                for other in c2f.layouts(*shape):
+                    t, s, v = other
+                    _require(lib_c.slam_c2f_smem_bytes(c, t, s, 1, int(v)) == c2f.smem_bytes(c, t, s, True, v),
+                             f"c2f_fused: shared memory of the wrapper and the kernel differ at c {c}, {other}")
+                    if other != plan:
+                        alt = c2f.c2f_fused(*args, shortcut=shortcut, plan=other)
+                        held("c2f_fused", f"{what} {other}", alt, want, dt, 4)
+                        _held_layout("K8", torch.equal(alt, got), f"c2f_fused {what}: {other} changes the bits")
                 if bsz == 2:
-                    alt = c2f.c2f_fused(*args, shortcut=shortcut, vec=False)
-                    held("c2f_fused", f"{what} scalar gather", alt, want, dt, 4)
-                    _require(torch.equal(alt, got), f"c2f_fused {what}: the scalar gather changes the bits")
                     repeat_equal("c2f_fused", what, lambda: c2f.c2f_fused(*args, shortcut=shortcut))
                 x_nchw = args[0].permute(0, 3, 1, 2)
                 ws = [w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -2582,8 +2605,8 @@ def check_detector_kernels() -> dict:
                 bs = [b.to(dt) for b in args[2::2]]
                 seq = (x_nchw, ws[0], bs[0], ws[1], bs[1], ws[2], bs[2], ws[3], bs[3], shortcut)
                 ms = _device_ms(torch, lambda: c2f.c2f_fused(*args, shortcut=shortcut), 10)
-                variants = {(t, s): _device_ms(torch, lambda: c2f.c2f_fused(*args, shortcut=shortcut, tile=t, cluster=s), 5)
-                            for t, s in combos if t >= 4 and (t, s) != (plan.tile, plan.cluster)}
+                variants = {(p.tile, p.cluster): _device_ms(torch, lambda: c2f.c2f_fused(*args, shortcut=shortcut, plan=p), 5)
+                            for p in c2f.layouts(*shape) if p.tile >= 4 and p.vec == plan.vec and p != plan}
                 plain = _device_ms(torch, lambda: c2f.c2f_fused_plain(*args, shortcut=shortcut), 5)
                 lib = _device_ms(torch, lambda: _c2f_unfused(torch, *seq), 10)
                 n_w = sum(a.numel() for a in args[1::2])
@@ -2610,27 +2633,34 @@ def check_detector_kernels() -> dict:
                 x, wt, b = _conv_case(torch, rng, dt, bsz, h, w, cin, cout, k)
                 for act in ((True, False) if k == 1 else (True,)):
                     want = conv.conv_bias_act_plain(x, wt, b, stride, act)
-                    held(name, f"edge {dt} B={bsz} {h}x{w} {cin}->{cout} act={act}", fn(x, wt, b, act), want, dt, 2)
-                    if dt == torch.bfloat16:  # the split, forced, on the scalar gather
-                        held(name, f"edge {dt} B={bsz} {h}x{w} {cin}->{cout} act={act} split=2",
-                             fn(x, wt, b, act, split=2), want, dt, 2)
+                    got = fn(x, wt, b, act)
+                    held(name, f"edge {dt} B={bsz} {h}x{w} {cin}->{cout} act={act}", got, want, dt, 2)
+                    shape = (bsz, h // stride, w // stride, cin, cout, k, dt == torch.bfloat16, n_sm)
+                    for other in conv.layouts(*shape):  # every layout, the splits on the scalar gather among them
+                        if other != conv.conv_plan(*shape):
+                            alt = fn(x, wt, b, act, plan=other)
+                            held(name, f"edge {dt} B={bsz} {h}x{w} {cin}->{cout} act={act} {other}", alt, want, dt, 2)
+                            _held_layout(kernel[name], torch.equal(alt, got),
+                                         f"{name} edge {dt} B={bsz} {h}x{w} {cin}->{cout}: {other} changes the bits")
         for bsz, h, w, cin, c, feat in ((1, 4, 4, 32, 16, 32), (2, 13, 11, 24, 8, 20), (1, 8, 8, 7, 5, 3),
                                         (1, 9, 17, 40, 24, 48), (2, 5, 3, 384, 12, 16), (1, 9, 13, 64, 32, 64),
                                         (1, 6, 10, 7, 16, 32)):
             args = _c2f_case(torch, rng, dt, bsz, h, w, cin, c, feat)
+            shape = (bsz, h, w, cin, c, feat, dt == torch.bfloat16, n_sm)
             for shortcut in (True, False):
                 want = c2f.c2f_fused_plain(*args, shortcut=shortcut)
-                for tile in (None, 2, 4, 8):
-                    held("c2f_fused", f"edge {dt} B={bsz} {h}x{w} Cin {cin} c {c} F {feat} shortcut={shortcut} "
-                                      f"tile={tile}", c2f.c2f_fused(*args, shortcut=shortcut, tile=tile), want, dt, 4)
-                    for s in c2f.CLUSTERS[1:] if dt == torch.bfloat16 and tile else ():
-                        if c2f.cluster_fits(c, feat, s):
-                            held("c2f_fused", f"edge {dt} B={bsz} {h}x{w} Cin {cin} c {c} F {feat} shortcut={shortcut} "
-                                              f"tile={tile} cluster={s}",
-                                 c2f.c2f_fused(*args, shortcut=shortcut, tile=tile, cluster=s), want, dt, 4)
+                what = f"edge {dt} B={bsz} {h}x{w} Cin {cin} c {c} F {feat} shortcut={shortcut}"
+                got = c2f.c2f_fused(*args, shortcut=shortcut)
+                held("c2f_fused", what, got, want, dt, 4)
+                for other in c2f.layouts(*shape):  # every tile, cluster and gather
+                    if other != c2f.c2f_plan(*shape):
+                        alt = c2f.c2f_fused(*args, shortcut=shortcut, plan=other)
+                        held("c2f_fused", f"{what} {other}", alt, want, dt, 4)
+                        _held_layout("K8", torch.equal(alt, got), f"c2f_fused {what}: {other} changes the bits")
     print(f"[7] K5-K8: {n_checks} checks against the plain versions passed (float32: 3e-4 of the magnitude; bfloat16: "
           f"2 steps of 2^-8 of the magnitude for K5-K7, 4 for K8, whose three intermediate roundings can each flip)",
           flush=True)
+    layouts_checked(("K5", "K6", "K7", "K8"))
 
     rows = {}
     for name, (source, replaces) in DETECTOR_KERNELS.items():
@@ -3223,7 +3253,7 @@ def check_tick_registration(cfg) -> str:
     tick's registrations launch."""
     import torch
 
-    from icp_slam_yolo_tpu_torch.ops.pallas.icp_fused import card, card_plan, icp_fused, plan_fits
+    from icp_slam_yolo_tpu_torch.ops.pallas.icp_fused import card_plan
 
     dev = torch.device("cuda")
     n, cap = cfg.n_max, cfg.map_capacity
@@ -3232,18 +3262,10 @@ def check_tick_registration(cfg) -> str:
     got, (dpos, dang, drm, it_p), _ = k1_against_plain("K1 at the tick's shapes", one, kw)
     plan = card_plan(1, n, cap, dev)
     layout = f"{plan.row_groups} x {plan.slices} {'cluster' if plan.cluster else 'grid'}"
-    forced = []
-    for rg, sl, cl in K1_LAYOUTS:
-        if (rg, sl, cl) == plan[:3] or not plan_fits(1, n, cap, card(dev), rg, sl, cl):
-            continue
-        other = icp_fused(*one, **kw, row_groups=rg, slices=sl, cluster=cl)
-        _require(all(torch.equal(x, y) for x, y in zip(other, got)),
-                 f"K1 at the tick's shapes: layout {rg} x {sl} cluster {cl} differs from the picked {layout}")
-        forced.append(f"{rg} x {sl} {'cluster' if cl else 'grid'}")
-    _require(len(forced) > 0, "K1 at the tick's shapes: no other layout fits")
+    others = k1_layouts("K1 at the tick's shapes", one, kw, got)
     return (f"K1 at the tick's shapes ({int(one[1].sum())} live src of {n} x {n_map} live of {cap} tgt, layout "
             f"{layout}): pose err {dpos:.2g} mm / {dang:.2g} rad, rmse err {drm:.2g} mm (tol 1 mm / 2e-3 rad / 1 mm), "
-            f"iters {int(got[3])} vs {it_p}; other layouts, same bits: {', '.join(forced)}")
+            f"iters {int(got[3])} vs {it_p}; {others}")
 
 
 def tick_path() -> dict:
@@ -4519,6 +4541,7 @@ def main(argv=None) -> int:
         kernels["raster_update_grid"], batched = check_batched_kernels(port.FLEET_CONFIG)
         check_edge_cases(cfg)
         check_large_window(cfg)
+        layouts_checked(("K1", "K2", "K3", "K4"))
     if phases in ("all", "slam", "knn"):
         kernels["knn_outlier"], timed = check_knn_outlier(port.FLEET_CONFIG)
         batched = {**batched, **timed} if phases != "knn" else timed

@@ -174,7 +174,7 @@ class ConvBnAct(_Cached):
             if not self.folded:
                 y = batch_norm_train(y, self.bn, 1)
             return (F.silu(y) if self.act else y).permute(0, 2, 3, 1)
-        if self.uses_kernels() and conv_kernels.use_kernels(x.shape[0], x.shape[1]):
+        if self.uses_kernels():
             w, b = self.fused_params()
             x = x.to(dt).contiguous()
             if self.kernel == 1:
@@ -213,7 +213,7 @@ class Conv1x1(_Cached):
         if self.training:
             return F.conv2d(x.to(dt).permute(0, 3, 1, 2), _live(self.conv.weight, dt),
                             _live(self.conv.bias, dt)).permute(0, 2, 3, 1)
-        if self.fused and conv_kernels.use_kernels(x.shape[0], x.shape[1]):
+        if self.fused:
             w, b = self._cached("fused", lambda: (_hwio(self.conv, dt)[0, 0].contiguous(), self._bias(dt)))
             return conv_kernels.conv1x1_silu(x.to(dt).contiguous(), w, b, act=False)
         w, b = self._cached("plain", lambda: (
@@ -303,7 +303,7 @@ class C2f(_Cached):
         return self._cached("fused", make)
 
     def forward(self, x):
-        if self.whole_block_kernel() and conv_kernels.use_kernels(x.shape[0], x.shape[1]):
+        if self.whole_block_kernel():
             return c2f_kernel.c2f_fused(x.to(self.dtype).contiguous(), *self.fused_params(),
                                         shortcut=self.Bottleneck_0.shortcut)
         c = self.features // 2

@@ -7,7 +7,9 @@ function.  The wrapper launches the kernel (``csrc/*.cu``, built by `_lib` at
 first use) for a CUDA tensor and runs the plain version only for a CPU
 tensor; there is no fallback from a failed launch.  Each wrapper counts its
 launches in a plain integer (``LAUNCHES[name]``), so a run can show that the
-main path went through the kernel.
+main path went through the kernel.  Each module's `layouts` lists the launch
+layouts that fit a shape, its planner picks one, and the wrapper takes any
+of them as ``plan=``: every layout gives the same bits.
 """
 
 from __future__ import annotations
@@ -24,6 +26,16 @@ LAUNCHES = {
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def chosen(name: str, plan, planner, layouts, *shape, **kw):
+    """``planner``'s layout for a shape, or ``plan``, which must be one of
+    ``layouts`` of the shape (``ValueError`` otherwise)."""
+    if plan is None:
+        return planner(*shape, **kw)
+    if plan not in layouts(*shape, **kw):
+        raise ValueError(f"{name}: {plan} is no layout of this shape")
+    return plan
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device: torch.device):

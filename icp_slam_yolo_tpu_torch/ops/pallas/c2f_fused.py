@@ -2,11 +2,12 @@
 
 Counterpart of the JAX package's ``c2f_fused`` (``ops/pallas/c2f_fused.py``).
 The CUDA kernel is ``csrc/c2f.cu``; its source says what bounds it and how it
-is laid out.  `c2f_plan` picks its variant from the shape: the block's output
-tile, how many blocks of a cluster share it, and the gather (16-byte copies
-or scalar loads).  The JAX kernel's weight arrangement (`arrange_c2f_weights`,
-the permuted and banded matrices) is a layout workaround of its target and is
-not carried over: the kernel takes the folded weights as they are.
+is laid out.  `c2f_plan` picks its layout of `layouts` from the shape: the
+block's output tile, how many blocks of a cluster share it, and the gather
+(16-byte copies or scalar loads).  The JAX kernel's weight arrangement
+(`arrange_c2f_weights`, the permuted and banded matrices) is a layout
+workaround of its target and is not carried over: the kernel takes the
+folded weights as they are.
 
 Rounding points, as in the JAX kernel: ``a`` and ``b`` (the halves of
 ``silu(cv1(x))``) and ``t1`` are rounded to the working type; ``t2`` is not:
@@ -18,6 +19,7 @@ single-conv kernels K5-K7 round theirs to the working type instead).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -82,60 +84,58 @@ class C2fPlan(NamedTuple):
     vec: bool  # 16-byte copies (Cin, c and F multiples of 8) or scalar loads
 
 
-def c2f_plan(bsz: int, h: int, wd: int, cin: int, c: int, feat: int, bf16: bool, n_sm: int = 132,
-             tile: int | None = None, cluster: int | None = None, vec: bool | None = None) -> C2fPlan:
-    """The kernel's variant for a shape.  bfloat16, the first of: 8 x 8
-    with the least cluster (1, 2, 4) whose blocks fill the SMs and are all
-    resident at once (shared memory); 8 x 8 with a cluster of 4 if that
-    fills half the SMs; 4 x 4 as the first; else the most blocks that are
-    all resident.  So a tile grows its cluster before it shrinks (a 4 x 4
-    tile recomputes 2.25 times the halo), and no launch runs in two waves.
+def _vec(cin: int, c: int, feat: int, bf16: bool) -> bool:  # the 16-byte copies run
+    return bf16 and cin % 8 == 0 and c % 8 == 0 and feat % 8 == 0
+
+
+@functools.lru_cache(maxsize=None)
+def layouts(bsz: int, h: int, wd: int, cin: int, c: int, feat: int, bf16: bool,
+            n_sm: int = 132) -> tuple[C2fPlan, ...]:
+    """The layouts of a shape (`c2f_plan`'s arguments) whose block's shared
+    memory fits: each tile with each cluster whose blocks take equal shares
+    of the channels (bfloat16; float32 takes one block a tile), with the
+    16-byte copies where they run and with scalar loads.  All give the same
+    bits: each output is summed in one order."""
+    clusters = [s for s in (CLUSTERS if bf16 else (1,)) if cluster_fits(c, feat, s)]
+    return tuple(C2fPlan(t, s, v) for v in ((True, False) if _vec(cin, c, feat, bf16) else (False,))
+                 for t in TILES for s in clusters if smem_bytes(c, t, s, bf16, v) <= _SMEM_LIMIT)
+
+
+@functools.lru_cache(maxsize=None)
+def c2f_plan(bsz: int, h: int, wd: int, cin: int, c: int, feat: int, bf16: bool, n_sm: int = 132) -> C2fPlan:
+    """The layout of `layouts` the kernel launches for a shape: the 16-byte
+    copies where they run (raising if none fits), and in bfloat16 the first
+    of: 8 x 8 with the least cluster (1, 2, 4) whose blocks fill the SMs and
+    are all resident at once (shared memory); 8 x 8 with a cluster of 4 if
+    that fills half the SMs; 4 x 4 as the first; else the most blocks that
+    are all resident.  So a tile grows its cluster before it shrinks (a 4 x
+    4 tile recomputes 2.25 times the halo), and no launch runs in two waves.
     On an H100 it picked the fastest tile and cluster at 16 of the 18 yolo-n
     sites at batch 1, 2 and 8 (`chip_smoke.py` phase 7 times every one;
-    PERF.md section 6).  Every choice gives the same bits: each output is
-    summed in one order.
-    float32 (one block per tile, no cluster): 8 x 8 where that
-    gives three blocks for every four SMs, else 4 x 4; 2 x 2 only where
-    shared memory allows nothing larger.  ``tile``, ``cluster`` and ``vec``
-    force those; a forced choice must be valid."""
-    can_vec = bf16 and cin % 8 == 0 and c % 8 == 0 and feat % 8 == 0
-    if vec and not can_vec:
-        raise ValueError(f"c2f_fused: the 16-byte copies need bfloat16 and Cin, c, F multiples of 8 "
-                         f"(got {cin}, {c}, {feat})")
-    if cluster is not None and (cluster not in CLUSTERS or not cluster_fits(c, feat, cluster)
-                                or (cluster > 1 and not bf16)):
-        raise ValueError(f"c2f_fused: no cluster of {cluster} at c = {c}, F = {feat} ({'bf16' if bf16 else 'f32'})")
-    if tile is not None and tile not in TILES:
-        raise ValueError(f"c2f_fused: tile {tile}, expected one of {TILES}")
-    vec = can_vec if vec is None else vec
+    PERF.md section 6).  float32 (one block per tile, no cluster): 8 x 8
+    where that gives three blocks for every four SMs, else 4 x 4; 2 x 2 only
+    where shared memory allows nothing larger."""
+    vec = _vec(cin, c, feat, bf16)
+    fits = [p for p in layouts(bsz, h, wd, cin, c, feat, bf16, n_sm) if p.vec == vec]
+    if not fits:
+        raise ValueError(f"c2f_fused: no tile at c = {c} fits a block's shared memory")
 
     def tiles(t):
         return bsz * -(-h // t) * -(-wd // t)
 
-    clusters = [s for s in (CLUSTERS if bf16 else (1,)) if cluster_fits(c, feat, s)]
-    fits = [(t, s) for t in TILES for s in clusters if smem_bytes(c, t, s, bf16, vec) <= _SMEM_LIMIT]
-    if tile is not None:
-        fits = [f for f in fits if f[0] == tile]
-    if cluster is not None:
-        fits = [f for f in fits if f[1] == cluster]
-    if not fits:
-        raise ValueError(f"c2f_fused: no tile{'' if tile is None else f' of {tile}'} at c = {c} fits a block's "
-                         f"shared memory")
     if bf16:
-        def full(f, least):  # at least `least` blocks, all resident at once
-            smem = smem_bytes(c, f[0], f[1], True, vec)
-            return least <= tiles(f[0]) * f[1] <= n_sm * (conv_fused.SMEM_SM // (smem + 1024))
+        def full(p, least):  # at least `least` blocks, all resident at once
+            smem = smem_bytes(c, p.tile, p.cluster, True, vec)
+            return least <= tiles(p.tile) * p.cluster <= n_sm * (conv_fused.SMEM_SM // (smem + 1024))
 
-        order = [f for f in fits if f[0] >= 4] or fits
-        largest = [f for f in order if f[0] == order[0][0]]
-        t, s = (next((f for f in largest if full(f, n_sm)), None)
-                or next((f for f in largest if f[1] == 4 and full(f, n_sm // 2)), None)
-                or next((f for f in order if f not in largest and full(f, n_sm)), None)
-                or max((f for f in order if full(f, 0)), key=lambda f: tiles(f[0]) * f[1], default=order[0]))
-        return C2fPlan(t, s, vec)
-    prefer = [t for t, _ in fits if t >= 4] or [t for t, _ in fits]
-    pick = next((t for t in prefer if 4 * tiles(t) >= 3 * n_sm), prefer[-1])
-    return C2fPlan(pick, 1, False)
+        order = [p for p in fits if p.tile >= 4] or fits
+        largest = [p for p in order if p.tile == order[0].tile]
+        return (next((p for p in largest if full(p, n_sm)), None)
+                or next((p for p in largest if p.cluster == 4 and full(p, n_sm // 2)), None)
+                or next((p for p in order if p not in largest and full(p, n_sm)), None)
+                or max((p for p in order if full(p, 0)), key=lambda p: tiles(p.tile) * p.cluster, default=order[0]))
+    prefer = [p for p in fits if p.tile >= 4] or fits
+    return next((p for p in prefer if 4 * tiles(p.tile) >= 3 * n_sm), prefer[-1])
 
 
 def _conv(x, w_hwio, b, pad):
@@ -156,18 +156,16 @@ def c2f_fused_plain(x, w1, b1, wm1, bm1, wm2, bm2, w2, b2, shortcut: bool = True
     return out.permute(0, 2, 3, 1).contiguous().to(dt)
 
 
-def c2f_fused(x, w1, b1, wm1, bm1, wm2, bm2, w2, b2, shortcut: bool = True, tile: int | None = None,
-              cluster: int | None = None, vec: bool | None = None):
+def c2f_fused(x, w1, b1, wm1, bm1, wm2, bm2, w2, b2, shortcut: bool = True, plan: C2fPlan | None = None):
     """Fused v8 ``C2f(features, n=1)`` forward on folded weights.
 
     ``x (B, H, W, Cin)``; ``w1 (Cin, 2c)``; ``wm1``, ``wm2 (3, 3, c, c)`` HWIO;
     ``w2 (3c, F)``, all of ``x``'s type (bfloat16 or float32); ``b1 (2c,)``,
     ``bm1``, ``bm2 (c,)``, ``b2 (F,)`` float32.  ``shortcut=False`` is the neck
     variant (``[a | b | t2]`` instead of ``[a | b | b + t2]``).  Returns
-    ``(B, H, W, F)`` in ``x``'s type.  ``tile``, ``cluster`` and ``vec``
-    override `c2f_plan`'s choices (pixels a side of a block's output tile,
-    blocks that share it, the 16-byte gather).  Launches the CUDA kernel for
-    CUDA tensors; the plain version runs only for CPU tensors."""
+    ``(B, H, W, F)`` in ``x``'s type.  Launches the CUDA kernel for CUDA
+    tensors, in ``plan`` (one of `layouts`; ``None``: `c2f_plan`'s); the
+    plain version runs only for CPU tensors."""
     dev, dt = x.device, x.dtype
     if dt not in _TYPES:
         raise TypeError(f"c2f_fused: dtype {dt}, expected bfloat16 or float32")
@@ -181,7 +179,7 @@ def c2f_fused(x, w1, b1, wm1, bm1, wm2, bm2, w2, b2, shortcut: bool = True, tile
     for name, t, n in (("b1", b1, 2 * c), ("bm1", bm1, c), ("bm2", bm2, c), ("b2", b2, feat)):
         pallas.check_tensor(t, name, torch.float32, (n,), dev)
     bf16 = dt == torch.bfloat16
-    plan = c2f_plan(bsz, h, wd, cin, c, feat, bf16, _lib.sm_count(dev), tile, cluster, vec)
+    plan = pallas.chosen("c2f_fused", plan, c2f_plan, layouts, bsz, h, wd, cin, c, feat, bf16, _lib.sm_count(dev))
     if dev.type == "cpu":
         return c2f_fused_plain(x, w1, b1, wm1, bm1, wm2, bm2, w2, b2, shortcut)
     if dev.type != "cuda":

@@ -3,9 +3,9 @@
 Counterparts of the JAX package's ``conv1x1_silu``, ``conv3x3_silu`` and
 ``conv3x3s2_silu`` (``ops/pallas/conv_fused.py``).  The CUDA kernel is
 ``csrc/conv.cu``; its source says what bounds it and how it is laid out.
-`conv_plan` picks its variant from the shape: the gather (16-byte copies or
-scalar loads), the block's tile and how many blocks of a cluster split the
-K axis, or the warpgroup loop (TMA copies, `wgmma` products).
+`conv_plan` picks its layout of `layouts` from the shape: the gather (16-byte
+copies or scalar loads), the block's tile and how many blocks of a cluster
+split the K axis, or a warpgroup kernel (`wgmma` products).
 The JAX kernels' pixel-group packing and banded weights are layout
 workarounds of their target and are not carried over, and neither are their
 shape conditions: every shape is taken, except an odd height or width at
@@ -18,6 +18,7 @@ the kernel), the sum and the SiLU are float32, the result is rounded once.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -69,13 +70,40 @@ def smem_bytes(plan: ConvPlan, bf16: bool) -> int:
     return STAGES * (plan.bm * (bk + 8) + bk * (plan.bn + 8)) * 2 + 12 * plan.bm + parts
 
 
-def conv_plan(bsz: int, ho: int, wo: int, cin: int, cout: int, k: int, bf16: bool, n_sm: int = 132,
-              vec: bool | None = None, split: int | None = None, wgmma: bool | None = None) -> ConvPlan:
-    """The kernel's variant for a shape (output ``ho x wo``).  float32 takes
-    the FMA tile (BM = 4096 / BN, no split).  bfloat16 takes the 16-byte
-    gather where Cin and Cout are multiples of 8, and aims at about 1.5
-    blocks per SM, the count at which an H100 ran every yolo-n site fastest
-    or within a few per cent of it (`PERF.md` section 6):
+@functools.lru_cache(maxsize=None)
+def layouts(bsz: int, ho: int, wo: int, cin: int, cout: int, k: int, bf16: bool,
+            n_sm: int = 132) -> tuple[ConvPlan, ...]:
+    """The layouts of a shape (`conv_plan`'s arguments) whose block's shared
+    memory fits, so the channels alone decide.  float32: the FMA tile (BM =
+    4096 / BN, no split).  bfloat16: each ``mma.sync`` tile of the width
+    (`BF16_ROWS`), its K axis unsplit or split over a cluster (`SPLITS`),
+    with the 16-byte gather (Cin and Cout multiples of 8) and with scalar
+    loads; with Cout a multiple of 64 too, the 64-row warpgroup kernel on
+    128 or 64 rows; with Cin as well, the TMA-fed loop on 128 x 128 (Cout a
+    multiple of 128), 128 x 64 and 64 x 64 tiles.  All give the same bits:
+    the K axis is summed in `GROUPS` fixed groups whatever the split, and
+    the warpgroup products give ``mma.sync``'s (`chip_smoke.py` phase 7), as
+    `detect_pair` needs: batch 1 and 2 take different layouts."""
+    bn = width(cout)
+    if not bf16:
+        return (ConvPlan(False, 4096 // bn, bn, 1),)
+    vec = cin % 8 == 0 and cout % 8 == 0
+    plans = [ConvPlan(v, r, bn, s) for v in ((True, False) if vec else (False,))
+             for r in BF16_ROWS[bn] for s in SPLITS]
+    if vec and cout % 64 == 0:
+        plans += [ConvPlan(True, r, 64, 1, True) for r in (128, 64)]
+        if cin % 64 == 0:  # the TMA-fed loop
+            plans += [ConvPlan(True, r, n, 1, True, True) for r, n in ((128, 128), (128, 64), (64, 64))
+                      if cout % n == 0]
+    return tuple(p for p in plans if smem_bytes(p, True) <= SMEM_LIMIT)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(bsz: int, ho: int, wo: int, cin: int, cout: int, k: int, bf16: bool, n_sm: int = 132) -> ConvPlan:
+    """The layout of `layouts` the kernel launches for a shape (output ``ho x
+    wo``).  bfloat16 takes the 16-byte gather where it runs, and aims at
+    about 1.5 blocks per SM, the count at which an H100 ran every yolo-n
+    site fastest or within a few per cent of it (`PERF.md` section 6):
       * a short K axis (at most two 64-value blocks: the 1x1s of 64 and 128
         channels) is never split: the narrowest rows, or 64 on large maps;
       * otherwise 128 rows where they give 1.5-3.5 blocks per SM, else 64
@@ -103,80 +131,41 @@ def conv_plan(bsz: int, ho: int, wo: int, cin: int, cout: int, k: int, bf16: boo
     2).  The 3x3s with Cout a multiple of 64 and another Cin that are neither
     split nor given 32 rows take the 64-row warpgroup kernel, whose threads
     gather (24.84 against 38.57 on ``mma.sync`` at v8n's 32->64, stride 2,
-    batch 8).  ``vec``, ``split`` and ``wgmma`` force those (a forced choice
-    must be valid).  Every variant gives the same bits: the K axis is summed
-    in `GROUPS` fixed groups whatever the split, and both warpgroup variants
-    gave ``mma.sync``'s bits at every site `chip_smoke.py` compares (it
-    requires so), which `detect_pair` needs: batch 1 and 2 take different
-    variants."""
-    bn = width(cout)
+    batch 8)."""
+    fits = layouts(bsz, ho, wo, cin, cout, k, bf16, n_sm)
     if not bf16:
-        if vec or wgmma or (split or 1) != 1:
-            raise ValueError("conv: the float32 kernel has neither the 16-byte gather, a split nor wgmma")
-        return ConvPlan(False, 4096 // bn, bn, 1)
-    can_vec = cin % 8 == 0 and cout % 8 == 0
-    if vec and not can_vec:
-        raise ValueError(f"conv: the 16-byte gather needs Cin and Cout multiples of 8, got {cin} and {cout}")
-    vec = can_vec if vec is None else vec
+        return fits[0]
+    vec = any(p.vec for p in fits)
+    bn = width(cout)
     m, n_tiles, units = bsz * ho * wo, -(-cout // bn), -(-k * k * cin // GROUP_UNIT)
     rows, aim = BF16_ROWS[bn], 1.5 * n_sm
 
     def blocks(r):
         return -(-m // r) * n_tiles
 
-    def fits(r, s):  # shared memory of a block, and of all blocks at once when split
-        smem = smem_bytes(ConvPlan(vec, r, bn, s), True)
-        return smem <= SMEM_LIMIT and (s == 1 or blocks(r) * s <= n_sm * (SMEM_SM // (smem + 1024)))
+    def resident(p):  # all blocks of a split at once, each keeping its sums in shared memory
+        return blocks(p.bm) * p.split <= n_sm * (SMEM_SM // (smem_bytes(p, True) + 1024))
 
+    split = 1
     if units <= 2:
         bm = next((r for r in rows if r <= 64 and blocks(r) >= 6 * n_sm), rows[-1])
-        auto = 1
     elif 128 in rows and aim <= blocks(128) <= 3.5 * n_sm:
-        bm, auto = 128, 1
+        bm = 128
     else:
         bm = next((r for r in rows if r <= 64 and blocks(r) >= aim), None)
-        auto = 1
         if bm is None:  # a small map: split the K axis
-            splits = [(r, s) for r in (64, 32) if r in rows for s in SPLITS[1:] if s <= units and fits(r, s)]
-            bm, auto = next(((r, s) for r, s in splits if blocks(r) * s >= aim),
-                            max(splits, key=lambda rs: (blocks(rs[0]) * rs[1], rs[0])) if splits else (rows[-1], 1))
-    tma = vec and cin % 64 == 0 and cout % 64 == 0
-    wide = 128 if cout % 128 == 0 else 64  # the TMA-fed loop's columns at 128 rows
-    full = -(-m // 128) * (cout // wide) >= n_sm  # its 128-row tiles fill the card once or more
-    if wgmma is None:
-        small = 3 * -(-m // 64) * (cout // 64) >= n_sm  # 64 x 64 tiles for a third of the SMs or more
-        wgmma = (split or 1) == 1 and (tma and (full or (k == 3 and small))
-                                       or not tma and k == 3 and vec and cout % 64 == 0 and auto == 1 and bm >= 64)
-    if wgmma:
-        if not vec or cout % 64 or (split or 1) != 1:
-            raise ValueError(f"conv: wgmma needs the 16-byte gather, Cout a multiple of 64 and no split ({cin}->{cout})")
-        if tma:
-            return ConvPlan(True, 128, wide, 1, True, True) if full else ConvPlan(True, 64, 64, 1, True, True)
+            splits = [(p.bm, p.split) for p in fits if p.vec == vec and not p.wgmma and p.bm <= 64
+                      and 1 < p.split <= units and resident(p)]
+            bm, split = next(((r, s) for r, s in splits if blocks(r) * s >= aim),
+                             max(splits, key=lambda rs: (blocks(rs[0]) * rs[1], rs[0])) if splits else (rows[-1], 1))
+    loop = [p for p in fits if p.tma]  # the TMA-fed loop: 128 rows (its widest first), then 64 x 64
+    if loop:
+        full = -(-m // 128) * (cout // loop[0].bn) >= n_sm  # its 128-row tiles fill the card once or more
+        if full or (k == 3 and 3 * -(-m // 64) * (cout // 64) >= n_sm):  # 64 x 64 tiles for a third of the SMs
+            return loop[0] if full else loop[-1]
+    elif k == 3 and vec and cout % 64 == 0 and split == 1 and bm >= 64:
         return ConvPlan(True, 128 if bm == 128 else 64, 64, 1, True)
-    if split is None:
-        split = auto
-    elif split not in SPLITS:
-        raise ValueError(f"conv: split {split}, expected one of {SPLITS}")
-    plan = ConvPlan(vec, bm, bn, split)
-    if smem_bytes(plan, True) > SMEM_LIMIT:
-        raise ValueError(f"conv: {plan} does not fit a block's shared memory")
-    return plan
-
-
-def use_kernels(batch: int, h: int) -> bool:
-    """The regime gate of the fused path (`_use_pallas` in the JAX package).
-    It answers yes for every batch and height: on an H100 (700 W) the fused
-    bf16 forward was the faster on the wall clock at batch 1, 2, 8 and 32
-    (`chip_smoke.py` phase 9, fused against unfused in turns, ms per
-    forward: 7.9-8.9 against 9.2-15.0 at batch 1, 7.3-7.7 against 9.3-9.6 at
-    2, 6.4-7.6 against 8.6-9.3 at 8, 7.7 against 9.6-10.1 at 32), so no
-    cut-off is set.  At batch 32 the fused path is bound by the device and
-    its forward takes more device time than the unfused one (6.8 against
-    5.4 ms), so a host fast enough to issue the unfused path's 423 launches in
-    under 6.8 ms would make it lose there; the closest reading with these
-    kernels was a tie (8.29 against 8.30 ms, the means of two turns).  The JAX
-    package's cut-offs were measured on its own target and are not copied."""
-    return True
+    return ConvPlan(vec, bm, bn, split)
 
 
 def conv_bias_act_plain(x, w, b, stride: int = 1, act: bool = True):
@@ -191,8 +180,7 @@ def conv_bias_act_plain(x, w, b, stride: int = 1, act: bool = True):
     return y.permute(0, 2, 3, 1).contiguous().to(x.dtype)
 
 
-def _conv(name: str, x, w, b, stride: int, act: bool, vec: bool | None = None, split: int | None = None,
-          wgmma: bool | None = None):
+def _conv(name: str, x, w, b, stride: int, act: bool, plan: ConvPlan | None):
     dev, dt = x.device, x.dtype
     if dt not in _TYPES:
         raise TypeError(f"{name}: dtype {dt}, expected bfloat16 or float32")
@@ -204,7 +192,8 @@ def _conv(name: str, x, w, b, stride: int, act: bool, vec: bool | None = None, s
     if stride == 2 and (h % 2 or wd % 2):
         raise ValueError(f"{name}: stride 2 needs even H and W, got {h} x {wd}")
     bf16 = dt == torch.bfloat16
-    plan = conv_plan(bsz, h // stride, wd // stride, cin, cout, k, bf16, _lib.sm_count(dev), vec, split, wgmma)
+    plan = pallas.chosen(name, plan, conv_plan, layouts, bsz, h // stride, wd // stride, cin, cout, k, bf16,
+                         _lib.sm_count(dev))
     if dev.type == "cpu":
         return conv_bias_act_plain(x, w, b, stride, act)
     if dev.type != "cuda":
@@ -221,32 +210,29 @@ def _conv(name: str, x, w, b, stride: int, act: bool, vec: bool | None = None, s
     return out
 
 
-def conv1x1_silu(x, w, b, act: bool = True, vec: bool | None = None, split: int | None = None,
-                 wgmma: bool | None = None):
+def conv1x1_silu(x, w, b, act: bool = True, plan: ConvPlan | None = None):
     """K5: ``silu(x @ w + b)`` over the channel axis (``act=False``: no
     SiLU).  ``x (B, H, W, Cin)``, ``w (Cin, Cout)``, ``b (Cout,)``, all of one
-    type.  Launches the CUDA kernel for CUDA tensors; the plain version runs
-    only for CPU tensors.  ``vec``, ``split`` and ``wgmma`` override
-    `conv_plan`'s gather, split and products."""
+    type.  Launches the CUDA kernel for CUDA tensors, in ``plan`` (one of
+    `layouts`; ``None``: `conv_plan`'s); the plain version runs only for CPU
+    tensors."""
     if w.dim() != 2:
         raise ValueError(f"conv1x1_silu: w has shape {tuple(w.shape)}, expected (Cin, Cout)")
-    return _conv("conv1x1_silu", x, w[None, None], b, 1, act, vec, split, wgmma)
+    return _conv("conv1x1_silu", x, w[None, None], b, 1, act, plan)
 
 
-def conv3x3_silu(x, w, b, vec: bool | None = None, split: int | None = None,
-                 wgmma: bool | None = None):
+def conv3x3_silu(x, w, b, plan: ConvPlan | None = None):
     """K6: ``silu(conv3x3(x, w) + b)``, stride 1, SAME zero padding;
     ``w (3, 3, Cin, Cout)`` HWIO."""
     if w.dim() != 4 or w.shape[0] != 3 or w.shape[1] != 3:
         raise ValueError(f"conv3x3_silu: w has shape {tuple(w.shape)}, expected (3, 3, Cin, Cout)")
-    return _conv("conv3x3_silu", x, w, b, 1, True, vec, split, wgmma)
+    return _conv("conv3x3_silu", x, w, b, 1, True, plan)
 
 
-def conv3x3s2_silu(x, w, b, vec: bool | None = None, split: int | None = None,
-                   wgmma: bool | None = None):
+def conv3x3s2_silu(x, w, b, plan: ConvPlan | None = None):
     """K7: the same at stride 2 with padding 1 on even H and W: the window of
     output ``(i, j)`` covers input rows ``2i-1..2i+1`` (one zero row above the
     image, none below); out ``(B, H/2, W/2, Cout)``."""
     if w.dim() != 4 or w.shape[0] != 3 or w.shape[1] != 3:
         raise ValueError(f"conv3x3s2_silu: w has shape {tuple(w.shape)}, expected (3, 3, Cin, Cout)")
-    return _conv("conv3x3s2_silu", x, w, b, 2, True, vec, split, wgmma)
+    return _conv("conv3x3s2_silu", x, w, b, 2, True, plan)

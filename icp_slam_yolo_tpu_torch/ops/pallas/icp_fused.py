@@ -6,8 +6,8 @@ Counterpart of the JAX package's ``icp_fused_pallas`` and its batched core
 ``csrc/icp.cu``: one launch in which each registration has its own blocks
 (`icp_plan` says how many and how they meet), its targets held in their shared
 memory for the whole launch, one barrier among them an iteration, and its own
-end at its convergence; its source says what bounds it and how it is laid
-out.  A registration's result does not depend on the plan or on the others in
+end at its convergence (`layouts` lists those that fit); its source says what
+bounds it and how it is laid out.  A registration's result does not depend on the plan or on the others in
 its launch: the kernel gives the same bits for it alone.
 
 Both versions work per registration in the frame recentred on the
@@ -75,46 +75,33 @@ def plan_fits(b: int, s: int, t: int, card: Card, row_groups: int, slices: int, 
     return per_sm > 0 and b * row_groups * slices <= card.sms * per_sm
 
 
-def icp_plan(b: int, s: int, t: int, card: Card, *, row_groups: int | None = None,
-             slices: int | None = None, cluster: bool | None = None) -> IcpPlan:
-    """How ``b`` registrations of ``s`` source and ``t`` target slots share
-    the card.
-
-    Below `CLUSTER_FROM` registrations, the grid layout: the registrations
-    share about two blocks a multiprocessor (one, for a single one: more only
-    add barrier arrivals and key atomics), each registration's live rows
-    split into runs of at most `ROWS_A_PASS` where its blocks allow (one
-    sweep pass a block), its targets into runs of at least `MIN_TARGETS`; the
-    split is cut until every block is resident.  From `CLUSTER_FROM` on, each
-    registration is one cluster of `CLUSTER` blocks (rows in 2 runs, targets
-    in 8), and the clusters take the card in turn as registrations finish.
-    Raises when nothing fits.  ``row_groups``/``slices``/``cluster`` force a
-    layout (raising if it does not fit); every layout gives the same bits.
-    """
-    def plan(rg, sl, cl):
-        return IcpPlan(rg, sl, cl, smem_bytes(s, t, sl))
-
-    if row_groups is not None or slices is not None or cluster is not None:
-        rg, sl, cl = row_groups or 1, slices or 1, bool(cluster)
-        if not plan_fits(b, s, t, card, rg, sl, cl):
-            raise ValueError(f"icp_plan: {b} registrations x {rg} x {sl} blocks (cluster {cl}) do not fit on the card")
-        return plan(rg, sl, cl)
+def layouts(b: int, s: int, t: int, card: Card) -> tuple[IcpPlan, ...]:
+    """The layouts of ``b`` registrations of ``s`` source and ``t`` target
+    slots that fit on ``card`` (`plan_fits`), as `icp_plan` prefers them:
+    the cluster layouts (`CLUSTER`), taking the card in turn as
+    registrations finish; then the grid layouts, about two blocks a
+    multiprocessor shared out (one, for a single registration: more only add
+    barrier arrivals and key atomics), then fewer, each registration's live
+    rows in runs of at most `ROWS_A_PASS` where its blocks allow (one sweep
+    pass a block), its targets in runs of at least `MIN_TARGETS`."""
     most_slices = max(1, -(-t // MIN_TARGETS))
-    if b >= CLUSTER_FROM:
-        for rg, sl in CLUSTER:
-            if plan_fits(b, s, t, card, rg, min(sl, most_slices), True):
-                return plan(rg, min(sl, most_slices), True)
+    plans = [(rg, min(sl, most_slices), True) for rg, sl in CLUSTER]
     goal = max(1, min(card.sms, 2 * card.sms // b))
     for bpr in range(goal, 0, -1):
         most_groups = max(1, min(bpr, MAX_ROW_GROUPS, -(-s // ROWS_A_PASS)))
-        for rg in (4, 2, 1):
-            if rg > most_groups:
-                continue
-            sl = min(bpr // rg, most_slices)
-            if plan_fits(b, s, t, card, rg, sl, False):
-                return plan(rg, sl, False)
-    raise ValueError(f"icp_plan: {b} registrations of {t} targets do not fit in the card's shared memory "
-                     "(each needs at least one resident block)")
+        plans += [(rg, min(bpr // rg, most_slices), False) for rg in (4, 2, 1) if rg <= most_groups]
+    return tuple(IcpPlan(rg, sl, cl, smem_bytes(s, t, sl)) for rg, sl, cl in dict.fromkeys(plans)
+                 if plan_fits(b, s, t, card, rg, sl, cl))
+
+
+def icp_plan(b: int, s: int, t: int, card: Card) -> IcpPlan:
+    """How ``b`` registrations share the card: the first of `layouts` from
+    `CLUSTER_FROM` on, else the first grid layout; raises if none fits."""
+    plan = next((p for p in layouts(b, s, t, card) if b >= CLUSTER_FROM or not p.cluster), None)
+    if plan is None:
+        raise ValueError(f"icp_plan: {b} registrations of {t} targets do not fit in the card's shared memory "
+                         "(each needs at least one resident block)")
+    return plan
 
 
 @functools.lru_cache(maxsize=None)
@@ -137,13 +124,11 @@ def card(dev) -> Card:
     return Card(_lib.sm_count(dev), _card_blocks_per_sm, _card_clusters)
 
 
-_cached_plan = functools.lru_cache(maxsize=None)(icp_plan)
-
-
-def card_plan(b: int, s: int, t: int, dev, **layout) -> IcpPlan:
+@functools.lru_cache(maxsize=None)
+def card_plan(b: int, s: int, t: int, dev) -> IcpPlan:
     """`icp_plan` on the card of ``dev`` (cached: a step asks the same each
-    time); ``layout`` as `icp_plan` takes it."""
-    return _cached_plan(b, s, t, card(dev), **layout)
+    time)."""
+    return icp_plan(b, s, t, card(dev))
 
 
 def _prepare(tgt_xy, tgt_valid, init_pose):
@@ -283,7 +268,7 @@ def _plain_loop(src_xy, src_valid, tgt_xy, tgt_valid, params, *, iters: int, thr
 
 def icp_fused(src_xy, src_valid, tgt_xy, tgt_valid, init_pose, *, iters: int = 50,
               threshold_mm: float = 200.0, tolerance: float = 1e-5, anderson: bool = False,
-              row_groups: int | None = None, slices: int | None = None, cluster: bool | None = None):
+              plan: IcpPlan | None = None):
     """Gated point-to-point ICP of ``src`` onto ``tgt`` from ``init_pose``.
 
     ``(B, S, 2) f32, (B, S) bool, (B, T, 2) f32, (B, T) bool, (B, 3) f32`` ->
@@ -291,10 +276,9 @@ def icp_fused(src_xy, src_valid, tgt_xy, tgt_valid, init_pose, *, iters: int = 5
     rmse ``inf`` with no inlier; ``B`` registrations in ONE launch, each
     ending at its own convergence.  Degenerate inputs (too few points) are
     the caller's job.
-    Launches the CUDA kernel for CUDA tensors, in the layout `icp_plan`
-    picks unless ``row_groups``, ``slices`` or ``cluster`` force one (it
-    raises when the layout does not fit on the card); the plain version runs
-    only for CPU tensors.
+    Launches the CUDA kernel for CUDA tensors, in ``plan`` (one that
+    `plan_fits` on the card, as every one of `layouts` does; ``None``:
+    `icp_plan`'s); the plain version runs only for CPU tensors.
     """
     dev = src_xy.device
     b, s, t = src_xy.shape[0], src_xy.shape[1], tgt_xy.shape[-2]
@@ -311,7 +295,11 @@ def icp_fused(src_xy, src_valid, tgt_xy, tgt_valid, init_pose, *, iters: int = 5
         return _finish(out, c)
     if dev.type != "cuda":
         raise ValueError(f"icp_fused: unsupported device {dev}")
-    plan = card_plan(b, s, t, dev, row_groups=row_groups, slices=slices, cluster=cluster)
+    if plan is None:
+        plan = card_plan(b, s, t, dev)
+    elif not plan_fits(b, s, t, card(dev), plan.row_groups, plan.slices, plan.cluster):
+        raise ValueError(f"icp_fused: {b} registrations x {plan.row_groups} x {plan.slices} blocks (cluster "
+                         f"{plan.cluster}) do not fit on the card")
     keys = torch.empty((KEY_BUFFERS, b, s), dtype=torch.int64, device=dev)
     bar = torch.empty((b, BAR_WORDS), dtype=torch.int32, device=dev)
     centre = torch.empty((b, 4), dtype=torch.float32, device=dev)

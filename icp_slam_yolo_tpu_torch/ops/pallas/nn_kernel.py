@@ -2,11 +2,14 @@
 
 Counterpart of the JAX package's ``nn_argmin_pallas``
 (``ops/pallas/nn_kernel.py``).  The CUDA kernel is ``csrc/nn.cu``; its source
-says what bounds it and how it is laid out.  `nn_plan` picks its layout from
-the shape; every layout gives the same bits.
+says what bounds it and how it is laid out.  `nn_plan` picks its layout of
+`layouts` from the shape; every layout gives the same bits.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -19,9 +22,20 @@ CLUSTERS = (1, 2, 4, 8)
 MIN_SLICE = 2048  # targets a cluster rank keeps at least: below that a split only adds a merge
 
 
-def nn_plan(b: int, s: int, t: int, sms: int) -> tuple[int, int]:
-    """``(lanes, cluster)`` for ``b`` problems of ``s`` sources and ``t``
-    targets on a card with ``sms`` multiprocessors.
+class NnPlan(NamedTuple):
+    lanes: int    # source lanes a warp: a block owns 4 * lanes source points
+    cluster: int  # blocks of a cluster that split the targets
+
+
+def layouts(b: int, s: int, t: int, sms: int) -> tuple[NnPlan, ...]:
+    """Every layout of a shape (`nn_plan`'s arguments): each source tile with
+    each cluster; all fit every shape."""
+    return tuple(NnPlan(lanes, cluster) for lanes in LANES for cluster in CLUSTERS)
+
+
+@functools.lru_cache(maxsize=None)
+def nn_plan(b: int, s: int, t: int, sms: int) -> NnPlan:
+    """The layout of `layouts` that the kernel launches.
 
     The large source tile (64 points a block) where it alone gives every
     multiprocessor a block; otherwise the small one (16), and the targets
@@ -31,11 +45,10 @@ def nn_plan(b: int, s: int, t: int, sms: int) -> tuple[int, int]:
     rescue's 512 x 24576 is split 8 ways.
     """
     if b * -(-s // 64) >= sms:
-        return 16, 1
-    blocks, cluster = b * -(-s // 16), 1
-    while cluster < CLUSTERS[-1] and blocks * cluster < sms and t // (2 * cluster) >= MIN_SLICE:
-        cluster *= 2
-    return 4, cluster
+        return NnPlan(16, 1)
+    blocks = b * -(-s // 16)
+    return next(p for p in layouts(b, s, t, sms) if p.lanes == 4 and (
+        p.cluster == CLUSTERS[-1] or blocks * p.cluster >= sms or t // (2 * p.cluster) < MIN_SLICE))
 
 
 def nn_argmin_plain(src_xy: torch.Tensor, tgt_xy: torch.Tensor, tgt_valid: torch.Tensor):
@@ -51,13 +64,13 @@ def nn_argmin_plain(src_xy: torch.Tensor, tgt_xy: torch.Tensor, tgt_valid: torch
 
 
 def nn_argmin(src_xy: torch.Tensor, tgt_xy: torch.Tensor, tgt_valid: torch.Tensor, *,
-              lanes: int | None = None, cluster: int | None = None):
+              plan: NnPlan | None = None):
     """``(B, S, 2) f32, (B, T, 2) f32, (B, T) bool -> ((B, S) f32 d², (B, S)
     int32)``: ``B`` independent problems in one launch.
 
-    Launches the CUDA kernel for CUDA tensors, in the layout `nn_plan` picks
-    unless ``lanes`` or ``cluster`` force one; the plain version runs only
-    for CPU tensors.
+    Launches the CUDA kernel for CUDA tensors, in ``plan`` (one of
+    `layouts`; ``None``: `nn_plan`'s); the plain version runs only for CPU
+    tensors.
     """
     dev = src_xy.device
     b, s, t = src_xy.shape[0], src_xy.shape[1], tgt_xy.shape[-2]
@@ -68,14 +81,11 @@ def nn_argmin(src_xy: torch.Tensor, tgt_xy: torch.Tensor, tgt_valid: torch.Tenso
         return nn_argmin_plain(src_xy, tgt_xy, tgt_valid)
     if dev.type != "cuda":
         raise ValueError(f"nn_argmin: unsupported device {dev}")
-    plan_lanes, plan_cluster = nn_plan(b, s, t, _lib.sm_count(dev))
-    lanes, cluster = lanes or plan_lanes, cluster or plan_cluster
-    if lanes not in LANES or cluster not in CLUSTERS:
-        raise ValueError(f"nn_argmin: lanes {lanes} not in {LANES} or cluster {cluster} not in {CLUSTERS}")
+    plan = pallas.chosen("nn_argmin", plan, nn_plan, layouts, b, s, t, _lib.sm_count(dev))
     d2 = torch.empty((b, s), dtype=torch.float32, device=dev)
     idx = torch.empty((b, s), dtype=torch.int32, device=dev)
     err = _lib.lib().slam_nn_argmin(
-        src_xy.data_ptr(), tgt_xy.data_ptr(), tgt_valid.data_ptr(), b, s, t, lanes, cluster,
+        src_xy.data_ptr(), tgt_xy.data_ptr(), tgt_valid.data_ptr(), b, s, t, plan.lanes, plan.cluster,
         d2.data_ptr(), idx.data_ptr(), _lib.stream_ptr(dev),
     )
     _lib.check(err, "nn_argmin")

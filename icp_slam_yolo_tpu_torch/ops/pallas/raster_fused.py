@@ -6,8 +6,8 @@ variant the default 833 x 1000 grid takes) and ``raster_update_grid_pallas``
 the fleet's robot axis; both in ``ops/pallas/raster_fused.py``).  The CUDA kernels are in
 ``csrc/raster.cu``; the source says what bounds them and how they are laid
 out.  A call is one device launch: a thread-block cluster a robot, with the
-counts in the cluster's shared memory; `raster_plan` picks the layout from
-the shapes, and every layout gives the same bits.
+counts in the cluster's shared memory; `raster_plan` picks the layout of
+`layouts` from the shapes, and every layout gives the same bits.
 
 All versions take the FULL grids ``(B, H, W)`` plus ``meta (B, 4) = [y0, x0,
 rly, rlx]`` per robot (window origin in the grid, robot cell in the window)
@@ -178,44 +178,48 @@ class RasterPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=64)
-def raster_plan(b: int, h: int, w: int, side_y: int, side_x: int, n: int, k: int, *, in_place: bool = False,
-                sm: int = 132, aligned: bool = True, threads: int | None = None,
-                capacity: int = H100_CLUSTERS) -> RasterPlan:
-    """The launch layout of K2 (``in_place=False``) or K4 for ``b`` grids of
+def layouts(b: int, h: int, w: int, side_y: int, side_x: int, n: int, k: int, *, in_place: bool = False,
+            sm: int = 132, aligned: bool = True, capacity: int = H100_CLUSTERS) -> tuple[RasterPlan, ...]:
+    """The launch layouts of K2 (``in_place=False``) or K4 for ``b`` grids of
     ``h x w``, a ``side_y x side_x`` window, ``n`` rays a robot and ``k``
-    samples a ray, as ``csrc/raster.cu`` computes it from the same numbers:
+    samples a ray, as ``csrc/raster.cu`` computes them from the same numbers:
     a cluster of `CLUSTER` blocks a robot, rank r taking the window rows and
-    columns r modulo `CLUSTER`, the window's rows in the fewest bands whose
-    tables fit a block (one at the presets' 384 x 384).  ``threads`` forces
-    512 or 1024 threads a block (the same bits); otherwise 1024 while the
-    card holds the robots' clusters at once (``capacity`` clusters of
-    1024-thread blocks), where latency counts, and 512 beyond, where two
-    blocks share a multiprocessor and throughput counts (measured:
-    `PERF.md`).  ``aligned``: both grids' addresses are multiples of 16
-    bytes.  Raises ``ValueError`` where not even one row a rank fits a
-    block's shared memory (or not the forced threads'), for ``k < 1`` and
-    for ``n > MAX_RAYS``."""
+    columns r modulo `CLUSTER`, the rows in the fewest bands whose tables fit
+    a block (one at the presets' 384 x 384), 1024 or 512 threads a block
+    (the same bits).  1024 first while the card holds the robots' clusters
+    at once (``capacity`` clusters of 1024-thread blocks), where latency
+    counts; 512 first beyond, where two blocks share a multiprocessor and
+    throughput counts (measured: `PERF.md`).  ``aligned``: both grids'
+    addresses are multiples of 16 bytes.  Empty for ``k < 1``; raises
+    ``ValueError`` for ``n > MAX_RAYS``."""
     if n > MAX_RAYS:
         raise ValueError(f"raster update: {n} rays a robot, at most {MAX_RAYS} (the counts are 16 bits)")
     if b * h * w >= 2 ** 31 and not in_place:
         raise ValueError(f"raster update: {b} x {h} x {w} cells, the copy indexes fewer than 2^31")
-    order = (512, 1024) if b > capacity else (1024, 512)
-    fits = [(t, bands) for t in order if (threads is None or t == threads) and k > 0
-            for bands in [fewest_bands(side_y, side_x, t)] if bands]
+    plans = []
+    for t in ((512, 1024) if b > capacity else (1024, 512)):
+        bands = fewest_bands(side_y, side_x, t) if k > 0 else 0
+        copy = (0, 0, 0)
+        if bands and not in_place:
+            vec = 4 if w % 4 == 0 and aligned else 1
+            vectors = b * h * w // vec
+            # the card's multiprocessors beside the robots' clusters, at least a
+            # cluster a robot, and no cluster with less than a vector a thread
+            clusters = max(1, min(max((sm - b * CLUSTER) // CLUSTER, b), -(-vectors // (CLUSTER * t))))
+            copy = (clusters, vec, -(-vectors // (clusters * CLUSTER)))
+        plans += [RasterPlan(t, smem_bytes(side_y, side_x, t, bands), *copy, bands)] if bands else []
+    return tuple(plans)
+
+
+@functools.lru_cache(maxsize=64)
+def raster_plan(b: int, h: int, w: int, side_y: int, side_x: int, n: int, k: int, *, in_place: bool = False,
+                sm: int = 132, aligned: bool = True, capacity: int = H100_CLUSTERS) -> RasterPlan:
+    """The first of `layouts` (same arguments); raises ``ValueError`` if none fits."""
+    fits = layouts(b, h, w, side_y, side_x, n, k, in_place=in_place, sm=sm, aligned=aligned, capacity=capacity)
     if not fits:
-        raise ValueError(f"raster update: a {side_y}x{side_x} window with {k} samples a ray fits no layout "
-                         f"(threads {threads}; {MAX_SMEM} bytes of shared memory a block, "
-                         f"{TWO_BLOCKS_SMEM} at 512 threads; a band of one row a rank at least)")
-    (t, bands), c = fits[0], CLUSTER
-    copy_clusters = copy_vec = copy_chunk = 0
-    if not in_place:
-        copy_vec = 4 if w % 4 == 0 and aligned else 1
-        vectors = b * h * w // copy_vec
-        # the card's multiprocessors beside the robots' clusters, at least a
-        # cluster a robot, and no cluster with less than a vector a thread
-        copy_clusters = max(1, min(max((sm - b * c) // c, b), -(-vectors // (c * t))))
-        copy_chunk = -(-vectors // (copy_clusters * c))
-    return RasterPlan(t, smem_bytes(side_y, side_x, t, bands), copy_clusters, copy_vec, copy_chunk, bands)
+        raise ValueError(f"raster update: a {side_y}x{side_x} window with {k} samples a ray fits no layout ({MAX_SMEM} "
+                         f"bytes of shared memory a block, {TWO_BLOCKS_SMEM} at 512 threads; one row a rank at least)")
+    return fits[0]
 
 
 def fewest_bands(side_y: int, side_x: int, threads: int) -> int:
@@ -249,14 +253,15 @@ def _launch(entry: str, grids: tuple, occ, meta, ey, ex, live, accept, kw, plan:
     _lib.check(err, entry)
 
 
-def _plan(occ, n: int, kw: dict, in_place: bool, out, threads) -> RasterPlan:
-    """`raster_plan` for these grids on the card they lie on (for CPU
-    tensors the H100's: a CPU call is refused where a card's would be)."""
+def _plan(occ, n: int, kw: dict, in_place: bool, out, plan: RasterPlan | None) -> RasterPlan:
+    """``plan``, held to `layouts` for these grids on the card they lie on,
+    or `raster_plan`'s (for CPU tensors the H100's: a CPU call is refused
+    where a card's would be)."""
     b, h, w = occ.shape
     aligned = occ.data_ptr() % 16 == 0 and (out is None or out.data_ptr() % 16 == 0)
-    return raster_plan(b, h, w, kw["side_y"], kw["side_x"], n, int(kw["k"]), in_place=in_place,
-                       sm=_lib.sm_count(occ.device), aligned=aligned, threads=threads,
-                       capacity=_capacity(occ.device, kw["side_y"], kw["side_x"]))
+    return pallas.chosen("raster update", plan, raster_plan, layouts, b, h, w, kw["side_y"], kw["side_x"], n,
+                         int(kw["k"]), in_place=in_place, sm=_lib.sm_count(occ.device), aligned=aligned,
+                         capacity=_capacity(occ.device, kw["side_y"], kw["side_x"]))
 
 
 @functools.lru_cache(maxsize=16)
@@ -271,7 +276,7 @@ def _capacity(dev, side_y: int, side_x: int) -> int:
 
 def raster_update(occ, meta, ey, ex, live, accept=None, *, side_y: int, side_x: int, k: int,
                   p_occ_inc: float, p_free_decay: float, block_threshold: float,
-                  threads: int | None = None):
+                  plan: RasterPlan | None = None):
     """K2: one scan's occupancy update per robot, into new grids.
 
     Args:
@@ -283,8 +288,7 @@ def raster_update(occ, meta, ey, ex, live, accept=None, *, side_y: int, side_x: 
         updated only where its flag is true (the SLAM step's accept flag,
         kept on the device so the step needs no select over the grid).
       k: samples per ray (``> window_px``; any number).
-      threads: force the threads a block of `raster_plan` (512 or 1024;
-        both give the same bits).
+      plan: one of `layouts` (``None``: `raster_plan`'s).
 
     Returns the updated grids.  Launches the CUDA kernel for CUDA tensors
     (one launch); the plain version runs only for CPU tensors.
@@ -293,10 +297,10 @@ def raster_update(occ, meta, ey, ex, live, accept=None, *, side_y: int, side_x: 
               p_free_decay=p_free_decay, block_threshold=block_threshold)
     _check(occ, meta, ey, ex, live, accept, side_y, side_x)
     if occ.device.type == "cpu":
-        _plan(occ, ey.shape[1], kw, False, None, threads)
+        _plan(occ, ey.shape[1], kw, False, None, plan)
         return raster_update_plain(occ, meta, ey, ex, live, accept, **kw)
     out = torch.empty_like(occ)  # the kernel writes every cell
-    plan = _plan(occ, ey.shape[1], kw, False, out, threads)
+    plan = _plan(occ, ey.shape[1], kw, False, out, plan)
     _launch("slam_raster_update", (occ.data_ptr(), out.data_ptr()), occ, meta, ey, ex, live, accept, kw, plan)
     pallas.LAUNCHES["raster_update"] += 1
     return out
@@ -304,7 +308,7 @@ def raster_update(occ, meta, ey, ex, live, accept=None, *, side_y: int, side_x: 
 
 def raster_update_grid(occ, meta, ey, ex, live, accept=None, *, side_y: int, side_x: int, k: int,
                        p_occ_inc: float, p_free_decay: float, block_threshold: float,
-                       threads: int | None = None):
+                       plan: RasterPlan | None = None):
     """K4: one scan's occupancy update per robot, IN PLACE.
 
     Arguments as `raster_update`.  The
@@ -316,7 +320,7 @@ def raster_update_grid(occ, meta, ey, ex, live, accept=None, *, side_y: int, sid
     _check(occ, meta, ey, ex, live, accept, side_y, side_x)
     kw = dict(side_y=side_y, side_x=side_x, k=k, p_occ_inc=p_occ_inc,
               p_free_decay=p_free_decay, block_threshold=block_threshold)
-    plan = _plan(occ, ey.shape[1], kw, True, None, threads)
+    plan = _plan(occ, ey.shape[1], kw, True, None, plan)
     if occ.device.type == "cpu":
         return raster_update_grid_plain(occ, meta, ey, ex, live, accept, **kw)
     _launch("slam_raster_update_grid", (occ.data_ptr(),), occ, meta, ey, ex, live, accept, kw, plan)

@@ -137,17 +137,23 @@ def test_c2f_shared_memory_by_hand():
 
 
 def test_forced_c2f_variants_are_checked():
+    """Every layout of `layouts` runs the plain version on the CPU (every
+    tile, both gathers; 8 channels of t1 split over no cluster in 16-byte
+    units); a plan that is not one of them raises: a cluster of 4, a tile of 3, the 16-byte copies
+    at odd channels, a cluster in float32."""
     _, t = _case(2, 1, 6, 6, 16, 8, 16, jnp.bfloat16, torch.bfloat16)
     want = tc2f.c2f_fused_plain(*t)
-    for tile, cluster in ((2, 1), (4, None), (8, 1)):
-        assert torch.equal(tc2f.c2f_fused(*t, tile=tile, cluster=cluster), want)
-    with pytest.raises(ValueError, match="cluster"):
-        tc2f.c2f_fused(*t, cluster=4)  # 8 channels of t1 do not split four ways in 16-byte units
-    with pytest.raises(ValueError, match="tile"):
-        tc2f.c2f_fused(*t, tile=3)
+    listed = tc2f.layouts(2, 6, 6, 16, 8, 16, True)
+    assert {(p.tile, p.cluster, p.vec) for p in listed} == {(t_, 1, v) for t_ in tc2f.TILES for v in (True, False)}
+    for plan in listed:
+        assert torch.equal(tc2f.c2f_fused(*t, plan=plan), want)
+    with pytest.raises(ValueError, match="no layout"):
+        tc2f.c2f_fused(*t, plan=tc2f.C2fPlan(8, 4, True))
+    with pytest.raises(ValueError, match="no layout"):
+        tc2f.c2f_fused(*t, plan=tc2f.C2fPlan(3, 1, True))
     _, odd = _case(3, 1, 4, 4, 7, 5, 3, jnp.bfloat16, torch.bfloat16)
-    with pytest.raises(ValueError, match="16-byte"):
-        tc2f.c2f_fused(*odd, vec=True)
-    f32 = [a.float() for a in t]
-    with pytest.raises(ValueError, match="cluster"):
-        tc2f.c2f_fused(*f32, cluster=2)
+    with pytest.raises(ValueError, match="no layout"):
+        tc2f.c2f_fused(*odd, plan=tc2f.C2fPlan(4, 1, True))
+    f32 = [a.float() if a.dtype == torch.bfloat16 else a for a in t]
+    with pytest.raises(ValueError, match="no layout"):
+        tc2f.c2f_fused(*f32, plan=tc2f.C2fPlan(8, 2, False))

@@ -112,7 +112,6 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     x, w, b = torch.randn(1, 4, 4, 8), torch.randn(3, 3, 8, 8), torch.randn(8)
     assert torch.equal(tconv.conv3x3_silu(x, w, b), tconv.conv_bias_act_plain(x, w, b, 1, True))
     assert pallas.LAUNCHES == before
-    assert tconv.use_kernels(128, 20) and tconv.use_kernels(1, 640)
 
 
 # -- the variant the wrapper picks (`conv_plan`): the same choice the card gets
@@ -197,20 +196,26 @@ def test_every_shape_takes_some_variant():
 
 
 def test_forced_variants_are_checked_and_run_the_plain_version_on_cpu():
+    """Every layout of `layouts` runs the plain version on the CPU (the
+    gathers, every tile and split); a plan that is not one of them raises:
+    the 16-byte gather at Cin 3, a split of 3, a split in float32, the
+    warpgroup products at Cout 8."""
     x, w, b = (torch.randn(2, 6, 6, 16).bfloat16(), (torch.randn(3, 3, 16, 8) * 0.1).bfloat16(),
                torch.randn(8).bfloat16())
     want = tconv.conv_bias_act_plain(x, w, b, 1, True)
-    for vec, split in ((False, None), (None, 2), (True, 8), (False, 1)):
-        assert torch.equal(tconv.conv3x3_silu(x, w, b, vec=vec, split=split), want)
-    with pytest.raises(ValueError, match="multiples of 8"):
+    listed = tconv.layouts(2, 6, 6, 16, 8, 3, True)
+    assert {(p.vec, p.split) for p in listed} == {(v, s) for v in (True, False) for s in tconv.SPLITS}
+    for plan in listed:
+        assert torch.equal(tconv.conv3x3_silu(x, w, b, plan=plan), want)
+    with pytest.raises(ValueError, match="no layout"):
         tconv.conv3x3s2_silu(torch.zeros(1, 4, 4, 3).bfloat16(), torch.zeros(3, 3, 3, 16).bfloat16(),
-                             torch.zeros(16).bfloat16(), vec=True)
-    with pytest.raises(ValueError, match="split"):
-        tconv.conv3x3_silu(x, w, b, split=3)
-    with pytest.raises(ValueError, match="float32"):
-        tconv.conv1x1_silu(x.float(), w[1, 1].float(), b.float(), split=2)
-    with pytest.raises(ValueError, match="wgmma"):  # Cout 8 is no multiple of 64
-        tconv.conv3x3_silu(x, w, b, wgmma=True)
+                             torch.zeros(16).bfloat16(), plan=tconv.ConvPlan(True, 64, 16, 1))
+    with pytest.raises(ValueError, match="no layout"):
+        tconv.conv3x3_silu(x, w, b, plan=tconv.ConvPlan(True, 64, 16, 3))
+    with pytest.raises(ValueError, match="no layout"):
+        tconv.conv1x1_silu(x.float(), w[1, 1].float(), b.float(), plan=tconv.ConvPlan(False, 256, 16, 2))
+    with pytest.raises(ValueError, match="no layout"):  # Cout 8 is no multiple of 64
+        tconv.conv3x3_silu(x, w, b, plan=tconv.ConvPlan(True, 64, 64, 1, True))
 
 
 @pytest.mark.parametrize("cin,cout,vec,split", [(64, 8, None, None), (64, 96, None, None), (32, 96, None, None),
@@ -218,30 +223,43 @@ def test_forced_variants_are_checked_and_run_the_plain_version_on_cpu():
                                                 (256, 768, None, 4)])
 def test_forcing_wgmma_raises_where_it_cannot_run(cin, cout, vec, split):
     """Warpgroup products take Cout a multiple of 64, the 16-byte gather's
-    operands and no split: forcing them anywhere else raises.  Cin a
-    multiple of 64 takes the TMA-fed loop (its boxes are 64 channels and 64
-    columns wide), another Cin the 64-row kernel."""
-    with pytest.raises(ValueError, match="wgmma|multiples of 8"):
-        tconv.conv_plan(32, 64, 64, cin, cout, 1, True, vec=vec, split=split, wgmma=True)
+    operands and no split: `layouts` lists none elsewhere, and a plan of
+    them there raises.  Cin a multiple of 64 has the TMA-fed loop too (its
+    boxes are 64 channels and 64 columns wide), every other Cin the 64-row
+    kernel alone."""
+    plan = tconv.ConvPlan(vec is not False, 128, 64, split or 1, True, cin % 64 == 0)
+    assert plan not in tconv.layouts(32, 64, 64, cin, cout, 1, True)
+    x, w, b = (torch.zeros(1, 2, 2, cin).bfloat16(), torch.zeros(cin, cout).bfloat16(), torch.zeros(cout).bfloat16())
+    with pytest.raises(ValueError, match="no layout"):
+        tconv.conv1x1_silu(x, w, b, plan=plan)
     if vec is None and split is None and cin % 8 == 0:
-        assert tconv.conv_plan(32, 64, 64, cin, 64, 1, True, wgmma=True).tma == (cin % 64 == 0)
+        wide = [p for p in tconv.layouts(32, 64, 64, cin, 64, 1, True) if p.wgmma]
+        assert {p.tma for p in wide} == {False, cin % 64 == 0}
 
 
 @pytest.mark.parametrize("bsz,ho,cin,cout,k", [(8, 80, 64, 64, 3), (32, 80, 64, 64, 3), (1, 20, 256, 64, 3),
                                                (8, 40, 64, 128, 3), (2, 80, 128, 64, 1), (32, 64, 256, 768, 1),
                                                (32, 64, 512, 512, 3), (32, 32, 1280, 512, 1)])
 def test_wgmma_plan(bsz, ho, cin, cout, k):
-    """The TMA-fed warpgroup loop: 128 rows (two consumer warpgroups) and BN 128
-    where Cout is a multiple of 128 (else 64) when its 128-row tiles fill the
-    card's 132 SMs once or more, else 64 rows x 64 columns; no split, the
-    16-byte gather; its shared memory fits."""
-    plan = tconv.conv_plan(bsz, ho, ho, cin, cout, k, True, wgmma=True)
+    """The TMA-fed warpgroup loop's layouts: 128 rows (two consumer
+    warpgroups) with BN 128 where Cout is a multiple of 128, 128 x 64, and
+    64 x 64; no split, the 16-byte gather; their shared memory fits.  The
+    plan takes the widest 128-row one when its tiles fill the card's 132 SMs
+    once or more, else 64 x 64, wherever it takes the loop.  A split of the
+    loop raises."""
+    loop = [p for p in tconv.layouts(bsz, ho, ho, cin, cout, k, True) if p.tma]
+    assert [(p.bm, p.bn) for p in loop] == [(128, 128)] * (cout % 128 == 0) + [(128, 64), (64, 64)]
+    assert all(p.wgmma and p.vec and p.split == 1 and tconv.smem_bytes(p, True) <= tconv.SMEM_LIMIT for p in loop)
     tiles = -(-bsz * ho * ho // 128) * (cout // (128 if cout % 128 == 0 else 64))
-    assert plan.wgmma and plan.tma and plan.vec and plan.split == 1
-    assert (plan.bm, plan.bn) == ((128, 128 if cout % 128 == 0 else 64) if tiles >= 132 else (64, 64))
-    assert tconv.smem_bytes(plan, True) <= tconv.SMEM_LIMIT
+    taken = loop[0] if tiles >= 132 else loop[-1]
+    assert (taken.bm, taken.bn) == ((128, 128 if cout % 128 == 0 else 64) if tiles >= 132 else (64, 64))
+    plan = tconv.conv_plan(bsz, ho, ho, cin, cout, k, True)
+    assert not plan.tma or plan == taken
+    x, w, b = (torch.zeros(1, 2, 2, cin).bfloat16(), torch.zeros(k, k, cin, cout).bfloat16(),
+               torch.zeros(cout).bfloat16())
+    split = tconv.ConvPlan(True, taken.bm, taken.bn, 2, True, True)
     with pytest.raises(ValueError):
-        tconv.conv_plan(bsz, ho, ho, cin, cout, k, True, wgmma=True, split=2)
+        tconv.conv3x3_silu(x, w, b, plan=split) if k == 3 else tconv.conv1x1_silu(x, w[0, 0], b, plan=split)
 
 
 def test_yolo12l_sites_take_the_warpgroup_loop():

@@ -261,11 +261,16 @@ def test_icp_plan(b, t, want):
 
 
 def test_icp_plan_forced_and_refused():
-    assert k1.icp_plan(8, 512, 24576, CARD, row_groups=2, slices=16)[:3] == (2, 16, False)
-    assert k1.icp_plan(8, 512, 24576, CARD, slices=8, cluster=True)[:3] == (1, 8, True)
-    with pytest.raises(ValueError, match="do not fit"):  # the grid layout needs every block resident
-        k1.icp_plan(64, 512, 24576, CARD, slices=64)
-    with pytest.raises(ValueError, match="do not fit"):  # no cluster above 16 blocks
-        k1.icp_plan(1, 512, 24576, CARD, row_groups=2, slices=16, cluster=True)
+    """`layouts` lists the grid and cluster layouts that fit, each passing
+    `plan_fits` (the test `icp_fused` holds a given plan to); one that does
+    not fit is neither listed nor passes it; nothing fits: `icp_plan` raises."""
+    listed = [p[:3] for p in k1.layouts(8, 512, 24576, CARD)]
+    assert (2, 16, False) in listed and (2, 4, True) in listed
+    assert k1.plan_fits(8, 512, 24576, CARD, 1, 8, True)
+    assert all(k1.plan_fits(8, 512, 24576, CARD, *p) for p in listed)
+    # the grid layout needs every block resident
+    assert not k1.plan_fits(64, 512, 24576, CARD, 1, 64, False)
+    assert (1, 64, False) not in [p[:3] for p in k1.layouts(64, 512, 24576, CARD)]
+    assert not k1.plan_fits(1, 512, 24576, CARD, 2, 16, True)  # no cluster above 16 blocks
     with pytest.raises(ValueError, match="do not fit"):  # 15 grid-layout registrations of 24576 targets exceed the card
         k1.icp_plan(15, 512, 24576, k1.Card(20, _blocks_per_sm, _clusters))

@@ -250,19 +250,25 @@ def test_raster_copy_chunks_tile_the_grids_at_64_robots():
 
 def test_raster_plan_refuses_what_fits_no_layout():
     """A window not one row of which a rank fits in a block's shared memory
-    (a band of one row a rank), forced threads whose layout does not fit,
-    or no sample a ray: a ValueError, never another kernel or the plain
+    (a band of one row a rank), a plan of threads whose layout does not
+    fit, or no sample a ray: a ValueError, never another kernel or the plain
     version."""
     from icp_slam_yolo_tpu_torch.ops.pallas import raster_fused as rf
 
     with pytest.raises(ValueError, match="fits no layout"):  # one row a rank of Ty, Tx, Rx and the staged row
         rf.raster_plan(1, 64, 20000, 64, 20000, 512, 144, in_place=True)
-    with pytest.raises(ValueError, match="fits no layout"):  # fits 1024 threads (one band), not 512
-        rf.raster_plan(64, 32, 11000, 32, 11000, 512, 144, threads=512, in_place=True)
+    # fits 1024 threads (one band), not 512: a plan of 512 threads is refused
+    assert [p.threads for p in rf.layouts(64, 32, 11000, 32, 11000, 512, 144, in_place=True)] == [1024]
     assert rf.raster_plan(64, 32, 11000, 32, 11000, 512, 144, in_place=True).threads == 1024
+    occ = torch.full((1, 32, 11000), 0.5)
+    rays = (torch.zeros((1, 4), dtype=torch.int32),) * 2 + (torch.ones((1, 4), dtype=torch.bool),)
+    with pytest.raises(ValueError, match="no layout"):
+        rf.raster_update_grid(occ, torch.zeros((1, 4), dtype=torch.int32), *rays, side_y=32, side_x=11000, k=144,
+                              p_occ_inc=0.2, p_free_decay=0.9, block_threshold=0.65,
+                              plan=rf.RasterPlan(512, rf.smem_bytes(32, 11000, 512), 0, 0, 0, 1))
     with pytest.raises(ValueError, match="fits no layout"):
         rf.raster_plan(1, 833, 1000, 384, 384, 512, 0)
-    assert rf.raster_plan(1, 100, 120, 64, 64, 200, 30, threads=512).threads == 512
+    assert [p.threads for p in rf.layouts(1, 100, 120, 64, 64, 200, 30)] == [1024, 512]
 
 
 @pytest.mark.parametrize("case", ["1024x1024", "k=513", "416 at 512 threads", "640, k=1100"])
@@ -279,7 +285,7 @@ def test_raster_plan_takes_big_windows_in_bands(case):
         "416 at 512 threads": ((64, 864, 1024, 416, 416, 512, 144), 2, 512),
         "640, k=1100": ((8, 864, 1024, 640, 640, 1100, 1100), 3, 512),  # 8 robots: 512 threads
     }[case]
-    plan = rf.raster_plan(*args, threads=512 if case == "416 at 512 threads" else None)
+    plan = rf.raster_plan(*args)
     side_y, side_x = args[3], args[4]
     assert plan.bands == bands
     assert plan.threads == threads
